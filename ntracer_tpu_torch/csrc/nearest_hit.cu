@@ -6,6 +6,8 @@
 // pair test `_chunk_hits_vals`, entry bounds `_entry_all`).  Its plain
 // PyTorch twin is `nearest_hit_ref` in
 // ntracer_tpu_torch/engine/resident_kernels.py; the two agree bit for bit.
+// The entry pass, the candidate scan and the pair test live in
+// pair_test.cuh, shared with the occlusion walk (occluded.cu).
 //
 // What it computes.  One CUDA block walks one 512-ray block (a 32x16-pixel
 // tile), one thread per ray.  First every thread computes its slab entry
@@ -32,52 +34,11 @@
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).  No a*b+c
 // is contracted, so every operation rounds as in the twin.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pair_test.cuh"
 
 namespace {
 
-constexpr int RB = 512;          // rays per block
-constexpr int CK = 128;          // slots per chunk
-constexpr int CP = 8;            // padded coordinate rows of ci/ids
-constexpr int NW = RB / 32;      // warps per block
-constexpr int NCAND = 4;         // candidates picked per walk step
-constexpr int SENT = 1 << 30;    // "no candidate"
-constexpr float FUZZ = 1.1920928955078125e-06f;   // float32(eps * 10)
-constexpr float BIG = 3e37f;
-
-// min/max that return NaN when either side is NaN (as jnp/torch do)
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-
-template <int D>
-__device__ __forceinline__ float slab_entry(const float (&o)[D],
-                                            const float (&dv)[D],
-                                            const float (&inv)[D],
-                                            const float* __restrict__ klo_t,
-                                            const float* __restrict__ khi_t,
-                                            int ncp, int k) {
-  float tn = -BIG, tf = BIG;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    const float lo = klo_t[c * ncp + k];
-    const float hi = khi_t[c * ncp + k];
-    const bool par = dv[c] == 0.f;
-    const float a = (lo - o[c]) * inv[c];
-    const float b = (hi - o[c]) * inv[c];
-    const bool ins = (o[c] >= lo) && (o[c] <= hi);
-    const float t0 = par ? (ins ? -BIG : BIG) : nan_min(a, b);
-    const float t1 = par ? (ins ? BIG : -BIG) : nan_max(a, b);
-    tn = nan_max(tn, t0);
-    tf = nan_min(tf, t1);
-  }
-  const float entry = nan_max(tn, 0.f);
-  return (tf >= entry && tf >= 0.f) ? entry : INFINITY;
-}
+using namespace ntr;
 
 template <int D, bool SHARED>
 __global__ void __launch_bounds__(RB) nearest_kernel(
@@ -96,7 +57,7 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int blk = blockIdx.x;
   const int r = blk * RB + tid;
   const float it = init_t[r];
@@ -108,111 +69,25 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
   }
 
   float o[D], dv[D], inv[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    o[c] = oT[(size_t)c * R + r];
-    dv[c] = dT[(size_t)c * R + r];
-    inv[c] = dv[c] == 0.f ? 0.f : 1.f / dv[c];
-  }
+  load_ray<D>(oT, dT, R, r, o, dv, inv);
   const int sk = skip[r];
   float* emin = emin_all + (size_t)blk * n_eff;
 
-  // 1. min-over-rays slab entry of every chunk position, 32 at a time
-  for (int k0 = 0; k0 < n_eff; k0 += 32) {
-    float mine = INFINITY;
-    for (int kk = 0; kk < 32; ++kk) {
-      const int k = k0 + kk;
-      float e = k < n_eff ? slab_entry<D>(o, dv, inv, klo_t, khi_t, ncp, k)
-                          : INFINITY;
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
-      if (lane == kk) mine = e;
-    }
-    s_wmin[warp * 32 + lane] = mine;
-    __syncthreads();
-    if (tid < 32 && k0 + tid < n_eff) {
-      float m = s_wmin[tid];
-      for (int w = 1; w < NW; ++w) m = fminf(m, s_wmin[w * 32 + tid]);
-      emin[k0 + tid] = m;
-    }
-    __syncthreads();
-  }
+  // 1. min-over-rays slab entry of every chunk position
+  entry_minima<D>(o, dv, inv, klo_t, khi_t, ncp, n_eff, emin, s_wmin);
 
   float best = it;
   int best_id = -1;
   int nvis = 0;
 
-  auto block_max = [&](float v) -> float {
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) s_red[warp] = v;
-    __syncthreads();
-    float m = s_red[0];
-    for (int w = 1; w < NW; ++w) m = fmaxf(m, s_red[w]);
-    __syncthreads();
-    return m;
-  };
-
-  // next NCAND positions >= k0 with emin < bound (warp 0 scans, 32 a step)
-  auto find = [&](int k0, float bound, int (&cand)[NCAND]) {
-    if (warp == 0) {
-      int got = 0;
-      for (int base = k0; base < n_eff && got < NCAND; base += 32) {
-        const int p = base + lane;
-        const bool ok = p < n_eff && emin[p] < bound;
-        unsigned m = __ballot_sync(0xffffffffu, ok);
-        while (m && got < NCAND) {
-          if (lane == got) s_cand[got] = base + __ffs(m) - 1;
-          ++got;
-          m &= m - 1;
-        }
-      }
-      if (lane >= got && lane < NCAND) s_cand[lane] = SENT;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) cand[j] = s_cand[j];
-    __syncthreads();
-  };
-
   auto visit = [&](int idx) {
-    const float* g = gt + (size_t)idx * pr * CK;
-    const float* c = ci + (size_t)idx * CP * CK;
-    for (int i = tid; i < D * D * CK; i += RB) s_g[i] = g[i];
-    for (int i = tid; i < D * CK; i += RB) s_c[i] = c[i];
-    if (tid < CK) s_id[tid] = ids[(size_t)idx * CP * CK + tid];
-    __syncthreads();
-
+    stage_chunk<D>(gt, ci, ids, pr, idx, s_g, s_c, s_id);
     float cbest = INFINITY;
     int carg = 0;
     for (int l = 0; l < CK; ++l) {
-      float o0 = 0.f, dn = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        const float gv = s_g[k * CK + l];
-        if (!SHARED) o0 = o0 + o[k] * gv;
-        dn = dn + dv[k] * gv;
-      }
-      const float t = SHARED ? s_c[l] / dn : (s_c[l] - o0) / dn;
-      bool valid = (dn != 0.f) && (t > 0.f);
-      float tot = 0.f;
-#pragma unroll
-      for (int i = 1; i < D; ++i) {
-        float oi = 0.f, di = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          const float gv = s_g[(i * D + k) * CK + l];
-          if (!SHARED) oi = oi + o[k] * gv;
-          di = di + dv[k] * gv;
-        }
-        const float a = SHARED ? s_c[i * CK + l] - t * di
-                               : (s_c[i * CK + l] - oi) - t * di;
-        valid = valid && (a >= -FUZZ) && (a <= 1.f + FUZZ);
-        tot = tot + a;
-      }
-      valid = valid && (tot <= 1.f + FUZZ) && (s_id[l] != sk);
+      float t;
+      const bool valid =
+          pair_test<D, SHARED>(s_g, s_c, l, o, dv, t) && (s_id[l] != sk);
       if (valid && t < cbest) {
         cbest = t;
         carg = l;
@@ -227,11 +102,11 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
 
   // 2. the walk
   int cur[NCAND], nxt[NCAND];
-  find(0, block_max(best), cur);
+  find_cands(0, block_max(best, s_red), n_eff, emin, s_cand, cur);
   while (cur[0] != SENT) {
     // the next group is picked with the bound from before this group
     const int kn = cur[NCAND - 1] == SENT ? n_eff : cur[NCAND - 1] + 1;
-    find(kn, block_max(best), nxt);
+    find_cands(kn, block_max(best, s_red), n_eff, emin, s_cand, nxt);
     for (int j = 0; j < NCAND; ++j) {
       if (cur[j] != SENT) {
         visit(order[cur[j]]);

@@ -1,11 +1,12 @@
 """Build the CUDA kernels on first use and bind them with ctypes.
 
-Every ``ntracer_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface, under ``build/ntracer_tpu_torch/``
-beside the package (the counterpart of ``ntracer_tpu/native.py``'s
-build-on-first-use of its C++ k-d builder).  The library's name carries a
-hash of the sources and flags, so an edit rebuilds and a stale library is
-never loaded.
+Every ``ntracer_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process (all started together) and the objects are linked into one shared
+library with a plain C interface, under ``build/ntracer_tpu_torch/`` beside
+the package (where ``native.py`` builds the C++ k-d builder too).  The
+library's name carries a hash of the flags and of every file the build
+reads (the ``*.cu`` sources and the ``*.cuh`` headers they include), so an
+edit rebuilds and a stale library is never loaded.
 
 The flags keep IEEE float semantics: ``--fmad=false`` (no a*b+c
 contraction: the pair test and the slab entry must round every operation,
@@ -30,7 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -40,10 +41,19 @@ _I = ctypes.c_int
 # ntr_nearest_hit's C signature (csrc/nearest_hit.cu)
 _NEAREST_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                  _I, _I, _I, _P, _P, _P, _P, _P]
+# ntr_occluded's C signature (csrc/occluded.cu)
+_OCCLUDED_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                  _I, _I, _P, _P, _P, _P]
 
 
 def sources():
+    """The CUDA sources, one ``nvcc`` compile each."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers():
+    """The headers the sources include."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def find_nvcc():
@@ -55,14 +65,22 @@ def find_nvcc():
     return os.path.join(home, "bin", "nvcc")
 
 
-def nvcc_command(srcs, out, nvcc="nvcc"):
-    """The compile command for ``srcs`` -> shared library ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", out, *srcs]
+def nvcc_command(src, obj, nvcc="nvcc"):
+    """The compile command for one source ``src`` -> object ``obj``."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
 
 
-def library_path(srcs):
+def link_command(objs, out, nvcc="nvcc"):
+    """The link command for ``objs`` -> shared library ``out``."""
+    return [nvcc, "-shared", "-o", out, *objs]
+
+
+def library_path():
+    """The library's path: its name hashes the flags and every source and
+    header under ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sources() + headers():
+        h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     name = f"libntracer_kernels_{h.hexdigest()[:16]}.so"
@@ -71,24 +89,43 @@ def library_path(srcs):
 
 def build():
     """Compile the kernels if needed; returns the library's path.  The
-    compiler's output (ptxas register and shared-memory use) is kept in
+    compilers' output (ptxas register and shared-memory use) is kept in
     ``nvcc.log`` beside it."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out = library_path(srcs)
+    out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = nvcc_command(srcs, tmp, find_nvcc())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    tag = f"{os.path.basename(out)}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{tag}.{i}.o") for i in range(len(srcs))]
+    cmds = [nvcc_command(s, o, nvcc) for s, o in zip(srcs, objs)]
+    tmp = os.path.join(BUILD_DIR, f"{tag}.tmp")
+    try:
+        # one nvcc per source, all started together; then the link
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        runs = [(c, p.communicate()[0], p.returncode)
+                for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _c, _text, rc in runs):
+            cmd = link_command(objs, tmp, nvcc)
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            runs.append((cmd, proc.stdout, proc.returncode))
+        with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
+            for cmd, text, _rc in runs:
+                f.write(" ".join(cmd) + "\n" + text)
+        for _cmd, text, rc in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{text}")
+        os.replace(tmp, out)
+    finally:
+        for p in objs + [tmp]:
+            if os.path.exists(p):
+                os.remove(p)
     return out
 
 
@@ -100,6 +137,8 @@ def load():
             lib = ctypes.CDLL(build())
             lib.ntr_nearest_hit.argtypes = _NEAREST_ARGS
             lib.ntr_nearest_hit.restype = ctypes.c_int
+            lib.ntr_occluded.argtypes = _OCCLUDED_ARGS
+            lib.ntr_occluded.restype = ctypes.c_int
             lib.ntr_error_string.argtypes = [ctypes.c_int]
             lib.ntr_error_string.restype = ctypes.c_char_p
             _lib = lib

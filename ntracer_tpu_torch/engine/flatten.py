@@ -1,9 +1,9 @@
 """Scene flattening: Python KD tree / primitives -> SoA host arrays.
 
-A numpy copy of ``ntracer_tpu.engine.flatten`` (``SceneConfig``,
-``FlatScene``, ``flatten_composite``): that module cannot be imported
-without jax, because its package's ``__init__`` imports it.  The arrays are
-the same, array by array (tests/test_torch_flatten.py holds them equal).
+The port's own numpy copy of ``ntracer_tpu.engine.flatten``
+(``SceneConfig``, ``FlatScene``, ``flatten_composite``), over the port's
+own scene classes.  The arrays are the same as the JAX package's, array by
+array (tests/test_torch_flatten.py holds them equal).
 
 The reference's pointer-chasing KDBranch/KDLeaf tree with per-primitive
 virtual dispatch (tracer.hpp:792-1157) becomes:
@@ -24,8 +24,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ntracer_tpu.kdnodes import KDLeaf
-from ntracer_tpu.primitives import Triangle, TriangleBatch, Solid
+from ..kdnodes import KDLeaf
+from ..primitives import Triangle, TriangleBatch, Solid
+from ..scene import CompositeScene
 
 f32 = np.float32
 
@@ -55,6 +56,17 @@ class FlatScene:
     config: SceneConfig
     arrays: dict
     prim_objects: list = field(default_factory=list)
+
+
+def check_scene(scene, kinds):
+    """Raise TypeError unless ``scene`` is one of this package's scene
+    classes ``kinds``: the engine tells nodes and primitives apart with
+    ``isinstance``, so another package's scene would flatten to nothing."""
+    if not isinstance(scene, kinds):
+        raise TypeError(
+            f"expected a ntracer_tpu_torch scene, got "
+            f"{type(scene).__module__}.{type(scene).__qualname__}; build "
+            f"the scene with ntracer_tpu_torch.NTracer")
 
 
 def _walk_leaves(root):
@@ -100,6 +112,7 @@ def triangle_vertices(p1: np.ndarray, fn: np.ndarray, en: np.ndarray) -> np.ndar
 def flatten_composite(scene, chunk: int = 512,
                       max_transparent_hits: int = 8) -> FlatScene:
     """Flatten a CompositeScene into host arrays (numpy)."""
+    check_scene(scene, CompositeScene)
     d = scene.dimension
     leaves = _walk_leaves(scene.root)
 
@@ -152,7 +165,7 @@ def flatten_composite(scene, chunk: int = 512,
     t_pad = max(chunk, ((n_tris + chunk - 1) // chunk) * chunk)
 
     if not materials:
-        from ntracer_tpu.render import Material
+        from ..render import Material
         materials.append(Material((0, 0, 0)))
 
     p1a = np.asarray(tri_p1, dtype=f32).reshape(n_tris, d)

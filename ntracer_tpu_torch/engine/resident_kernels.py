@@ -1,4 +1,5 @@
-"""Front-to-back nearest-hit walk over a chunked triangle pool.
+"""Front-to-back walks over a chunked triangle pool: nearest hit and
+any-hit occlusion.
 
 The PyTorch counterpart of ``ntracer_tpu/engine/resident_kernels.py``:
 
@@ -7,10 +8,12 @@ The PyTorch counterpart of ``ntracer_tpu/engine/resident_kernels.py``:
     lays each bin out as one chunk of plane rows (copies of the JAX
     package's functions, which cannot be imported without jax);
   * per-frame prep (plain torch): ``chunk_order``, ``shared_rows_res``,
-    ``_scene_exit_T`` and ``_order_boxes``;
-  * the walk: ``nearest_hit`` launches the hand-written CUDA kernel
-    (``ntracer_tpu_torch/csrc/nearest_hit.cu``) on CUDA tensors and takes its
-    plain twin ``nearest_hit_ref`` on CPU tensors.
+    ``_scene_exit_T`` and ``_order_boxes``
+    (pool order's boxes are kept per scene);
+  * the walks: ``nearest_hit`` and ``occluded`` launch the hand-written
+    CUDA kernels (``ntracer_tpu_torch/csrc/nearest_hit.cu``, ``occluded.cu``)
+    on CUDA tensors and take their plain twins ``nearest_hit_ref`` and
+    ``occluded_ref`` on CPU tensors.
 
 The walk visits chunks by the TPU kernel's rule (``_nearest_walk_live``): per
 512-ray block, the next four candidate chunks (in visit order, whose
@@ -19,6 +22,12 @@ with the bound from *before* the previous group's updates, then visited.
 Within a chunk a ray keeps its best hit on strict ``<`` and the lowest lane
 wins a tie.  Both versions keep that rule and the same float operations in
 the same order (no FMA contraction), so they agree bit for bit.
+
+The occlusion walk (``_occlusion_walk`` of the TPU kernel) answers "is there
+any opaque hit with 0 < t < ldist" per ray.  Its bound is the largest
+``ldist`` among the block's rays that are not blocked yet, and its groups of
+four are picked the same way.  ``blocked`` is a monotone OR over visits, so
+any superset of the necessary chunks gives the same answer.
 """
 
 from __future__ import annotations
@@ -241,6 +250,18 @@ def _order_boxes(res, order, d):
     return klo_t, khi_t
 
 
+def _visit_boxes(res, order, d):
+    """(order, klo_t, khi_t) of a walk.  Without an ``order`` the walk goes
+    in pool order, whose boxes ``res["base_boxes"]`` holds where the scene's
+    tensors were made once (wavefront.tensors_from_arrays)."""
+    if order is not None:
+        return (order, *_order_boxes(res, order, d))
+    boxes = res.get("base_boxes")
+    if boxes is None:
+        boxes = _order_boxes(res, res["base_order"], d)
+    return (res["base_order"], *boxes)
+
+
 def _walk_inputs(res, oT, dT, skip, d, order, active, sh):
     """Inputs shared by the kernel and its twin: the walk's start distance
     (scene exit, 0 for inactive rays), per-block liveness and the chunk
@@ -248,12 +269,10 @@ def _walk_inputs(res, oT, dT, skip, d, order, active, sh):
     R = oT.shape[1]
     if R % RAY_BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {RAY_BLOCK}")
-    if order is None:
-        order = res["base_order"]
     init_t = _scene_exit_T(oT, dT, res["b_lo"], res["b_hi"])
     if active is not None:
         init_t = torch.where(active, init_t, 0.0)
-    klo_t, khi_t = _order_boxes(res, order, d)
+    order, klo_t, khi_t = _visit_boxes(res, order, d)
     blive = (torch.amax(init_t.reshape(-1, RAY_BLOCK), dim=1) > 0) \
         .to(torch.int32)
     return dict(d=d, shared=sh is not None, oT=oT, dT=dT, skip=skip,
@@ -392,10 +411,15 @@ def _walk_blocks(w, b0, b1):
     return best, best_id, visits
 
 
+def _twin_step(x):
+    """Blocks a twin walks together: bounds the (blocks, 512, 128) slabs'
+    memory."""
+    return 256 if x.is_cuda else 16
+
+
 def _walk_ref(w):
     nb = w["oT"].shape[1] // RAY_BLOCK
-    # blocks walked together: bounds the (blocks, 512, 128) slabs' memory
-    step = 256 if w["oT"].is_cuda else 16
+    step = _twin_step(w["oT"])
     ts, ids, vis = [], [], []
     for b0 in range(0, nb, step):
         t, i, v = _walk_blocks(w, b0, min(nb, b0 + step))
@@ -411,8 +435,85 @@ def nearest_hit_ref(res, oT, dT, skip, d, order=None, active=None, sh=None):
     return _walk_ref(_walk_inputs(res, oT, dT, skip, d, order, active, sh))
 
 
+def _occlusion_inputs(res, oT, dT, ldist, skip, d, order):
+    """Inputs shared by the occlusion kernel and its twin: per-block
+    liveness (any ray with ``ldist > 0``) and the chunk boxes in visit
+    order."""
+    R = oT.shape[1]
+    if R % RAY_BLOCK:
+        raise ValueError(f"ray count {R} is not a multiple of {RAY_BLOCK}")
+    order, klo_t, khi_t = _visit_boxes(res, order, d)
+    blive = (torch.amax(ldist.reshape(-1, RAY_BLOCK), dim=1) > 0) \
+        .to(torch.int32)
+    return dict(d=d, oT=oT, dT=dT, skip=skip, ldist=ldist, order=order,
+                n_eff=int(res["n_eff"]), blive=blive, klo_t=klo_t,
+                khi_t=khi_t, gt=res["gt"], ci=res["ci"], ids=res["ids"])
+
+
+def _occlusion_blocks(w, b0, b1):
+    """Twin occlusion walk of ray blocks [b0, b1), vectorized over blocks."""
+    d, n = w["d"], w["n_eff"]
+    nb = b1 - b0
+    sl = slice(b0 * RAY_BLOCK, b1 * RAY_BLOCK)
+    dev = w["oT"].device
+
+    def blocks(x):                      # (k, R) slice -> (k, nb, RB, 1)
+        return x[:, sl].reshape(x.shape[0], nb, RAY_BLOCK, 1)
+
+    o = blocks(w["oT"])
+    dv = blocks(w["dT"])
+    skip = w["skip"][sl].reshape(nb, RAY_BLOCK, 1)
+    ldist = w["ldist"][sl].reshape(nb, RAY_BLOCK)
+    blocked = torch.zeros((nb, RAY_BLOCK), dtype=torch.bool, device=dev)
+    visits = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    live_blk = w["blive"][b0:b1] != 0
+    if n == 0:
+        return blocked, visits
+
+    def lmax():                         # largest ldist of the unblocked rays
+        return torch.amax(torch.where(blocked, 0.0, ldist), dim=1)
+
+    emin = torch.amin(_entry_all(d, o, dv, w["klo_t"], w["khi_t"], n),
+                      dim=1)                                    # (nb, n)
+    order = w["order"].long()
+    none = torch.full((nb,), n, dtype=torch.int64, device=dev)
+    cur = _find_cands(emin, lmax(), torch.zeros_like(none), n)
+    cur[~live_blk] = SENT
+    while bool((cur[:, 0] < SENT).any()):
+        # the next group is picked with the bound from before this group
+        k0 = torch.where(cur[:, -1] < SENT, cur[:, -1] + 1, none)
+        nxt = _find_cands(emin, lmax(), k0, n)
+        for j in range(P_CAND):
+            sel = torch.nonzero(cur[:, j] < SENT).squeeze(1)
+            if sel.numel() == 0:
+                continue
+            idx = order[cur[sel, j]]
+            t, valid = _chunk_hits_vals(
+                d, False, w["gt"][idx], w["ci"][idx], w["ids"][idx, 0],
+                o[:, sel], dv[:, sel], skip[sel])
+            valid &= t < ldist[sel][:, :, None]
+            blocked[sel] |= torch.any(valid, dim=2)
+            visits[sel] += 1
+        cur = nxt
+    return blocked, visits
+
+
+def occluded_ref(res, oT, dT, ldist, skip, d, order=None):
+    """Plain-torch twin of ``occluded``: the same walk, the same visit rule
+    and the same float operations, over (blocks, 512, 128) slabs."""
+    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
+    nb = oT.shape[1] // RAY_BLOCK
+    step = _twin_step(oT)
+    bl, vis = [], []
+    for b0 in range(0, nb, step):
+        b, v = _occlusion_blocks(w, b0, min(nb, b0 + step))
+        bl.append(b.reshape(-1))
+        vis.append(v)
+    return torch.cat(bl), torch.cat(vis)
+
+
 # ---------------------------------------------------------------------------
-# The kernel wrapper
+# The kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _check(name, x, dtype, shape, device):
@@ -425,6 +526,29 @@ def _check(name, x, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_walk(w, dev):
+    """Check what both kernels take: the pool layout and the ray tensors.
+    Returns (R, blocks, plane rows, ncp, n_eff)."""
+    d = w["d"]
+    R = w["oT"].shape[1]
+    nc, pr, ck = w["gt"].shape
+    n = w["n_eff"]
+    if not 3 <= d <= C_PAD or ck != CK or pr != _pad8(d * d):
+        raise ValueError(f"unsupported pool layout {tuple(w['gt'].shape)} "
+                         f"for d={d}")
+    if not 0 <= n <= nc:
+        raise ValueError(f"n_eff={n} outside [0, {nc}]")
+    f32, i32 = torch.float32, torch.int32
+    _check("oT", w["oT"], f32, (d, R), dev)
+    _check("dT", w["dT"], f32, (d, R), dev)
+    _check("skip", w["skip"], i32, (R,), dev)
+    _check("order", w["order"], i32, (nc,), dev)
+    _check("gt", w["gt"], f32, (nc, pr, CK), dev)
+    _check("ci", w["ci"], f32, (nc, C_PAD, CK), dev)
+    _check("ids", w["ids"], i32, (nc, C_PAD, CK), dev)
+    return R, R // RAY_BLOCK, pr, w["klo_t"].shape[1], n
 
 
 def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
@@ -448,24 +572,8 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
     from . import _build
     lib = _build.load()
 
-    R = oT.shape[1]
-    nb = R // RAY_BLOCK
-    nc, pr, ck = w["gt"].shape
-    ncp = w["klo_t"].shape[1]
-    n = w["n_eff"]
-    if not 3 <= d <= C_PAD or ck != CK or pr != _pad8(d * d):
-        raise ValueError(f"unsupported pool layout {tuple(w['gt'].shape)} "
-                         f"for d={d}")
-    if not 0 <= n <= nc:
-        raise ValueError(f"n_eff={n} outside [0, {nc}]")
+    R, nb, pr, ncp, n = _check_walk(w, dev)
     f32, i32 = torch.float32, torch.int32
-    _check("oT", oT, f32, (d, R), dev)
-    _check("dT", dT, f32, (d, R), dev)
-    _check("skip", skip, i32, (R,), dev)
-    _check("order", w["order"], i32, (nc,), dev)
-    _check("gt", w["gt"], f32, (nc, pr, CK), dev)
-    _check("ci", w["ci"], f32, (nc, C_PAD, CK), dev)
-    _check("ids", w["ids"], i32, (nc, C_PAD, CK), dev)
     init_t = w["init_t"].contiguous()
     blive = w["blive"].contiguous()
 
@@ -489,3 +597,47 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
 
 
 nearest_hit.launches = 0
+
+
+def occluded(res, oT, dT, ldist, skip, d, order=None):
+    """Any opaque hit with 0 < t < ``ldist`` over the chunked pool.
+
+    ``oT``/``dT`` (d, R) rays, ``ldist`` (R,) f32 (<= 0 marks an inactive
+    ray), ``skip`` (R,) i32 pool id never hit (or -1), ``order`` the chunk
+    visit order (default pool order).
+
+    Returns (blocked (R,) bool, visits (R // RAY_BLOCK,) i32 chunks visited
+    per block).  On CUDA tensors the CUDA kernel runs (and
+    ``occluded.launches`` counts it); on CPU tensors the plain twin
+    ``occluded_ref`` does.  A block without an active ray costs the kernel
+    one load per ray and no walk."""
+    dev = oT.device
+    if dev.type == "cpu":
+        return occluded_ref(res, oT, dT, ldist, skip, d, order=order)
+    if dev.type != "cuda":
+        raise ValueError(f"occluded runs on cuda or cpu, not {dev}")
+    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
+    from . import _build
+    lib = _build.load()
+
+    R, nb, pr, ncp, n = _check_walk(w, dev)
+    _check("ldist", ldist, torch.float32, (R,), dev)
+    blive = w["blive"].contiguous()
+    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
+    visits = torch.empty((nb,), dtype=torch.int32, device=dev)
+    emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ntr_occluded(
+        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
+        w["order"].data_ptr(), n, blive.data_ptr(),
+        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
+        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(), pr,
+        R, d, blocked.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"occluded kernel launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+    occluded.launches += 1
+    return blocked, visits
+
+
+occluded.launches = 0

@@ -1,10 +1,12 @@
 """PyTorch wavefront renderer: a whole frame of rays advances in lockstep.
 
 The counterpart of ``ntracer_tpu/engine/wavefront.py`` for opaque triangle
-``CompositeScene``s with d <= 8 and for ``BoxScene``: rays are generated in
-32x16-pixel tile order, traced by the nearest-hit walk
-(``resident_kernels.nearest_hit``), shaded, bounced, packed to pixel bytes on
-the device, and pulled into the caller's buffer.  Function names follow the
+``CompositeScene``s with d <= 8 (lights, shadows and reflections included)
+and for ``BoxScene``: rays are generated in 32x16-pixel tile order, traced by
+the nearest-hit walk (``resident_kernels.nearest_hit``), shaded -- with one
+occlusion walk (``resident_kernels.occluded``) per light when the scene
+casts shadows -- bounced, packed to pixel bytes on the device, and pulled
+into the caller's buffer.  Function names follow the
 JAX module so each has a visible counterpart.
 
 Layouts stay lane-major as in the JAX package's transposed pipeline: rays
@@ -24,7 +26,8 @@ import torch
 
 from . import packing
 from . import resident_kernels as rk
-from .flatten import flatten_composite, SceneConfig
+from .flatten import check_scene, flatten_composite, SceneConfig
+from ..scene import BoxScene, CompositeScene
 
 f32 = torch.float32
 CHUNK = 512
@@ -34,6 +37,8 @@ TILE_W = 32
 TILE_H = rk.RAY_BLOCK // TILE_W
 
 REAL_MAX = float(np.finfo(np.float32).max)
+# point lights dimmer than this cast no shadow ray (tracer.hpp:31)
+LIGHT_THRESHOLD = 1.0 / 512.0
 ROUNDING_FUZZ = float(np.float32(np.finfo(np.float32).eps * 10))
 
 
@@ -183,7 +188,10 @@ def _frame_coords(groups, w, device):
 def tensors_from_arrays(arrs, device):
     """Device dict of numpy arrays (the JAX package's ``get_device_scene``
     layout, as numpy) -> the port's tensors on ``device``.  ``res_neff``
-    becomes a Python int: the walk's launch reads it on the host."""
+    becomes a Python int: the walk's launch reads it on the host.  Added
+    once per scene: ``res_base_boxes``, the chunk boxes in pool order as
+    the walks take them (every occlusion and bounce walk goes in that
+    order)."""
     out = {}
     for k, v in arrs.items():
         v = np.asarray(v)
@@ -191,6 +199,10 @@ def tensors_from_arrays(arrs, device):
             out[k] = int(v.reshape(-1)[0])
         else:
             out[k] = torch.tensor(v, device=device)
+    if "res_klo" in out:
+        out["res_base_boxes"] = rk._order_boxes(
+            dict(klo=out["res_klo"], khi=out["res_khi"]), out["res_order"],
+            out["res_klo"].shape[1])
     return out
 
 
@@ -250,13 +262,13 @@ def device_arrays(flat):
 def get_device_scene(scene, device):
     """Flatten a CompositeScene and move its layouts to ``device``, cached
     on the scene as ``_torch_cache`` (keyed on ``scene._version`` and the
-    device; the JAX engine's ``_device_cache`` is never touched).  Render
-    flags are re-read from the scene on every call."""
+    device).  Render flags are re-read from the scene on every call."""
+    check_scene(scene, CompositeScene)
     if scene.dimension > rk.C_PAD:
         raise _unsupported(f"a {scene.dimension}-D scene (d > 8)", 10)
     device = torch.device(device)
     key = (scene._version, str(device))
-    cache = getattr(scene, "_torch_cache", None)
+    cache = scene._torch_cache
     if cache is None or cache[0] != key:
         flat = flatten_composite(scene, chunk=CHUNK)
         cache = (key, flat.config,
@@ -276,8 +288,6 @@ def get_device_scene(scene, device):
 def check_supported(cfg: SceneConfig):
     """Raise NotImplementedError for scene features outside this port
     (d > 8 is refused earlier, by get_device_scene)."""
-    if cfg.shadows and (cfg.n_point_lights or cfg.n_global_lights):
-        raise _unsupported("shadows", 4)
     if cfg.has_transparency:
         raise _unsupported("transparency", 7)
     if cfg.n_solids:
@@ -298,7 +308,8 @@ def _res_dict(arrs):
     return dict(gt=arrs["res_gt"], ci=arrs["res_ci"], ids=arrs["res_ids"],
                 klo=arrs["res_klo"], khi=arrs["res_khi"],
                 b_lo=arrs["res_blo"], b_hi=arrs["res_bhi"],
-                n_eff=arrs["res_neff"], base_order=arrs["res_order"])
+                n_eff=arrs["res_neff"], base_order=arrs["res_order"],
+                base_boxes=arrs.get("res_base_boxes"))
 
 
 def primary_ctx(arrs, cfg, origin):
@@ -392,12 +403,45 @@ def aabb_distance_T(cfg, arrs, oT, dT):
     return result
 
 
-def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, mi, depth,
-                  dyn):
-    """Local shading without shadows (tracer.hpp:1768-1854): (d, R) geometry
-    -> (3, R) color, (3, R) child coefficient, (d, R) child direction."""
-    if cfg.shadows and (cfg.n_point_lights or cfg.n_global_lights):
-        raise _unsupported("shadows", 4)
+def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
+    """Shadow query (light_reaches, tracer.hpp:1750-1766, with true any-hit
+    semantics): is there an opaque hit with 0 < t < ``ldist`` along each
+    (d, R) ray?  -> blocked (R,) bool.
+
+    Rays with ``ldist <= 0`` are inactive; the walk skips ray blocks without
+    an active ray, so a wholly inactive batch costs one short launch and no
+    host sync.  ``clamp_exit`` cuts ``ldist`` to the ray's exit from the
+    pool's box, which bounds a global light's infinite distance (no pool hit
+    lies beyond it); point-light queries arrive finite and skip it.  ``skip``
+    is the pool id of the surface the ray leaves."""
+    if cfg.has_transparency:
+        raise _unsupported("transparency", 7)
+    res_k = _res_dict(arrs)
+    skip_local = skip - arrs["tri_base"]
+    if clamp_exit:
+        pool_ldist = torch.minimum(
+            ldist, rk._scene_exit_T(oT, dT, res_k["b_lo"], res_k["b_hi"]))
+    else:
+        pool_ldist = ldist
+    blocked, _vis = rk.occluded(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+    return _occlusion_finish(cfg, blocked)
+
+
+def _occlusion_finish(cfg, blocked):
+    """What the pool walk does not cover: solids are tested here, against
+    the unclamped ``ldist`` (not ported)."""
+    if cfg.n_solids:
+        raise _unsupported("solids", 8)
+    return blocked
+
+
+def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
+                  dyn, active=None):
+    """Local shading (tracer.hpp:1768-1854): (d, R) geometry -> (3, R)
+    color, (3, R) child coefficient, (d, R) child direction.  With
+    ``cfg.shadows`` every light casts one occlusion query from the hit
+    points (skipping the surface ``pid`` they lie on), for the rays in
+    ``active`` that face the light."""
     R = dT.shape[1]
     dev = dT.device
     rowT = arrs["mat_pack"][mi.long()].T
@@ -411,6 +455,17 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, mi, depth,
     specular = torch.zeros((3, R), dtype=f32, device=dev)
     spec_a = torch.zeros((R,), dtype=f32, device=dev)
 
+    def add_specular(specular, spec_a, filteredT, light_dirT, mask):
+        """Blinn-Phong highlight of one light (tracer.hpp:1701-1707)."""
+        mask = mask & (spec_int != 0)
+        h = _unitT(light_dirT - dT)
+        base = _powf(_dotT(normalT, h), spec_exp) * spec_int
+        new_s = specular + mspec * filteredT * (base * (1 - spec_a))[None, :]
+        new_a = spec_a + base * (1 - spec_a)
+        new_s = new_s * new_a[None, :]
+        return (torch.where(mask[None, :], new_s, specular),
+                torch.where(mask, new_a, spec_a))
+
     for li in range(cfg.n_point_lights):
         plp = arrs["pl_pos"][li]
         plc = arrs["pl_color"][li]
@@ -419,15 +474,44 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, mi, depth,
         lv = lv / dist[None, :]
         sine = _dotT(normalT, lv)
         strength = 1.0 / _integer_pow(dist, cfg.d - 1)
-        contrib = plc[:, None] * (strength * sine)[None, :]
-        light = light + torch.where((sine > 0)[None, :], contrib, 0.0)
+        if cfg.shadows:
+            want = (sine > 0) & (torch.amax(plc) * strength * sine
+                                 > LIGHT_THRESHOLD)
+            if active is not None:
+                want = want & active
+            blocked = occlusion(arrs, cfg, pointT, lv,
+                                torch.where(want, dist, 0.0), pid,
+                                clamp_exit=False)
+            ok = want & ~blocked
+            filteredT = plc[:, None] * strength[None, :]
+            light = light + torch.where(ok[None, :],
+                                        filteredT * sine[None, :], 0.0)
+            specular, spec_a = add_specular(specular, spec_a, filteredT, lv,
+                                            ok)
+        else:
+            contrib = plc[:, None] * (strength * sine)[None, :]
+            light = light + torch.where((sine > 0)[None, :], contrib, 0.0)
 
     for gi in range(cfg.n_global_lights):
         gld = arrs["gl_dir"][gi]
         glc = arrs["gl_color"][gi]
         sine = -_dotT(normalT, gld[:, None])
-        light = light + torch.where((sine > 0)[None, :],
-                                    glc[:, None] * sine[None, :], 0.0)
+        if cfg.shadows:
+            want = sine > 0
+            if active is not None:
+                want = want & active
+            ldT = (-gld)[:, None].expand_as(pointT).contiguous()
+            blocked = occlusion(arrs, cfg, pointT, ldT,
+                                torch.where(want, REAL_MAX, 0.0), pid)
+            ok = want & ~blocked
+            filteredT = glc[:, None].expand(3, R)
+            light = light + torch.where(ok[None, :],
+                                        filteredT * sine[None, :], 0.0)
+            specular, spec_a = add_specular(specular, spec_a, filteredT, ldT,
+                                            ok)
+        else:
+            light = light + torch.where((sine > 0)[None, :],
+                                        glc[:, None] * sine[None, :], 0.0)
 
     sine = -_dotT(dT, normalT)
     if cfg.camera_light:
@@ -477,9 +561,10 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None):
                          pctx=pctx if depth == 0 else None)
         dist = aabb_distance_T(cfg, arrs, oT, dT)
         hit = res["hit"] & (dist >= 0)
+        live = hit if depth == 0 else hit & active
         localT, child_coefT, child_dirT = shade_local_T(
-            arrs, cfg, dT, res["pointT"], res["normalT"], res["mat"], depth,
-            dyn)
+            arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"],
+            res["mat"], depth, dyn, active=live)
         bgT = background_T(cfg, dyn, dT)
         color_hereT = torch.where(hit[None, :], localT, bgT)
         out = out + torch.where(active[None, :], weight * color_hereT, 0.0)
@@ -566,7 +651,8 @@ def _frame(scene, width, height, key, device):
     cam_t = torch.as_tensor(np.asarray(scene._cam._t, np.float32),
                             device=device)
     groups = _frame_groups(-(-(width * height) // TILE))
-    if hasattr(scene, "_device_cache"):
+    check_scene(scene, (CompositeScene, BoxScene))
+    if isinstance(scene, CompositeScene):
         cfg, arrs, _flat = get_device_scene(scene, device)
         return _frame_packed_composite(arrs, cfg, _scene_dyn(scene, device),
                                        cam_origin, cam_t, fov, groups, width,

@@ -9,17 +9,19 @@ import torch
 
 from ntracer_tpu.engine import flatten as jflat
 from ntracer_tpu.engine import resident_kernels as jrk
+from ntracer_tpu_torch import NTracer
 from ntracer_tpu_torch.engine import flatten as pflat
 from ntracer_tpu_torch.engine import resident_kernels as prk
 from ntracer_tpu_torch.engine import wavefront as pwf
 
-from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
-                            jax_device_scene)
+from _torch_helpers import (JAX, PORT, random_scene, polytope_scene,
+                            reflective_scene, jax_device_scene)
 
+# each package flattens a scene of its own classes, built from one seed
 SCENES = {
-    "3d_random": lambda: random_scene(3, n=700, seed=3),
-    "4d_600cell": lambda: polytope_scene(),
-    "3d_reflective_lit": lambda: reflective_scene(),
+    "3d_random": lambda pkg=PORT: random_scene(3, n=700, seed=3, pkg=pkg),
+    "4d_600cell": lambda pkg=PORT: polytope_scene(pkg=pkg),
+    "3d_reflective_lit": lambda pkg=PORT: reflective_scene(pkg=pkg),
 }
 
 
@@ -32,17 +34,18 @@ def _assert_same_array(a, b, name):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_flatten_matches_jax(name):
-    scene = SCENES[name]()
-    ref = jflat.flatten_composite(scene, chunk=512)
-    got = pflat.flatten_composite(scene, chunk=512)
+    ref = jflat.flatten_composite(SCENES[name](JAX), chunk=512)
+    got = pflat.flatten_composite(SCENES[name](), chunk=512)
     ref_cfg = dataclasses.asdict(ref.config)
     assert ref_cfg.pop("prim_axis") is None
     assert dataclasses.asdict(got.config) == ref_cfg
     assert sorted(got.arrays) == sorted(ref.arrays)
     for k in ref.arrays:
         _assert_same_array(got.arrays[k], ref.arrays[k], k)
-    assert [(id(o), i) for o, i in got.prim_objects] == \
-        [(id(o), i) for o, i in ref.prim_objects]
+    assert [(type(o).__name__, i) for o, i in got.prim_objects] == \
+        [(type(o).__name__, i) for o, i in ref.prim_objects]
+    assert all(type(o).__module__ == "ntracer_tpu_torch.primitives"
+               for o, _ in got.prim_objects)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -71,7 +74,7 @@ def test_centroid_bins_and_cells_match_jax(name):
 def test_device_arrays_match_jax(name, monkeypatch):
     """Every array of the port's device scene (the chunk layouts and
     res_slot_pack included) equals the JAX engine's array of that name."""
-    _cfg, ref, _flat = jax_device_scene(SCENES[name](), monkeypatch)
+    _cfg, ref, _flat = jax_device_scene(SCENES[name](JAX), monkeypatch)
     got = pwf.device_arrays(pflat.flatten_composite(SCENES[name](),
                                                     chunk=512))
     assert "res_slot_pack" in got and "res_gt" in got
@@ -81,9 +84,15 @@ def test_device_arrays_match_jax(name, monkeypatch):
 
 
 def test_tensors_from_arrays_round_trip(monkeypatch):
-    _cfg, arrs, _flat = jax_device_scene(polytope_scene(), monkeypatch)
+    _cfg, arrs, _flat = jax_device_scene(polytope_scene(pkg=JAX),
+                                         monkeypatch)
     tens = pwf.tensors_from_arrays(arrs, "cpu")
-    assert sorted(tens) == sorted(arrs)
+    # every array, plus the pool-order chunk boxes made once per scene
+    assert sorted(tens) == sorted([*arrs, "res_base_boxes"])
+    res = pwf._res_dict(tens)
+    for got, want in zip(tens["res_base_boxes"], prk._order_boxes(
+            res, res["base_order"], arrs["res_klo"].shape[1])):
+        assert torch.equal(got, want)
     for k, v in arrs.items():
         if k == "res_neff":
             assert tens[k] == int(v[0])
@@ -95,11 +104,11 @@ def test_tensors_from_arrays_round_trip(monkeypatch):
 
 def test_device_scene_cache_keyed_on_version():
     """The port caches on ``_torch_cache`` keyed on the scene version and
-    the device, re-reads render flags per call, and never fills the JAX
-    engine's ``_device_cache``."""
+    the device, re-reads render flags per call, and drops the cache when
+    the scene's geometry or lights change."""
     scene = random_scene(3, n=200, seed=1)
+    assert scene._torch_cache is None
     cfg, arrs, _ = pwf.get_device_scene(scene, "cpu")
-    assert scene._device_cache is None
     assert pwf.get_device_scene(scene, "cpu")[1] is arrs
     scene.set_max_reflect_depth(2)
     scene.set_camera_light(False)
@@ -110,4 +119,7 @@ def test_device_scene_cache_keyed_on_version():
     for k, v in arrs.items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, arrs2[k]), k
-    assert scene._device_cache is None
+    assert scene._torch_cache is not None
+    nt = NTracer(3)
+    scene.add_light(nt.GlobalLight(nt.Vector(0, -1, 0), (1, 1, 1)))
+    assert scene._torch_cache is None

@@ -13,15 +13,15 @@ import jax.numpy as jnp
 
 from ntracer_tpu.engine import wavefront as jwf
 from ntracer_tpu.engine import packing as jpack
-from ntracer_tpu.render import (ImageFormat, Channel, Material, LockedError,
-                                BlockingRenderer as JaxRenderer)
-from ntracer_tpu.wrapper import NTracer, CUBE
+import ntracer_tpu
+from ntracer_tpu.render import BlockingRenderer as JaxRenderer
 import ntracer_tpu_torch
-from ntracer_tpu_torch import BlockingRenderer
+from ntracer_tpu_torch import (BlockingRenderer, NTracer, CUBE, ImageFormat,
+                               Channel, Material, LockedError)
 from ntracer_tpu_torch.engine import wavefront as pwf
 from ntracer_tpu_torch.engine import packing as ppack
 
-from _torch_helpers import (REPO, random_scene, polytope_scene,
+from _torch_helpers import (REPO, JAX, PORT, api, random_scene, polytope_scene,
                             reflective_scene, rgb8, formats,
                             jax_device_scene)
 
@@ -98,18 +98,21 @@ def test_packed_bytes_match_jax(name):
 
 
 def test_box_scene_bytes_match_jax():
-    """BoxScene needs no walk: ray order, unswizzle and packing alone."""
-    nt = NTracer(4)
-    scene = nt.BoxScene()
-    cam = nt.Camera()
-    cam.translate(nt.Vector.axis(2, -3))
-    cam.transform(nt.Matrix.rotation(cam.axes[2], cam.axes[0], 0.4))
-    scene.set_camera(cam)
+    """BoxScene needs no walk: ray order, unswizzle and packing alone.
+    Each renderer gets the box scene of its own package."""
+    scenes = []
+    for nt in (api(JAX).NTracer(4), NTracer(4)):
+        scene = nt.BoxScene()
+        cam = nt.Camera()
+        cam.translate(nt.Vector.axis(2, -3))
+        cam.transform(nt.Matrix.rotation(cam.axes[2], cam.axes[0], 0.4))
+        scene.set_camera(cam)
+        scenes.append(scene)
     for fmt in (rgb8(96, 48), formats(64, 32)["rgb565"]):
         ref = bytearray(fmt.pitch * fmt.height)
         got = bytearray(fmt.pitch * fmt.height)
-        assert JaxRenderer().render(ref, fmt, scene)
-        assert BlockingRenderer(device="cpu").render(got, fmt, scene)
+        assert JaxRenderer().render(ref, fmt, scenes[0])
+        assert BlockingRenderer(device="cpu").render(got, fmt, scenes[1])
         assert got == ref
 
 
@@ -131,15 +134,15 @@ def _jax_frame_colors(scene, w, h):
 
 
 FRAME_SCENES = {
-    "4d_600cell": lambda: polytope_scene(),
-    "3d_reflective": lambda: reflective_scene(),
+    "4d_600cell": lambda pkg: polytope_scene(pkg=pkg),
+    "3d_reflective": lambda pkg: reflective_scene(pkg=pkg),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FRAME_SCENES))
 def test_composite_frame_matches_jax_and_oracle(name, monkeypatch):
-    jscene = FRAME_SCENES[name]()
-    pscene = FRAME_SCENES[name]()
+    jscene = FRAME_SCENES[name](JAX)
+    pscene = FRAME_SCENES[name](PORT)
     if name == "3d_reflective":
         for s in (jscene, pscene):
             s.set_max_reflect_depth(2)
@@ -210,9 +213,10 @@ def _scene_with(feature):
     if feature == "transparency":
         return random_scene(3, n=20, seed=1,
                             material=Material((1, 1, 1), opacity=0.5))
-    scene = random_scene(3, n=20, seed=1)
     nt = NTracer(3)
-    if feature == "shadows":
+    if feature == "shadows_transparent":
+        scene = random_scene(3, n=20, seed=1,
+                             material=Material((1, 1, 1), opacity=0.5))
         scene.add_light(nt.PointLight(nt.Vector(0, 4, -4), (1, 1, 1)))
         scene.set_shadows(True)
         return scene
@@ -228,7 +232,7 @@ def _scene_with(feature):
     return scene
 
 
-@pytest.mark.parametrize("feature,item", [("shadows", 4),
+@pytest.mark.parametrize("feature,item", [("shadows_transparent", 7),
                                           ("transparency", 7),
                                           ("solid", 8), ("d9", 10)])
 def test_unsupported_scenes_raise(feature, item):
@@ -238,6 +242,21 @@ def test_unsupported_scenes_raise(feature, item):
         BlockingRenderer(device="cpu").render(
             bytearray(fmt.pitch * 32), fmt, scene)
     assert not scene.locked
+
+
+def test_scene_of_the_other_package_raises():
+    """The two packages' scene classes are distinct: a scene built by
+    ntracer_tpu handed to the port's renderer raises a TypeError that says
+    so, rather than flattening to an empty pool."""
+    fmt = rgb8(32, 32)
+    buf = bytearray(fmt.pitch * 32)
+    nt = api(JAX).NTracer(3)
+    for scene in (random_scene(3, n=10, seed=1, pkg=JAX), nt.BoxScene()):
+        with pytest.raises(TypeError, match="ntracer_tpu_torch.NTracer"):
+            BlockingRenderer(device="cpu").render(buf, fmt, scene)
+        assert not scene.locked
+    with pytest.raises(TypeError, match="ntracer_tpu_torch.NTracer"):
+        pwf.get_device_scene(random_scene(3, n=10, seed=1, pkg=JAX), "cpu")
 
 
 def test_wide_integer_channels_raise():
@@ -301,6 +320,7 @@ def test_port_never_imports_jax():
         "assert BlockingRenderer(device='cpu').render(buf, fmt, scene)\n"
         "assert any(buf)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'ntracer_tpu' not in sys.modules, 'ntracer_tpu was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "NTRACER_PLATFORM"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -313,5 +333,15 @@ def test_package_exports():
     for name in ("Color", "Material", "Channel", "ImageFormat", "NTracer",
                  "CUBE", "SPHERE", "BlockingRenderer"):
         assert name in ntracer_tpu_torch.__all__
-    assert ntracer_tpu_torch.NTracer is NTracer
+    # the port's names are its own, never the JAX package's objects
+    for name in ntracer_tpu_torch.__all__:
+        obj = getattr(ntracer_tpu_torch, name)
+        if isinstance(obj, int):        # CUBE, SPHERE
+            continue
+        mod = getattr(obj, "__module__", None) or obj.__name__
+        assert mod.startswith("ntracer_tpu_torch"), name
+        assert obj is not getattr(ntracer_tpu, name, None), name
     assert ntracer_tpu_torch.BlockingRenderer is not JaxRenderer
+    nt = ntracer_tpu_torch.NTracer(5)
+    assert nt.base.__name__ == "ntracer_tpu_torch.tracer5"
+    assert type(nt.Vector(1, 2, 3, 4, 5)).__module__ == "ntracer_tpu_torch.api"

@@ -1,5 +1,5 @@
-"""ntracer_tpu_torch on a CUDA card: the kernel against its twin, and the
-card's frame against the CPU's.  Every test here is marked ``gpu`` and skips
+"""ntracer_tpu_torch on a CUDA card: each kernel against its twin, and the
+card's frames against the CPU's.  Every test here is marked ``gpu`` and skips
 without a card.  The file imports no jax, so it also runs where only torch
 is installed:
 
@@ -15,7 +15,7 @@ from ntracer_tpu_torch.engine import wavefront as pwf
 from ntracer_tpu_torch.engine import resident_kernels as prk
 
 from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
-                            rgb8)
+                            lit_scene, lit_scene_3d, rgb8)
 
 pytestmark = pytest.mark.gpu
 W = H = 64
@@ -84,6 +84,66 @@ def test_card_frame_matches_cpu_frame(cuda):
     assert torch.equal(res_c["pid"].cpu(), res["pid"])
     assert torch.equal(res_c["t"].cpu(), res["t"])
     got = pwf.frame_colors(scene, W, H, cuda)
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+    fmt = rgb8(W, H)
+    a = bytearray(fmt.pitch * H)
+    b = bytearray(fmt.pitch * H)
+    assert BlockingRenderer().render(a, fmt, scene)
+    assert BlockingRenderer(device="cpu").render(b, fmt, scene)
+    diff = np.abs(np.frombuffer(bytes(a), np.uint8).astype(int)
+                  - np.frombuffer(bytes(b), np.uint8).astype(int))
+    assert diff.max() <= 1
+
+
+@pytest.mark.parametrize("make", [lit_scene_3d,
+                                  lambda: lit_scene(6, n=200, off_view=0.05)])
+def test_occluded_kernel_matches_twin(cuda, make):
+    """``blocked`` and ``visits`` equal on every ray and block: shadow rays
+    from the primary hits towards a point light (finite distances) and
+    along a global light (distance cut to the pool's box), every other
+    block dead, misses inactive, each ray skipping the surface it leaves."""
+    scene = make()
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    res = pwf._res_dict(arrs)
+    skip = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    hit = pwf.trace_pool(arrs, cfg, oT, dT, skip, shared_origin=cam_o)
+    blk = torch.arange(N, device=cuda) // prk.RAY_BLOCK
+    live = hit["hit"] & (blk % 2 == 0)
+    assert int(live.sum()) > 20
+    point = torch.where(hit["hit"][None, :], hit["pointT"], 0.0)
+    lv = point - arrs["pl_pos"][0][:, None]
+    dist = prk._sqrt(pwf._dotT(lv, lv))
+    gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous()
+    exit_t = prk._scene_exit_T(point, gl, res["b_lo"], res["b_hi"])
+    for dirs, ldist in (
+            ((lv / dist[None, :]).contiguous(), torch.where(live, dist, 0.0)),
+            (gl, torch.where(live, exit_t, 0.0))):
+        before = prk.occluded.launches
+        kb, kv = prk.occluded(res, point, dirs, ldist, hit["pid"], cfg.d)
+        assert prk.occluded.launches == before + 1
+        torch.cuda.synchronize()
+        pb, pv = prk.occluded_ref(res, point, dirs, ldist, hit["pid"], cfg.d)
+        assert kb.dtype == torch.bool and torch.equal(kb, pb)
+        assert torch.equal(kv, pv)
+        assert not kb[~live].any() and (kv[1::2] == 0).all() and kv.any()
+    # a wholly dead wavefront: one launch, nothing blocked, no visit
+    kb, kv = prk.occluded(res, point, gl, torch.zeros_like(dist), hit["pid"],
+                          cfg.d)
+    assert not kb.any() and not kv.any()
+
+
+@pytest.mark.parametrize("make", [lit_scene_3d,
+                                  lambda: reflective_scene(shadows=True)])
+def test_card_lit_frame_matches_cpu_frame(cuda, make):
+    """A lit frame with shadows (and one with reflections under shadows)
+    on the card equals the CPU's: colors within the libm ulps of pow,
+    bytes within one code; both kernels ran."""
+    scene = make()
+    n0, o0 = prk.nearest_hit.launches, prk.occluded.launches
+    got = pwf.frame_colors(scene, W, H, cuda)
+    assert prk.nearest_hit.launches > n0
+    assert prk.occluded.launches >= o0 + 2      # a point and a global light
     ref = pwf.frame_colors(scene, W, H, "cpu")
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
     fmt = rgb8(W, H)

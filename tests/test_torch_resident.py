@@ -20,7 +20,8 @@ from ntracer_tpu.engine import resident_kernels as jrk
 from ntracer_tpu_torch.engine import wavefront as pwf
 from ntracer_tpu_torch.engine import resident_kernels as prk
 
-from _torch_helpers import random_scene, polytope_scene, jax_device_scene
+from _torch_helpers import (JAX, random_scene, polytope_scene,
+                            jax_device_scene)
 
 W = H = 64
 N = jwf.TILE          # one dispatch group: 64 walk blocks
@@ -31,8 +32,8 @@ def case(request):
     """A scene, its JAX device scene and primary ray wavefront (the frame's
     first dispatch group, in tile order), as both engines' inputs."""
     mp = pytest.MonkeyPatch()
-    scene = (random_scene(3, n=1200, seed=7) if request.param == "3d_random"
-             else polytope_scene())
+    scene = (random_scene(3, n=1200, seed=7, pkg=JAX)
+             if request.param == "3d_random" else polytope_scene(pkg=JAX))
     cfg, arrs, _flat = jax_device_scene(scene, mp)
     mp.undo()
     scene._set_view_size(W, H)
