@@ -13,12 +13,30 @@ at 1024x1024, 8-bit RGB:
   * the lit configuration: scripts/bench_suite.py's 6-D scene of 900 random
     simplices with two point lights, one global light and shadows on, a
     4-frame orbit (one nearest-hit walk and three occlusion walks a frame);
+  * the lit 120-cell: the flagship's geometry under a point and a global
+    light with shadows on, a 4-frame orbit (one nearest-hit walk and two
+    occlusion walks a frame, most ray blocks live), and one frame of
+    scripts/tpu_parity.py's "shadows d=3" scene (700 opaque triangles that
+    shade each other: a convex body casts no shadow on itself);
+  * the glass 120-cell: the same geometry with every other simplex of
+    glass (opacity 0.4) under the same lights, a 4-frame orbit (one
+    transparent walk and (K + 1) x 2 = 18 filtered occlusion walks a frame,
+    K = 8 transparent slots a ray);
+  * one frame of scripts/tpu_parity.py's "transparent d=3" scene (500 glass
+    triangles: rays cross more surfaces than they have slots);
 
-and checks 64 pixels of each frame against the scalar NumPy oracle.  Each
-kernel's launch count is set to 0 before a path is driven and read after
-it.  Any failed phase exits non-zero.  The last two lines of output are one
-JSON object with every kernel's numbers and ``{"ok": true, "device":
-{...}}``.
+and checks 64 pixels of each frame against the scalar NumPy oracle (5e-5;
+5e-4 for the composed pixels of the transparent frames), chosen from the
+engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
+shadows d=3 frame's with at least 16 pixels in a cast shadow, the glass
+120-cell's with at least 16 pixels seen through glass and 8 lit through
+glass.  Both 120-cell frames are checked from a camera turned 0.6 rad off
+the axis view: that view is a mirror hyperplane of the polytope, its rays
+meet mirrored simplices on their common boundary, and there the last bit
+decides (tests/test_torch_mirror_view.py).  Each kernel's launch count is set
+to 0 before a path is driven and read after it.  Any failed phase exits
+non-zero.  The last two lines of output are one JSON object with every
+kernel's numbers and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when torch finds no CUDA device.
 """
@@ -36,10 +54,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 W = H = 1024
 FRAMES = 8                 # flagship orbit
-LIT_FRAMES = 4             # lit orbit
+LIT_FRAMES = 4             # lit, lit 120-cell and glass 120-cell orbits
 ORACLE_PIXELS = 64
 ORACLE_TOL = 5e-5          # tests/test_pallas.py:356
+ORACLE_TOL_GLASS = 5e-4    # composed pixels, tests/test_engine.py:89
 ORACLE_MAX_OVER = 2
+OBLIQUE = 0.6              # radians off the axis view, for the oracle's frames
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
 # the tensor cores, and device memory.
@@ -91,9 +111,10 @@ def polytope_vertices(symbol):
     return np.asarray(verts)
 
 
-def hull_prototypes(nt, verts, material):
-    """Boundary (d-1)-simplices of the hull, zero-volume slivers dropped
-    (scripts/polytope.py hull_prototypes)."""
+def hull_simplices(verts):
+    """Boundary (d-1)-simplices of the hull as an (N, d, d) float32 array of
+    vertices, zero-volume slivers dropped (scripts/polytope.py
+    hull_prototypes)."""
     from scipy.spatial import ConvexHull
     keep = []
     for simplex in ConvexHull(verts).simplices:
@@ -103,8 +124,16 @@ def hull_prototypes(nt, verts, material):
         scale = np.prod(np.linalg.norm(edges, axis=1)) or 1.0
         if np.isfinite(vol2) and abs(vol2) >= (1e-6 * scale) ** 2:
             keep.append(pts)
-    return nt.TrianglePrototype.batch_from_points(
-        np.asarray(keep, dtype=np.float32), material)
+    return np.asarray(keep, dtype=np.float32)
+
+
+def hull_prototypes(nt, verts, material):
+    """The hull's boundary simplices as prototypes.  ``material`` is one
+    Material or a function of the simplex's index."""
+    keep = hull_simplices(verts)
+    if callable(material):
+        material = [material(i) for i in range(len(keep))]
+    return nt.TrianglePrototype.batch_from_points(keep, material)
 
 
 def lit_scene(nt, Material, n=900, seed=3, cam_distance=-8.0):
@@ -129,6 +158,64 @@ def lit_scene(nt, Material, n=900, seed=3, cam_distance=-8.0):
     scene.add_light(nt.GlobalLight(nt.Vector.axis(1, -1), (0.2, 0.2, 0.3)))
     scene.set_shadows(True)
     return scene, camera
+
+
+def two_lights(nt, scene, point):
+    """The two lights of scripts/tpu_parity.py (its point light's color at
+    ``point``, its global light along -axis 0), shadows on."""
+    scene.add_light(nt.PointLight(nt.Vector(*point), (1, 0.9, 0.7)))
+    scene.add_light(nt.GlobalLight(nt.Vector.axis(0, -1), (0.2, 0.2, 0.3)))
+    scene.set_shadows(True)
+    return scene
+
+
+def cell120_scene(nt, material, cam_distance, lit):
+    """bench.py's 120-cell {5,3,3} seen from ``cam_distance`` on axis 2,
+    with ``two_lights`` when ``lit``.  Returns (scene, camera, simplices)."""
+    protos = hull_prototypes(nt, polytope_vertices([5, 3, 3]), material)
+    scene = nt.build_composite_scene(protos)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, cam_distance))
+    scene.set_camera(camera)
+    scene.set_fov(0.8)
+    if lit:
+        two_lights(nt, scene, (0, 3, -3, 1))
+    return scene, camera, len(protos)
+
+
+def mesh_d3_scene(nt, material, n, seed=3):
+    """scripts/tpu_parity.py's 3-D meshes: ``n`` random triangles of one
+    material, its two lights, shadows on ("shadows d=3": 700 opaque ones;
+    "transparent d=3": 500 of glass).  Returns the scene."""
+    rng = np.random.RandomState(seed)
+    protos = []
+    for _ in range(n):
+        base = rng.uniform(-2, 2, 3)
+        pts = [nt.Vector(*(base + rng.uniform(-0.7, 0.7, 3)))
+               for _ in range(3)]
+        protos.append(nt.TrianglePrototype(pts, material))
+    scene = nt.build_composite_scene(protos)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(camera)
+    return two_lights(nt, scene, (0, 5, 0))
+
+
+class unbatched:
+    """Build scenes without grouping triangles into batches.  The scalar
+    oracle records one transparent hit per batch per leaf, the engine keeps
+    every transparent surface: only an unbatched scene's oracle means what
+    the engine renders."""
+
+    def __init__(self, kdtree):
+        self.kdtree = kdtree
+
+    def __enter__(self):
+        self.saved = self.kdtree.group_primitives
+        self.kdtree.group_primitives = lambda prims: list(prims)
+
+    def __exit__(self, *exc):
+        self.kdtree.group_primitives = self.saved
 
 
 def time_cuda(fn, reps):
@@ -156,7 +243,14 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     must look at to know that; ``visits`` (R/512,) is the run's chunk
     visits per block; ``early`` (R,) bool marks needed rays that one pair
     test decides (a shadow ray that ends blocked: its first hit ends its
-    walk), which count one test each.
+    walk), which count one test each.  The transparent walks count the
+    same way: the K-slot walk's needed rays are the active rays inside the
+    box (a ray can collect glass hits as long as its block walks), its
+    ``pool_bytes`` include the opacity row and its ``out_bytes`` the K
+    slots; in the filtered occlusion walk a ray is decided only when it
+    ends blocked, and the filter adds no operation worth counting (a
+    multiply for each glass surface a ray really crosses, a handful; the
+    factor 1 of every other slot need not be multiplied).
 
     Bytes: origin, direction and skip id of every 512-ray block that has a
     ray to read, ``mask_bytes`` per ray of the whole wavefront (the mask or
@@ -175,8 +269,8 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     in_bytes = read_blocks * 512 * (2 * d * 4 + 4) + rays * mask_bytes \
         + pool_bytes
     bytes_ms = 1e3 * (in_bytes + out_bytes) / PEAK_BYTES
-    pair_ops = (2 * d * d + 1 + 3 * (d - 1)) if shared \
-        else (4 * d * d + 2 + 4 * (d - 1))
+    pair_ops = ((2 * d * d + 1 + 3 * (d - 1)) if shared
+                else (4 * d * d + 2 + 4 * (d - 1)))
     pairs = int((need_blk * visits.long()).sum()) * 128
     if early is not None:
         pairs += int((need & early).sum())
@@ -186,38 +280,44 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
         else (ops_ms, "operations")
 
 
-def pool_bytes(arrs):
+def pool_bytes(arrs, opacity=False):
+    """Bytes of the pool's rows and boxes; with ``opacity`` the row of
+    opacities the transparent walks read (row 0 of ``res_opa``)."""
     return sum(arrs[k].numel() * 4 for k in
                ("res_gt", "res_ci", "res_ids", "res_klo", "res_khi",
-                "res_order"))
+                "res_order")) \
+        + (arrs["res_opa"][:, 0].numel() * 4 if opacity else 0)
+
+
+def turn(nt, scene, camera, cam_distance, angle):
+    """Turn the camera by ``angle`` about the scene's centre, in the plane
+    of its view axis and the diagonal of its other axes (the rotation of
+    scripts/bench_suite.py's orbit)."""
+    d = nt.dimension
+    hcoef = 1 / math.sqrt(d - 1)
+    a2 = camera.axes[0] * hcoef + camera.axes[1] * hcoef
+    for i in range(3, d):
+        a2 = a2 + camera.axes[i] * hcoef
+    camera.transform(nt.Matrix.rotation(camera.axes[2], a2, angle))
+    camera.normalize()
+    camera.origin = camera.axes[2] * cam_distance
+    scene.set_camera(camera)
 
 
 def orbit(nt, scene, camera, cam_distance, frames, renderer, buf, fmt):
-    """Render a warm-up frame and ``frames`` frames of a camera orbit (the
-    rotation of scripts/bench_suite.py); returns the frames' seconds."""
+    """Render a warm-up frame and ``frames`` frames of a camera orbit;
+    returns the frames' seconds."""
     incr = 2 * math.pi / frames
-    d = nt.dimension
-    hcoef = 1 / math.sqrt(d - 1)
-
-    def advance():
-        a2 = camera.axes[0] * hcoef + camera.axes[1] * hcoef
-        for i in range(3, d):
-            a2 = a2 + camera.axes[i] * hcoef
-        camera.transform(nt.Matrix.rotation(camera.axes[2], a2, incr))
-        camera.normalize()
-        camera.origin = camera.axes[2] * cam_distance
-        scene.set_camera(camera)
-
     if not renderer.render(buf, fmt, scene):       # warm-up
         raise SystemExit("warm-up render was aborted")
-    advance()
+    turn(nt, scene, camera, cam_distance, incr)
     frame_s = []
     for _ in range(frames):
         t1 = time.perf_counter()
         if not renderer.render(buf, fmt, scene):
             raise SystemExit("render was aborted")
         frame_s.append(time.perf_counter() - t1)
-        advance()
+        turn(nt, scene, camera, cam_distance, incr)
     return frame_s
 
 
@@ -235,7 +335,7 @@ def report_frames(label, frame_s, buf, name_limit):
           f"included) [{name_limit}]")
 
 
-def oracle_check(scene, colors, pixels):
+def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
     """Hold ``colors`` (H, W, 3) against the scalar oracle at ``pixels``."""
     if colors.shape != (H, W, 3) or not np.isfinite(colors).all():
         raise SystemExit(f"bad frame colors: shape {colors.shape}")
@@ -246,14 +346,53 @@ def oracle_check(scene, colors, pixels):
         ref = scene._pixel_color(x, y)
         diff = float(np.abs(ref - colors[y, x]).max())
         worst = max(worst, diff)
-        if diff > ORACLE_TOL:
+        if diff > tol:
             over.append((x, y, diff))
             print(f"   pixel ({x}, {y}): port {colors[y, x]}, oracle {ref}, "
                   f"diff {diff}")
     print(f"   {len(pixels)} pixels, worst diff {worst}, "
-          f"{len(over)} beyond {ORACLE_TOL}")
+          f"{len(over)} beyond {tol}")
     if len(over) > ORACLE_MAX_OVER:
         raise SystemExit("the frame disagrees with the oracle")
+
+
+WALKS = ("nearest_hit", "occluded", "nearest_hit_transparent",
+         "occluded_transparent")
+
+
+def reset_launches(rk):
+    for name in WALKS:
+        getattr(rk, name).launches = 0
+
+
+def read_launches(rk):
+    return {name: getattr(rk, name).launches for name in WALKS}
+
+
+def bit_diffs(a, b):
+    """How many float32 entries differ in their bits."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def pick_pixels(rng, quotas, masks, exclude=None):
+    """Seeded (x, y) pixels: ``quotas`` maps a mask's name (or None for any
+    pixel) to how many to draw from it; pixels of ``exclude`` are never
+    drawn.  ``masks`` are (H, W) bool arrays, as ``frame_colors`` gives
+    them."""
+    free = np.ones((H, W), bool) if exclude is None else ~exclude
+    pixels = []
+    for name, n in quotas.items():
+        pool = np.nonzero((free if name is None else masks[name] & free)
+                          .reshape(-1))[0]
+        if len(pool) == 0:
+            raise SystemExit(f"no pixel of the frame is {name}")
+        pixels += [divmod(int(p), W)[::-1]
+                   for p in rng.choice(pool, size=n, replace=len(pool) < n)]
+    return pixels
+
+
+def count_in(pixels, mask):
+    return sum(bool(mask[y, x]) for x, y in pixels)
 
 
 def main():
@@ -274,7 +413,7 @@ def main():
     sys.path.insert(0, REPO)
     import ntracer_tpu_torch as nt_torch
     from ntracer_tpu_torch import NTracer, Material, ImageFormat, Channel
-    from ntracer_tpu_torch import kdnodes
+    from ntracer_tpu_torch import kdnodes, kdtree
     from ntracer_tpu_torch.engine import _build
     from ntracer_tpu_torch.engine import resident_kernels as rk
     from ntracer_tpu_torch.engine import wavefront as wf
@@ -291,17 +430,42 @@ def main():
 
     t0 = phase("scene")
     nt = NTracer(4)
-    protos = hull_prototypes(nt, polytope_vertices([5, 3, 3]),
-                             Material((1, 0.5, 0.5)))
-    scene = nt.build_composite_scene(protos)
     cam_distance = -4.0
-    camera = nt.Camera()
-    camera.translate(nt.Vector.axis(2, cam_distance))
-    scene.set_camera(camera)
-    scene.set_fov(0.8)
+    opaque = Material((1, 0.5, 0.5))
+    scene, camera, n_simplices = cell120_scene(nt, opaque, cam_distance,
+                                               lit=False)
     cfg, arrs, _flat = wf.get_device_scene(scene, dev)
-    print(f"   flagship: {len(protos)} simplices, pool "
+    print(f"   flagship: {n_simplices} simplices, pool "
           f"{tuple(arrs['res_gt'].shape)}, d={cfg.d}")
+    # the flagship's geometry under two lights, and with every other
+    # simplex of glass (tests/test_pallas.py's mix)
+    lit120, lit120_camera, _n = cell120_scene(nt, opaque, cam_distance,
+                                              lit=True)
+    solid, glass_m = Material((0.3, 0.8, 0.5)), \
+        Material((1, 0.7, 0.7), opacity=0.4)
+
+    def alternate(i):
+        return glass_m if i % 2 else solid
+
+    glass, glass_camera, _n = cell120_scene(nt, alternate, cam_distance,
+                                            lit=True)
+    gcfg, garrs, _flat = wf.get_device_scene(glass, dev)
+    K = gcfg.max_transparent_hits
+    print(f"   glass 120-cell: pool {tuple(garrs['res_gt'].shape)}, "
+          f"{int((garrs['res_opa'][:, 0] < 1).sum())} glass slots, K={K}, "
+          f"{gcfg.n_point_lights} point and {gcfg.n_global_lights} global "
+          f"light, shadows {gcfg.shadows}")
+    # the scenes the oracle is asked about are built unbatched: its
+    # transparent hits then mean what the engine's do
+    with unbatched(kdtree):
+        glass_u, _cam, _n = cell120_scene(nt, alternate, cam_distance,
+                                          lit=True)
+        d3 = mesh_d3_scene(NTracer(3), Material((0.7, 0.8, 1.0),
+                                                opacity=0.45), 500)
+    shadows_d3 = mesh_d3_scene(NTracer(3), Material((0.9, 0.6, 0.3)), 700)
+    dcfg, darrs, _flat = wf.get_device_scene(d3, dev)
+    print(f"   transparent d=3: 500 glass triangles, pool "
+          f"{tuple(darrs['res_gt'].shape)}")
     nt6 = NTracer(6)
     lit, lit_camera = lit_scene(nt6, Material)
     lit_distance = -8.0
@@ -434,7 +598,7 @@ def main():
             cfg_.d, False, ldist > 0, ldist > 0, kv, arrs_["res_neff"],
             pool_bytes(arrs_), 4, R + kv.numel() * 4, early=kb)
         occ[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, diff=ray_diff)
+                          bound_by=bound_by, err=float(ray_diff))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, blocked diffs {ray_diff}, visit "
               f"diffs {vis_diff}, live blocks {int((kv > 0).sum())}, "
@@ -461,34 +625,168 @@ def main():
           f"[{name_limit}]")
     done(t0)
 
+    # kernel 2.3 at full primary wavefronts: the glass 120-cell's primary
+    # rays (shared-origin rows, front-to-back order), a bounce wavefront off
+    # its opaque hits (pool order, every other block inactive, each ray
+    # skipping the surface it leaves), and the primary rays of the
+    # "transparent d=3" scene, where rays cross more glass than K slots hold
+    t0 = phase("nearest_hit_transparent kernel vs twin")
+    _f, gcam_o, _t, goT, gdT, gpctx, gskip, ghit = primary(glass, gcfg, garrs)
+    _f, _o, _t, doT, ddT, dpctx, dskip, dhit = primary(d3, dcfg, darrs)
+    gres, dres = wf._res_dict(garrs), wf._res_dict(darrs)
+    gsine = -wf._dotT(gdT, ghit["normalT"])
+    tmodes = {
+        "glass primary": (gcfg, garrs, gres, goT, gdT, gskip,
+                          dict(order=gpctx["order"], sh=gpctx["sh_res"])),
+        "glass bounce": (gcfg, garrs, gres, ghit["pointT"], wf._unitT(
+            gdT - ghit["normalT"] * (-2 * gsine)[None, :]), ghit["pid"],
+            dict(active=ghit["hit"] & (blk % 2 == 0))),
+        "d3 primary": (dcfg, darrs, dres, doT, ddT, dskip,
+                       dict(order=dpctx["order"], sh=dpctx["sh_res"])),
+    }
+    near_t = {}
+    for label, (cfg_, arrs_, res_, o_, d_, s_, kw) in tmodes.items():
+        args = (res_, o_, d_, s_, cfg_.d, K)
+        kt, ks, ktt, kts, kv = rk.nearest_hit_transparent(*args, **kw)
+        pt, ps, ptt, pts, pv = rk.nearest_hit_transparent_ref(*args, **kw)
+        replaced = rk.nearest_hit_transparent_ref.replaced
+        torch.cuda.synchronize()
+        diffs = dict(slot=int((ks != ps).sum()), t_bits=bit_diffs(kt, pt),
+                     tslot=int((kts != pts).sum()),
+                     tt_bits=bit_diffs(ktt, ptt), visits=int((kv != pv).sum()))
+        err = max(float(torch.nan_to_num(
+            torch.where(a.view(torch.int32) == b.view(torch.int32), 0.0,
+                        torch.abs(a - b)), nan=float("inf")).max())
+            for a, b in ((kt, pt), (ktt, ptt)))
+        ms = time_cuda(lambda: rk.nearest_hit_transparent(*args, **kw), 20)
+        twin_ms = time_cuda(
+            lambda: rk.nearest_hit_transparent_ref(*args, **kw), 2)
+        read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
+        need = read & (rk._scene_exit_T(o_, d_, res_["b_lo"],
+                                        res_["b_hi"]) > 0)
+        bound_ms, bound_by = walk_bound(
+            cfg_.d, "sh" in kw, need, read, kv, arrs_["res_neff"],
+            pool_bytes(arrs_, opacity=True), int("active" in kw),
+            R * 8 + K * R * 8 + kv.numel() * 4)
+        filled = kts >= 0
+        near_t[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, err=err, replaced=replaced)
+        print(f"   {label}: {R} rays, {int(need.sum())} to test, "
+              f"{int((ks >= 0).sum())} opaque hits, {int(filled.sum())} "
+              f"slots filled, {int(filled.all(dim=0).sum())} rays filled all "
+              f"{K}, {replaced} slots replaced; diffs {json.dumps(diffs)}, "
+              f"max |dt| {err}, visits/block {float(kv.float().mean()):.4f};"
+              f" kernel {ms:.4f} ms, twin {twin_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+              f"of the bound reached [{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"nearest_hit_transparent kernel != twin: "
+                             f"{label}")
+        if not int(filled.sum()):
+            raise SystemExit(f"no transparent slot was filled: {label}")
+    if not near_t["d3 primary"]["replaced"]:
+        raise SystemExit("the d=3 case never replaces a slot")
+    done(t0)
+
+    # kernel 2.4 at full wavefronts: shadow rays from the glass 120-cell's
+    # opaque hit points and from the first glass surface of the d=3 scene's
+    # rays, to the point light and along the global light; then a wavefront
+    # without any active ray
+    t0 = phase("occluded_transparent kernel vs twin")
+    dfirst = dhit["tidT"][0] >= 0
+    dsurf = dict(hit=dfirst, pid=torch.where(dfirst, dhit["tidT"][0], -1),
+                 pointT=doT + dhit["ttT"][0][None, :] * ddT)
+    tcases = {
+        "glass point light": (gcfg, garrs, gres, ghit, shadow_rays(
+            garrs, ghit, light_pos=garrs["pl_pos"][0])),
+        "glass global light": (gcfg, garrs, gres, ghit, shadow_rays(
+            garrs, ghit, light_dir=garrs["gl_dir"][0])),
+        "d3 point light": (dcfg, darrs, dres, dsurf, shadow_rays(
+            darrs, dsurf, light_pos=darrs["pl_pos"][0])),
+        "d3 global light": (dcfg, darrs, dres, dsurf, shadow_rays(
+            darrs, dsurf, light_dir=darrs["gl_dir"][0])),
+    }
+    occ_t = {}
+    for label, (cfg_, arrs_, res_, hit_, (point, dirs, ldist)) in \
+            tcases.items():
+        args = (res_, point, dirs, ldist, hit_["pid"], cfg_.d)
+        kb, kf, kv = rk.occluded_transparent(*args)
+        pb, pf, pv = rk.occluded_transparent_ref(*args)
+        torch.cuda.synchronize()
+        diffs = dict(blocked=int((kb != pb).sum()), filt_bits=bit_diffs(kf, pf),
+                     visits=int((kv != pv).sum()))
+        ms = time_cuda(lambda: rk.occluded_transparent(*args), 20)
+        twin_ms = time_cuda(lambda: rk.occluded_transparent_ref(*args), 2)
+        bound_ms, bound_by = walk_bound(
+            cfg_.d, False, ldist > 0, ldist > 0, kv, arrs_["res_neff"],
+            pool_bytes(arrs_, opacity=True), 4, R * 5 + kv.numel() * 4,
+            early=kb)
+        n_filtered = int(((kf < 1) & ~kb).sum())
+        occ_t[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                            bound_by=bound_by,
+                            err=float(torch.abs(kf - pf).max()))
+        print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
+              f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
+              f"glass; diffs {json.dumps(diffs)}, live blocks "
+              f"{int((kv > 0).sum())}, visits/block "
+              f"{float(kv.float().mean()):.4f}; kernel {ms:.4f} ms, twin "
+              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached "
+              f"[{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"occluded_transparent kernel != twin: {label}")
+        if not n_filtered:
+            raise SystemExit(f"no ray is lit through glass: {label}")
+        # (the d=3 scene is all glass: nothing there can block a ray)
+        if label.startswith("glass") and not int(kb.sum()):
+            raise SystemExit(f"no ray is blocked: {label}")
+    point, dirs, ldist = tcases["glass global light"][4]
+    dead = torch.zeros_like(ldist)
+    kb, kf, kv = rk.occluded_transparent(gres, point, dirs, dead,
+                                         ghit["pid"], gcfg.d)
+    if bool(kb.any()) or bool(kv.any()) or not bool((kf == 1).all()):
+        raise SystemExit("a dead wavefront was walked")
+    dead_t_ms = time_cuda(lambda: rk.occluded_transparent(
+        gres, point, dirs, dead, ghit["pid"], gcfg.d), 20)
+    dead_t_bound, _by = walk_bound(gcfg.d, False, dead > 0, dead > 0, kv,
+                                   garrs["res_neff"], 0, 4,
+                                   R * 5 + kv.numel() * 4)
+    print(f"   dead wavefront: {R} inactive rays, kernel {dead_t_ms:.4f} ms "
+          f"(wrapper included), bound {dead_t_bound:.4f} ms (bytes) "
+          f"[{name_limit}]")
+    done(t0)
+
     t0 = phase("flagship frame")
     renderer = nt_torch.BlockingRenderer()
-    rk.nearest_hit.launches = 0
-    rk.occluded.launches = 0
+    reset_launches(rk)
     frame_s = orbit(nt, scene, camera, cam_distance, FRAMES, renderer, buf,
                     fmt)
-    flag_launches = (rk.nearest_hit.launches, rk.occluded.launches)
-    print(f"   launches in {FRAMES + 1} renders: nearest_hit "
-          f"{flag_launches[0]}, occluded {flag_launches[1]}")
-    if flag_launches[0] < FRAMES + 1:
+    launches = {"flagship": read_launches(rk)}
+    print(f"   launches in {FRAMES + 1} renders: "
+          f"{json.dumps(launches['flagship'])}")
+    if launches["flagship"]["nearest_hit"] < FRAMES + 1:
         raise SystemExit("the flagship path did not go through nearest_hit")
     report_frames("flagship", frame_s, buf, name_limit)
 
     def stage_times(sc, cfg_, arrs_, extra):
         """Where the device time goes, at the scene's camera (CUDA
-        events)."""
+        events).  ``extra`` maps the stage's context (the primary
+        wavefront, its hits, the frame's rows) to more stages, or to
+        another ``walk``."""
         fov_, cam_o_, cam_t_, oT_, dT_, pctx_, skip_, hit_ = primary(
             sc, cfg_, arrs_)
         res_ = wf._res_dict(arrs_)
         dyn = wf._scene_dyn(sc, dev)
         colorsT = wf._ray_colors_T(arrs_, cfg_, dyn, oT_, dT_, pctx=pctx_)
+        ctx = dict(hit=hit_, oT=oT_, dT=dT_, skip=skip_, pctx=pctx_, dyn=dyn,
+                   res=res_)
         stages = {
             "raygen": lambda: wf.make_rays(cam_o_, cam_t_, *fov_, xs, ys),
             "frame_prep": lambda: wf.primary_ctx(arrs_, cfg_, cam_o_),
             "walk": lambda: rk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
                                            order=pctx_["order"],
                                            sh=pctx_["sh_res"]),
-            **extra(hit_),
+            **extra(ctx),
             "trace_shade": lambda: wf._ray_colors_T(arrs_, cfg_, dyn, oT_,
                                                     dT_, pctx=pctx_),
             "pack": lambda: wf.packing.pack_device_stream(
@@ -504,20 +802,27 @@ def main():
         stage_ms["pull"] = round(1000 * (time.perf_counter() - t1) / 5, 4)
         return stage_ms
 
-    stage_ms = stage_times(scene, cfg, arrs, lambda hit_: {})
+    def one_frame(sc):
+        """Render one frame of ``sc``: (launch counts, host ms)."""
+        reset_launches(rk)
+        t1 = time.perf_counter()
+        if not renderer.render(buf, fmt, sc):
+            raise SystemExit("render was aborted")
+        return read_launches(rk), 1000 * (time.perf_counter() - t1)
+
+    stage_ms = stage_times(scene, cfg, arrs, lambda c: {})
     print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
     done(t0)
 
     t0 = phase("lit frame")
-    rk.nearest_hit.launches = 0
-    rk.occluded.launches = 0
+    reset_launches(rk)
     frame_s = orbit(nt6, lit, lit_camera, lit_distance, LIT_FRAMES, renderer,
                     buf, fmt)
-    lit_launches = (rk.nearest_hit.launches, rk.occluded.launches)
-    print(f"   launches in {LIT_FRAMES + 1} renders: nearest_hit "
-          f"{lit_launches[0]}, occluded {lit_launches[1]}")
-    if lit_launches[0] < LIT_FRAMES + 1 or \
-            lit_launches[1] < 3 * (LIT_FRAMES + 1):
+    launches["lit"] = read_launches(rk)
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['lit'])}")
+    if launches["lit"]["nearest_hit"] < LIT_FRAMES + 1 or \
+            launches["lit"]["occluded"] < 3 * (LIT_FRAMES + 1):
         raise SystemExit("the lit path did not go through both kernels")
     report_frames("lit", frame_s, buf, name_limit)
     # back to the configuration's own view (the orbit ends a quarter turn
@@ -527,14 +832,92 @@ def main():
     lit_camera.translate(nt6.Vector.axis(2, lit_distance))
     lit.set_camera(lit_camera)
 
-    def shadow_stage(hit_):
-        point, lv, ldist = shadow_rays(larrs, hit_,
-                                       light_pos=larrs["pl_pos"][0])
-        return {"shadow": lambda: wf.occlusion(
-            larrs, lcfg, point, lv, ldist, hit_["pid"], clamp_exit=False)}
+    def shadow_stage(arrs_, cfg_):
+        """One ``occlusion`` call: the first point light's shadow query
+        from the primary hits."""
+        def stage(c):
+            point, lv, ldist = shadow_rays(arrs_, c["hit"],
+                                           light_pos=arrs_["pl_pos"][0])
+            return {"shadow": lambda: wf.occlusion(
+                arrs_, cfg_, point, lv, ldist, c["hit"]["pid"],
+                clamp_exit=False)}
+        return stage
 
-    stage_ms = stage_times(lit, lcfg, larrs, shadow_stage)
+    stage_ms = stage_times(lit, lcfg, larrs, shadow_stage(larrs, lcfg))
     print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    done(t0)
+
+    # the flagship's geometry under two lights: most ray blocks carry
+    # shadow rays, and part of the frame lies in shadow
+    t0 = phase("lit 120-cell frame")
+    l120cfg, l120arrs, _flat = wf.get_device_scene(lit120, dev)
+    reset_launches(rk)
+    frame_s = orbit(nt, lit120, lit120_camera, cam_distance, LIT_FRAMES,
+                    renderer, buf, fmt)
+    launches["lit 120-cell"] = read_launches(rk)
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['lit 120-cell'])}")
+    if launches["lit 120-cell"]["nearest_hit"] < LIT_FRAMES + 1 or \
+            launches["lit 120-cell"]["occluded"] < 2 * (LIT_FRAMES + 1):
+        raise SystemExit("the lit 120-cell path did not go through both "
+                         "kernels")
+    report_frames("lit 120-cell", frame_s, buf, name_limit)
+    stage_ms = stage_times(lit120, l120cfg, l120arrs,
+                           shadow_stage(l120arrs, l120cfg))
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    # a convex body casts no shadow on a face that looks at the light: one
+    # frame of a scene whose triangles shade each other
+    launches["shadows d=3"], ms = one_frame(shadows_d3)
+    print(f"   shadows d=3: one frame {ms:.3f} ms (first render of the "
+          f"scene), launches {json.dumps(launches['shadows d=3'])} "
+          f"[{name_limit}]")
+    if launches["shadows d=3"]["nearest_hit"] < 1 or \
+            launches["shadows d=3"]["occluded"] < 2:
+        raise SystemExit("the shadows d=3 frame did not go through both "
+                         "kernels")
+    done(t0)
+
+    # the main path of the transparent walks: one K-slot walk and
+    # (K + 1) x 2 filtered occlusion walks a frame
+    t0 = phase("glass 120-cell frame")
+    reset_launches(rk)
+    frame_s = orbit(nt, glass, glass_camera, cam_distance, LIT_FRAMES,
+                    renderer, buf, fmt)
+    launches["glass 120-cell"] = read_launches(rk)
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['glass 120-cell'])}")
+    if launches["glass 120-cell"]["nearest_hit_transparent"] \
+            < LIT_FRAMES + 1 or \
+            launches["glass 120-cell"]["occluded_transparent"] \
+            < (K + 1) * 2 * (LIT_FRAMES + 1):
+        raise SystemExit("the glass 120-cell path did not go through both "
+                         "transparent kernels")
+    report_frames("glass 120-cell", frame_s, buf, name_limit)
+
+    def glass_stages(c):
+        shadow = shadow_stage(garrs, gcfg)(c)
+        base = torch.zeros_like(c["oT"][:3])
+        return {
+            "walk": lambda: rk.nearest_hit_transparent(
+                c["res"], c["oT"], c["dT"], c["skip"], gcfg.d, K,
+                order=c["pctx"]["order"], sh=c["pctx"]["sh_res"]),
+            **shadow,
+            "compose": lambda: wf._compose_transparent_T(
+                garrs, gcfg, c["dyn"], c["oT"], c["dT"], c["hit"], base, 0),
+        }
+
+    stage_ms = stage_times(glass, gcfg, garrs, glass_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    # one frame of the d=3 scene, where the K slots overflow
+    launches["transparent d=3"], d3_ms = one_frame(d3)
+    print(f"   transparent d=3: one frame {d3_ms:.3f} ms (first render of "
+          f"the scene), launches "
+          f"{json.dumps(launches['transparent d=3'])} [{name_limit}]")
+    if launches["transparent d=3"]["nearest_hit_transparent"] < 1 or \
+            launches["transparent d=3"]["occluded_transparent"] \
+            < (K + 1) * 2:
+        raise SystemExit("the d=3 frame did not go through both transparent "
+                         "kernels")
     done(t0)
 
     t0 = phase("oracle")
@@ -547,49 +930,108 @@ def main():
     # keeps the reference's early-out, which misses occluders of a global
     # light; the engine is any-hit, so the check runs with the exact walk.
     kdnodes.OCCLUDES_EARLY_OUT = False
-    colors = wf.frame_colors(lit, W, H, dev)
-    _f, _o, _t, _oT, _dT, _p, _s, lhit = primary(lit, lcfg, larrs)
-    hit_px = _unswz(lhit["hit"])[:W * H].nonzero().squeeze(1).cpu().numpy()
-    print(f"   lit frame: {len(hit_px)} pixels hit a surface")
-    if len(hit_px) == 0:
-        raise SystemExit("the lit frame hits nothing")
-    n_hit = 3 * ORACLE_PIXELS // 4
-    picks = [divmod(int(p), W)[::-1] for p in
-             rng.choice(hit_px, size=n_hit, replace=len(hit_px) < n_hit)]
-    picks += [(int(rng.randint(W)), int(rng.randint(H)))
-              for _ in range(ORACLE_PIXELS - n_hit)]
-    oracle_check(lit, colors, picks)
+    colors, masks = wf.frame_colors(lit, W, H, dev, masks=True)
+    print(f"   lit frame: {int(masks['hit'].sum())} pixels hit a surface")
+    oracle_check(lit, colors, pick_pixels(
+        rng, {"hit": 3 * ORACLE_PIXELS // 4, None: ORACLE_PIXELS // 4},
+        masks))
+    # The 120-cell frames are held to the oracle from an oblique camera.
+    # The axis view is a mirror hyperplane of the polytope: whole 2-faces
+    # lie in it, every ray through them meets two mirrored simplices
+    # exactly on their common boundary, and the last bit decides which one
+    # counts -- differently in the engine and the oracle, visibly so under
+    # a light off the hyperplane or with two materials
+    # (tests/test_torch_mirror_view.py shows that every pixel that differs
+    # there is on such a ray).
+    for sc_ in (lit120, glass_u):
+        turn(nt, sc_, nt.Camera(), cam_distance, OBLIQUE)
+    # the lit 120-cell: shadowed pixels, lit pixels of the body, any pixel.
+    # A convex body's faces that look at a light are not shadowed: what is
+    # blocked here are rays along a surface the light grazes.
+    colors, masks = wf.frame_colors(lit120, W, H, dev, masks=True)
+    pixels = pick_pixels(rng, {"shadowed": 24, "hit": 24, None: 16}, masks)
+    n_shadowed = count_in(pixels, masks["shadowed"])
+    print(f"   lit 120-cell frame: {int(masks['hit'].sum())} pixels hit the "
+          f"body, {int(masks['shadowed'].sum())} of them are shadowed "
+          f"({int((masks['shadowed'] & masks['grazing']).sum())} by a "
+          f"grazing light); {n_shadowed} of the {len(pixels)} oracle pixels "
+          f"are shadowed")
+    if n_shadowed < 16:
+        raise SystemExit("the lit 120-cell oracle covers too few shadowed "
+                         "pixels")
+    oracle_check(lit120, colors, pixels)
+    # shadows d=3: pixels in a real shadow (a triangle between the surface
+    # and a light that stands well above it)
+    colors, masks = wf.frame_colors(shadows_d3, W, H, dev, masks=True)
+    masks["cast"] = masks["shadowed"] & ~masks["grazing"]
+    pixels = pick_pixels(rng, {"cast": 32, "hit": 16, None: 16}, masks)
+    n_cast = count_in(pixels, masks["cast"])
+    print(f"   shadows d=3 frame: {int(masks['hit'].sum())} pixels hit a "
+          f"triangle, {int(masks['cast'].sum())} of them lie in a cast "
+          f"shadow; {n_cast} of the {len(pixels)} oracle pixels do")
+    if n_cast < 16:
+        raise SystemExit("the shadows d=3 oracle covers too few shadowed "
+                         "pixels")
+    oracle_check(shadows_d3, colors, pixels)
+    # the glass 120-cell, built unbatched: pixels seen through glass, pixels
+    # lit through glass, shadowed pixels, any pixel
+    colors, masks = wf.frame_colors(glass_u, W, H, dev, masks=True)
+    pixels = pick_pixels(
+        rng, {"layered": 24, "filtered": 16, "shadowed": 8, None: 16}, masks,
+        exclude=masks["full"])
+    n_layered = count_in(pixels, masks["layered"])
+    n_filtered = count_in(pixels, masks["filtered"])
+    print(f"   glass 120-cell frame: {int(masks['layered'].sum())} pixels "
+          f"are seen through glass, {int(masks['filtered'].sum())} are lit "
+          f"through glass, {int(masks['shadowed'].sum())} shadowed, "
+          f"{int(masks['full'].sum())} fill all {K} slots (excluded); the "
+          f"{len(pixels)} oracle pixels hold {n_layered} layered and "
+          f"{n_filtered} filtered ones")
+    if n_layered < 16 or n_filtered < 8:
+        raise SystemExit("the glass oracle covers too few transparent "
+                         "pixels")
+    oracle_check(glass_u, colors, pixels, tol=ORACLE_TOL_GLASS)
+    # the d=3 scene: a ray that fills all K slots may cross more glass than
+    # it keeps, and legitimately differs from the oracle
+    colors, masks = wf.frame_colors(d3, W, H, dev, masks=True)
+    pixels = pick_pixels(rng, {"layered": 48, None: 16}, masks,
+                         exclude=masks["full"])
+    print(f"   transparent d=3 frame: {int(masks['layered'].sum())} pixels "
+          f"are seen through glass, {int(masks['full'].sum())} fill all {K} "
+          f"slots and are excluded from the oracle's pixels")
+    oracle_check(d3, colors, pixels, tol=ORACLE_TOL_GLASS)
     done(t0)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "ntracer", "ntracer_tpu")]
     if bad:
         raise SystemExit(f"imported {bad}")
+
+    def kernel_entry(name, source, replaces, path, cases, main_case, **more):
+        c = cases[main_case]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[path][name],
+                "launches_by_path": {p: n[name] for p, n in launches.items()},
+                "max_abs_err": max(float(v["err"]) for v in cases.values()),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None, "cases": cases, **more}
+
+    csrc = "ntracer_tpu_torch/csrc/"
+    tpu = "ntracer_tpu/engine/resident_kernels.py:"
     kernels = [
-        {"name": "nearest_hit", "route": "cuda",
-         "source": "ntracer_tpu_torch/csrc/nearest_hit.cu",
-         "replaces": "ntracer_tpu/engine/resident_kernels.py:778",
-         "launches": flag_launches[0],
-         "launches_by_path": {"flagship": flag_launches[0],
-                              "lit": lit_launches[0]},
-         "max_abs_err": max(v["err"] for v in near.values()),
-         "ms": near["primary"]["ms"], "plain_ms": near["primary"]["plain_ms"],
-         "bound_ms": near["primary"]["bound_ms"],
-         "bound_by": near["primary"]["bound_by"], "library_ms": None,
-         "cases": near},
-        {"name": "occluded", "route": "cuda",
-         "source": "ntracer_tpu_torch/csrc/occluded.cu",
-         "replaces": "ntracer_tpu/engine/resident_kernels.py:1100",
-         "launches": lit_launches[1],
-         "launches_by_path": {"flagship": flag_launches[1],
-                              "lit": lit_launches[1]},
-         "max_abs_err": float(max(v["diff"] for v in occ.values())),
-         "ms": occ["lit point light"]["ms"],
-         "plain_ms": occ["lit point light"]["plain_ms"],
-         "bound_ms": occ["lit point light"]["bound_ms"],
-         "bound_by": occ["lit point light"]["bound_by"],
-         "library_ms": None,
-         "cases": occ, "dead_ms": dead_ms},
+        kernel_entry("nearest_hit", csrc + "nearest_hit.cu", tpu + "778",
+                     "flagship", near, "primary"),
+        kernel_entry("occluded", csrc + "occluded.cu", tpu + "1100",
+                     "lit 120-cell", occ, "flagship point light",
+                     dead_ms=dead_ms),
+        kernel_entry("nearest_hit_transparent",
+                     csrc + "nearest_hit_transparent.cu", tpu + "1288",
+                     "glass 120-cell", near_t, "glass primary"),
+        kernel_entry("occluded_transparent",
+                     csrc + "occluded_transparent.cu", tpu + "1452",
+                     "glass 120-cell", occ_t, "glass point light",
+                     dead_ms=dead_t_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

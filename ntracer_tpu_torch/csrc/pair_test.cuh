@@ -1,7 +1,8 @@
-// Pieces shared by the chunk walks (nearest_hit.cu, occluded.cu), so the
-// kernels cannot drift apart: the constants, NaN-propagating min/max, the
-// slab entry of a ray into a chunk box, the block's entry minima, the
-// candidate scan, chunk staging and the ray x slot pair test.
+// Pieces shared by the chunk walks (nearest_hit.cu, occluded.cu,
+// nearest_hit_transparent.cu, occluded_transparent.cu), so the kernels
+// cannot drift apart: the constants, NaN-propagating min/max, the slab
+// entry of a ray into a chunk box, the block's entry minima, the candidate
+// scan, chunk staging and the ray x slot pair test.
 //
 // One CUDA block walks one 512-ray block, one thread per ray.  Everything
 // here rounds every operation (build with --fmad=false and IEEE division,
@@ -20,7 +21,7 @@ constexpr int RB = 512;          // rays per block
 constexpr int CK = 128;          // slots per chunk
 constexpr int CP = 8;            // padded coordinate rows of ci/ids
 constexpr int NW = RB / 32;      // warps per block
-constexpr int NCAND = 4;         // candidates picked per walk step
+constexpr int NCAND = 4;         // candidates picked per grouped walk step
 constexpr int SENT = 1 << 30;    // "no candidate"
 constexpr float FUZZ = 1.1920928955078125e-06f;   // float32(eps * 10)
 constexpr float BIG = 3e37f;
@@ -120,29 +121,30 @@ __device__ __forceinline__ float block_max(float v, float* s_red) {
   return m;
 }
 
-// The next NCAND positions >= k0 with emin < bound, ascending, SENT fills
-// (warp 0 scans 32 positions a step).  `s_cand` holds NCAND ints.
+// The next N positions >= k0 with emin < bound, ascending, SENT fills
+// (warp 0 scans 32 positions a step).  `s_cand` holds N <= 32 ints.
+template <int N>
 __device__ __forceinline__ void find_cands(int k0, float bound, int n_eff,
                                            const float* __restrict__ emin,
-                                           int* s_cand, int (&cand)[NCAND]) {
+                                           int* s_cand, int (&cand)[N]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (warp == 0) {
     int got = 0;
-    for (int base = k0; base < n_eff && got < NCAND; base += 32) {
+    for (int base = k0; base < n_eff && got < N; base += 32) {
       const int p = base + lane;
       const bool ok = p < n_eff && emin[p] < bound;
       unsigned m = __ballot_sync(0xffffffffu, ok);
-      while (m && got < NCAND) {
+      while (m && got < N) {
         if (lane == got) s_cand[got] = base + __ffs(m) - 1;
         ++got;
         m &= m - 1;
       }
     }
-    if (lane >= got && lane < NCAND) s_cand[lane] = SENT;
+    if (lane >= got && lane < N) s_cand[lane] = SENT;
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < NCAND; ++j) cand[j] = s_cand[j];
+  for (int j = 0; j < N; ++j) cand[j] = s_cand[j];
   __syncthreads();
 }
 
@@ -161,6 +163,14 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ gt,
   for (int i = tid; i < D * CK; i += RB) s_c[i] = c[i];
   if (tid < CK) s_id[tid] = ids[(size_t)idx * CP * CK + tid];
   __syncthreads();
+}
+
+// Stage chunk `idx`'s opacity row (row 0 of opa (nc, 8, 128)).  No sync of
+// its own: call it before stage_chunk, whose closing sync covers it.
+__device__ __forceinline__ void stage_opacity(const float* __restrict__ opa,
+                                              int idx, float* s_opa) {
+  if (threadIdx.x < CK)
+    s_opa[threadIdx.x] = opa[(size_t)idx * CP * CK + threadIdx.x];
 }
 
 // Ray x slot pair test against the staged chunk (tracer.hpp:411-440): the

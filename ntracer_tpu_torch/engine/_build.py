@@ -44,6 +44,12 @@ _NEAREST_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
 # ntr_occluded's C signature (csrc/occluded.cu)
 _OCCLUDED_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                   _I, _I, _P, _P, _P, _P]
+# ntr_nearest_t's C signature (csrc/nearest_hit_transparent.cu)
+_NEAREST_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+# ntr_occluded_t's C signature (csrc/occluded_transparent.cu)
+_OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                    _I, _I, _I, _P, _P, _P, _P, _P]
 
 
 def sources():
@@ -139,6 +145,10 @@ def load():
             lib.ntr_nearest_hit.restype = ctypes.c_int
             lib.ntr_occluded.argtypes = _OCCLUDED_ARGS
             lib.ntr_occluded.restype = ctypes.c_int
+            lib.ntr_nearest_t.argtypes = _NEAREST_T_ARGS
+            lib.ntr_nearest_t.restype = ctypes.c_int
+            lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
+            lib.ntr_occluded_t.restype = ctypes.c_int
             lib.ntr_error_string.argtypes = [ctypes.c_int]
             lib.ntr_error_string.restype = ctypes.c_char_p
             _lib = lib

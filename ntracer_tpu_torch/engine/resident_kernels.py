@@ -10,10 +10,11 @@ The PyTorch counterpart of ``ntracer_tpu/engine/resident_kernels.py``:
   * per-frame prep (plain torch): ``chunk_order``, ``shared_rows_res``,
     ``_scene_exit_T`` and ``_order_boxes``
     (pool order's boxes are kept per scene);
-  * the walks: ``nearest_hit`` and ``occluded`` launch the hand-written
-    CUDA kernels (``ntracer_tpu_torch/csrc/nearest_hit.cu``, ``occluded.cu``)
-    on CUDA tensors and take their plain twins ``nearest_hit_ref`` and
-    ``occluded_ref`` on CPU tensors.
+  * the walks: ``nearest_hit``, ``occluded``, ``nearest_hit_transparent``
+    and ``occluded_transparent`` launch the hand-written CUDA kernels
+    (``ntracer_tpu_torch/csrc/nearest_hit.cu``, ``occluded.cu``,
+    ``nearest_hit_transparent.cu``, ``occluded_transparent.cu``) on CUDA
+    tensors and take their plain twins (``*_ref``) on CPU tensors.
 
 The walk visits chunks by the TPU kernel's rule (``_nearest_walk_live``): per
 512-ray block, the next four candidate chunks (in visit order, whose
@@ -28,6 +29,22 @@ any opaque hit with 0 < t < ldist" per ray.  Its bound is the largest
 ``ldist`` among the block's rays that are not blocked yet, and its groups of
 four are picked the same way.  ``blocked`` is a monotone OR over visits, so
 any superset of the necessary chunks gives the same answer.
+
+Pools with transparent slots (an opacity row ``opa`` beside the layouts, see
+``add_opacity``) take the transparent walks.  ``nearest_hit_transparent``
+keeps, beside the nearest opaque hit, the K nearest transparent hits in K
+slots per ray: per visited chunk the chunk's transparent hits are taken in
+ascending t (lowest lane first on a tie), at most K of them, and each
+replaces the first largest slot when it is nearer.  Which slot a hit lands
+in depends on the visit set, and the stable sort downstream composes
+exactly tied surfaces in slot order, so this walk picks ONE candidate per
+step (with the bound from before the current visit) exactly as the TPU
+kernel does, and slot positions are part of the contract between kernel and
+twin.  ``occluded_transparent`` is the occlusion walk with a second output,
+``filt``: the product of (1 - opacity) over the transparent hits with
+t < ldist, multiplied per visited chunk as a halving tree over the 128
+lanes (lanes i and i + 64, then i and i + 32, ...), which is the TPU
+kernel's association; ``filt`` is 1 where ``blocked``.
 """
 
 from __future__ import annotations
@@ -47,11 +64,19 @@ EXIT_SCALE = float(np.float32(1) + np.float32(16) * ROUNDING_FUZZ)
 
 # candidate chunks picked per walk step (the TPU kernel's P_CAND)
 P_CAND = 4
+# transparent slots a ray can hold in the CUDA kernel (registers per thread)
+MAX_K = 8
 SENT = 1 << 30    # "no candidate" position
 
 
 def _pad8(n):
     return -(-n // 8) * 8
+
+
+def _check_k(K):
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"the transparent walk holds 1..{MAX_K} slots a "
+                         f"ray, not K={K}")
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +132,18 @@ def prepare_resident_cells(treelets, tri_p1, tri_fn, tri_en, tri_dc,
     return dict(gt=gt, ci=ci, ids=ids, klo=klo, khi=khi, b_lo=b_lo,
                 b_hi=b_hi, n_eff=np.asarray([nc], np.int32),
                 base_order=np.arange(max(nc, 1), dtype=np.int32))
+
+
+def add_opacity(res, tri_opacity, ck: int = CK):
+    """Attach the per-slot opacity row ``opa`` (nc, 8, ck) the transparent
+    walks read (row 0); padding slots get opacity 1 (their zero face normal
+    already kills hits)."""
+    ids = res["ids"][:, 0, :]
+    safe = np.clip(ids, 0, len(tri_opacity) - 1)
+    opa = np.ones((ids.shape[0], C_PAD, ck), np.float32)
+    opa[:, 0, :] = np.where(ids >= 0, tri_opacity[safe], 1.0)
+    res["opa"] = opa
+    return res
 
 
 def centroid_bins(tri_lo, tri_hi, fn_norm, ck: int):
@@ -262,10 +299,14 @@ def _visit_boxes(res, order, d):
     return (res["base_order"], *boxes)
 
 
-def _walk_inputs(res, oT, dT, skip, d, order, active, sh):
+def _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=0):
     """Inputs shared by the kernel and its twin: the walk's start distance
     (scene exit, 0 for inactive rays), per-block liveness and the chunk
-    boxes in visit order."""
+    boxes in visit order.  ``K`` > 0 selects the transparent walk (K slots
+    a ray, the pool's opacity row)."""
+    if K and res.get("opa") is None:
+        raise ValueError("the transparent walk needs the pool's opacity row "
+                         "(add_opacity)")
     R = oT.shape[1]
     if R % RAY_BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {RAY_BLOCK}")
@@ -278,7 +319,8 @@ def _walk_inputs(res, oT, dT, skip, d, order, active, sh):
     return dict(d=d, shared=sh is not None, oT=oT, dT=dT, skip=skip,
                 init_t=init_t, order=order, n_eff=int(res["n_eff"]),
                 blive=blive, klo_t=klo_t, khi_t=khi_t, gt=res["gt"],
-                ci=res["ci"] if sh is None else sh, ids=res["ids"])
+                ci=res["ci"] if sh is None else sh, ids=res["ids"], K=K,
+                opa=res.get("opa") if K else None)
 
 
 # ---------------------------------------------------------------------------
@@ -349,21 +391,57 @@ def _chunk_hits_vals(d, shared, g, ci, idrow, o, dv, skip):
     return t, valid
 
 
-def _find_cands(emin, bound, k0, n):
-    """Positions of the next P_CAND chunks >= k0 whose entry bound is below
-    the block's bound: (nb, P_CAND), SENT fills."""
+def _find_cands(emin, bound, k0, n, p=P_CAND):
+    """Positions of the next ``p`` chunks >= k0 whose entry bound is below
+    the block's bound: (nb, p), SENT fills."""
     posi = torch.arange(n, dtype=torch.int64, device=emin.device)
     cand = (emin < bound[:, None]) & (posi[None, :] >= k0[:, None])
     cp = torch.where(cand, posi[None, :], SENT)
-    if n < P_CAND:
-        cp = torch.cat([cp, torch.full((cp.shape[0], P_CAND - n), SENT,
+    if n < p:
+        cp = torch.cat([cp, torch.full((cp.shape[0], p - n), SENT,
                                        dtype=cp.dtype, device=cp.device)], 1)
-    return torch.topk(cp, P_CAND, dim=1, largest=False, sorted=True).values
+    return torch.topk(cp, p, dim=1, largest=False, sorted=True).values
+
+
+def _first_where(v, target, n):
+    """Lowest index along the last axis where ``v`` equals ``target``
+    (..., 1); ``n`` = the axis length.  Ties resolve to the first index on
+    every device."""
+    idx = torch.arange(n, dtype=torch.int64, device=v.device)
+    return torch.amin(torch.where(v == target, idx, n), dim=-1)
+
+
+def _insert_transparent(tt, tid, tmt, base, K):
+    """Offer one chunk's transparent hits to the K slots: the chunk's hits
+    in ascending t (lowest lane first on a tie), at most K of them, each
+    replacing the FIRST largest slot when it is nearer.  ``tt``/``tid``
+    (n, RB, K), ``tmt`` (n, RB, CK) hit distances (INF where there is none),
+    ``base`` (n, 1) the chunk's first slot id."""
+    inf = float(INF)
+    for _s in range(K):
+        st = torch.amin(tmt, dim=2, keepdim=True)
+        if not bool((st < inf).any()):
+            break                       # nothing left: no slot would change
+        sarg = _first_where(tmt, st, CK)
+        tmt = tmt.scatter(2, sarg[:, :, None], inf)
+        bmax = torch.amax(tt, dim=2, keepdim=True)
+        barg = _first_where(tt, bmax, K)
+        lanes = torch.arange(K, dtype=torch.int64, device=tt.device)
+        put = (st < bmax) & (lanes == barg[:, :, None])
+        tid = torch.where(put, (base + sarg)[:, :, None], tid)
+        tt = torch.where(put, st, tt)
+    return tt, tid
 
 
 def _walk_blocks(w, b0, b1):
-    """Twin walk of ray blocks [b0, b1), vectorized over blocks."""
-    d, shared, n = w["d"], w["shared"], w["n_eff"]
+    """Twin walk of ray blocks [b0, b1), vectorized over blocks.  With
+    ``w["K"]`` slots it is the transparent walk: one candidate a step,
+    opaque slots compete for the nearest hit and transparent ones go to the
+    K slots.  Returns (best, best_id, visits, tt, tid, replaced);
+    ``tt``/``tid`` are (nb, RB, K) (K = 0: empty), ``replaced`` counts the
+    filled slots that a nearer hit took over on the way."""
+    d, shared, n, K = w["d"], w["shared"], w["n_eff"], w["K"]
+    p = 1 if K else P_CAND
     nb = b1 - b0
     sl = slice(b0 * RAY_BLOCK, b1 * RAY_BLOCK)
     dev = w["oT"].device
@@ -376,23 +454,27 @@ def _walk_blocks(w, b0, b1):
     skip = w["skip"][sl].reshape(nb, RAY_BLOCK, 1)
     best = w["init_t"][sl].reshape(nb, RAY_BLOCK).clone()
     best_id = torch.full((nb, RAY_BLOCK), -1, dtype=torch.int64, device=dev)
+    tt = torch.full((nb, RAY_BLOCK, K), float(INF), dtype=torch.float32,
+                    device=dev)
+    tid = torch.full((nb, RAY_BLOCK, K), -1, dtype=torch.int64, device=dev)
     visits = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    replaced = torch.zeros((), dtype=torch.int64, device=dev)
     live_blk = w["blive"][b0:b1] != 0
     if n == 0:
-        return best, best_id, visits
+        return best, best_id, visits, tt, tid, replaced
 
     emin = torch.amin(_entry_all(d, o, dv, w["klo_t"], w["khi_t"], n),
                       dim=1)                                    # (nb, n)
     order = w["order"].long()
     none = torch.full((nb,), n, dtype=torch.int64, device=dev)
     cur = _find_cands(emin, torch.amax(best, dim=1),
-                      torch.zeros_like(none), n)
+                      torch.zeros_like(none), n, p)
     cur[~live_blk] = SENT
     while bool((cur[:, 0] < SENT).any()):
         # the next group is picked with the bound from before this group
         k0 = torch.where(cur[:, -1] < SENT, cur[:, -1] + 1, none)
-        nxt = _find_cands(emin, torch.amax(best, dim=1), k0, n)
-        for j in range(P_CAND):
+        nxt = _find_cands(emin, torch.amax(best, dim=1), k0, n, p)
+        for j in range(p):
             sel = torch.nonzero(cur[:, j] < SENT).squeeze(1)
             if sel.numel() == 0:
                 continue
@@ -400,15 +482,24 @@ def _walk_blocks(w, b0, b1):
             t, valid = _chunk_hits_vals(
                 d, shared, w["gt"][idx], w["ci"][idx], w["ids"][idx, 0],
                 o[:, sel], dv[:, sel], skip[sel])
+            if K:
+                opaq = w["opa"][idx, 0][:, None, :] >= 1.0
+                tmt = torch.where(valid & ~opaq, t, float(INF))
+                valid = valid & opaq
             tm = torch.where(valid, t, float(INF))
             ct, carg = torch.min(tm, dim=2)
             upd = ct < best[sel]
             best_id[sel] = torch.where(upd, idx[:, None] * CK + carg,
                                        best_id[sel])
             best[sel] = torch.where(upd, ct, best[sel])
+            if K:
+                was = tid[sel]
+                tt[sel], tid[sel] = _insert_transparent(
+                    tt[sel], was, tmt, idx[:, None] * CK, K)
+                replaced += ((was >= 0) & (tid[sel] != was)).sum()
             visits[sel] += 1
         cur = nxt
-    return best, best_id, visits
+    return best, best_id, visits, tt, tid, replaced
 
 
 def _twin_step(x):
@@ -418,15 +509,28 @@ def _twin_step(x):
 
 
 def _walk_ref(w):
+    """(t, slot, visits), and with ``w["K"]`` slots (t, slot, tt (K, R),
+    tslot (K, R), visits); the count of replaced slots is left in
+    ``w["replaced"]``."""
     nb = w["oT"].shape[1] // RAY_BLOCK
+    K = w["K"]
     step = _twin_step(w["oT"])
-    ts, ids, vis = [], [], []
+    ts, ids, vis, tts, tids = [], [], [], [], []
+    w["replaced"] = 0
     for b0 in range(0, nb, step):
-        t, i, v = _walk_blocks(w, b0, min(nb, b0 + step))
+        t, i, v, tt, tid, rep = _walk_blocks(w, b0, min(nb, b0 + step))
+        w["replaced"] += int(rep)
         ts.append(t.reshape(-1))
         ids.append(i.reshape(-1))
         vis.append(v)
-    return (torch.cat(ts), torch.cat(ids).to(torch.int32), torch.cat(vis))
+        tts.append(tt.flatten(0, 1))
+        tids.append(tid.flatten(0, 1))
+    t, slot, vis = (torch.cat(ts), torch.cat(ids).to(torch.int32),
+                    torch.cat(vis))
+    if not K:
+        return t, slot, vis
+    return (t, slot, torch.cat(tts).T.contiguous(),
+            torch.cat(tids).to(torch.int32).T.contiguous(), vis)
 
 
 def nearest_hit_ref(res, oT, dT, skip, d, order=None, active=None, sh=None):
@@ -435,10 +539,31 @@ def nearest_hit_ref(res, oT, dT, skip, d, order=None, active=None, sh=None):
     return _walk_ref(_walk_inputs(res, oT, dT, skip, d, order, active, sh))
 
 
-def _occlusion_inputs(res, oT, dT, ldist, skip, d, order):
-    """Inputs shared by the occlusion kernel and its twin: per-block
+def nearest_hit_transparent_ref(res, oT, dT, skip, d, K, order=None,
+                                active=None, sh=None):
+    """Plain-torch twin of ``nearest_hit_transparent``: the same walk (one
+    candidate a step), the same float operations and the same slot
+    assignment, over (blocks, 512, 128) slabs.  After a call its attribute
+    ``replaced`` says how many filled slots a nearer hit took over (a ray
+    that crosses more glass than it has slots)."""
+    _check_k(K)
+    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
+    out = _walk_ref(w)
+    nearest_hit_transparent_ref.replaced = w["replaced"]
+    return out
+
+
+nearest_hit_transparent_ref.replaced = 0
+
+
+def _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=False):
+    """Inputs shared by the occlusion kernels and their twins: per-block
     liveness (any ray with ``ldist > 0``) and the chunk boxes in visit
-    order."""
+    order.  ``filtered`` selects the transparent walk (the pool's opacity
+    row)."""
+    if filtered and res.get("opa") is None:
+        raise ValueError("the transparent walk needs the pool's opacity row "
+                         "(add_opacity)")
     R = oT.shape[1]
     if R % RAY_BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {RAY_BLOCK}")
@@ -447,11 +572,25 @@ def _occlusion_inputs(res, oT, dT, ldist, skip, d, order):
         .to(torch.int32)
     return dict(d=d, oT=oT, dT=dT, skip=skip, ldist=ldist, order=order,
                 n_eff=int(res["n_eff"]), blive=blive, klo_t=klo_t,
-                khi_t=khi_t, gt=res["gt"], ci=res["ci"], ids=res["ids"])
+                khi_t=khi_t, gt=res["gt"], ci=res["ci"], ids=res["ids"],
+                opa=res.get("opa") if filtered else None)
+
+
+def _lane_tree_product(v):
+    """Product over the last axis (a power of two long) as a halving tree:
+    entries i and i + w/2, then i and i + w/4, ...  Three or more factors
+    other than 1 round differently under another association."""
+    w = v.shape[-1]
+    while w > 1:
+        w //= 2
+        v = v[..., :w] * v[..., w:2 * w]
+    return v[..., 0]
 
 
 def _occlusion_blocks(w, b0, b1):
-    """Twin occlusion walk of ray blocks [b0, b1), vectorized over blocks."""
+    """Twin occlusion walk of ray blocks [b0, b1), vectorized over blocks.
+    Returns (blocked, filt, visits); with an opacity row only opaque slots
+    block and ``filt`` gathers the transparent ones, else ``filt`` is 1."""
     d, n = w["d"], w["n_eff"]
     nb = b1 - b0
     sl = slice(b0 * RAY_BLOCK, b1 * RAY_BLOCK)
@@ -465,10 +604,11 @@ def _occlusion_blocks(w, b0, b1):
     skip = w["skip"][sl].reshape(nb, RAY_BLOCK, 1)
     ldist = w["ldist"][sl].reshape(nb, RAY_BLOCK)
     blocked = torch.zeros((nb, RAY_BLOCK), dtype=torch.bool, device=dev)
+    filt = torch.ones((nb, RAY_BLOCK), dtype=torch.float32, device=dev)
     visits = torch.zeros((nb,), dtype=torch.int32, device=dev)
     live_blk = w["blive"][b0:b1] != 0
     if n == 0:
-        return blocked, visits
+        return blocked, filt, visits
 
     def lmax():                         # largest ldist of the unblocked rays
         return torch.amax(torch.where(blocked, 0.0, ldist), dim=1)
@@ -492,24 +632,43 @@ def _occlusion_blocks(w, b0, b1):
                 d, False, w["gt"][idx], w["ci"][idx], w["ids"][idx, 0],
                 o[:, sel], dv[:, sel], skip[sel])
             valid &= t < ldist[sel][:, :, None]
+            if w["opa"] is not None:
+                op = w["opa"][idx, 0][:, None, :]
+                opaq = op >= 1.0
+                filt[sel] = filt[sel] * _lane_tree_product(
+                    torch.where(valid & ~opaq, 1.0 - op, 1.0))
+                valid = valid & opaq
             blocked[sel] |= torch.any(valid, dim=2)
             visits[sel] += 1
         cur = nxt
-    return blocked, visits
+    return blocked, torch.where(blocked, 1.0, filt), visits
+
+
+def _occlusion_ref(w):
+    nb = w["oT"].shape[1] // RAY_BLOCK
+    step = _twin_step(w["oT"])
+    bl, fl, vis = [], [], []
+    for b0 in range(0, nb, step):
+        b, f, v = _occlusion_blocks(w, b0, min(nb, b0 + step))
+        bl.append(b.reshape(-1))
+        fl.append(f.reshape(-1))
+        vis.append(v)
+    return torch.cat(bl), torch.cat(fl), torch.cat(vis)
 
 
 def occluded_ref(res, oT, dT, ldist, skip, d, order=None):
     """Plain-torch twin of ``occluded``: the same walk, the same visit rule
     and the same float operations, over (blocks, 512, 128) slabs."""
-    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
-    nb = oT.shape[1] // RAY_BLOCK
-    step = _twin_step(oT)
-    bl, vis = [], []
-    for b0 in range(0, nb, step):
-        b, v = _occlusion_blocks(w, b0, min(nb, b0 + step))
-        bl.append(b.reshape(-1))
-        vis.append(v)
-    return torch.cat(bl), torch.cat(vis)
+    blocked, _filt, vis = _occlusion_ref(
+        _occlusion_inputs(res, oT, dT, ldist, skip, d, order))
+    return blocked, vis
+
+
+def occluded_transparent_ref(res, oT, dT, ldist, skip, d, order=None):
+    """Plain-torch twin of ``occluded_transparent``: the occlusion walk with
+    the opacity row, ``filt`` multiplied per visit as the halving tree."""
+    return _occlusion_ref(
+        _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True))
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +707,8 @@ def _check_walk(w, dev):
     _check("gt", w["gt"], f32, (nc, pr, CK), dev)
     _check("ci", w["ci"], f32, (nc, C_PAD, CK), dev)
     _check("ids", w["ids"], i32, (nc, C_PAD, CK), dev)
+    if w["opa"] is not None:
+        _check("opa", w["opa"], f32, (nc, C_PAD, CK), dev)
     return R, R // RAY_BLOCK, pr, w["klo_t"].shape[1], n
 
 
@@ -641,3 +802,103 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
 
 
 occluded.launches = 0
+
+
+def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
+                            sh=None):
+    """Nearest opaque hit and the K nearest transparent hits of each ray
+    over a chunked pool with an opacity row (``res["opa"]``).
+
+    Arguments as ``nearest_hit``; ``K`` in 1..MAX_K.  Returns (t (R,) f32,
+    slot (R,) i32, tt (K, R) f32, tslot (K, R) i32, visits): ``tt``/``tslot``
+    are the K slots in the walk's own (unsorted) order, +inf and -1 where
+    empty, NOT trimmed by ``t``; slots are chunk*CK + lane.  On CUDA tensors
+    the CUDA kernel runs (and ``nearest_hit_transparent.launches`` counts
+    it); on CPU tensors the plain twin ``nearest_hit_transparent_ref``
+    does."""
+    _check_k(K)
+    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
+    dev = oT.device
+    if dev.type == "cpu":
+        return _walk_ref(w)
+    if dev.type != "cuda":
+        raise ValueError(f"nearest_hit_transparent runs on cuda or cpu, "
+                         f"not {dev}")
+    from . import _build
+    lib = _build.load()
+
+    R, nb, pr, ncp, n = _check_walk(w, dev)
+    f32, i32 = torch.float32, torch.int32
+    init_t = w["init_t"].contiguous()
+    blive = w["blive"].contiguous()
+
+    out_t = torch.empty((R,), dtype=f32, device=dev)
+    out_slot = torch.empty((R,), dtype=i32, device=dev)
+    out_tt = torch.empty((K, R), dtype=f32, device=dev)
+    out_tslot = torch.empty((K, R), dtype=i32, device=dev)
+    visits = torch.empty((nb,), dtype=i32, device=dev)
+    emin = torch.empty((max(nb * n, 1),), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ntr_nearest_t(
+        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), init_t.data_ptr(),
+        w["order"].data_ptr(), n, blive.data_ptr(),
+        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
+        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(),
+        w["opa"].data_ptr(), pr, R, d, int(w["shared"]), K,
+        out_t.data_ptr(), out_slot.data_ptr(), out_tt.data_ptr(),
+        out_tslot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"nearest_hit_transparent kernel launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+    nearest_hit_transparent.launches += 1
+    return out_t, out_slot, out_tt, out_tslot, visits
+
+
+nearest_hit_transparent.launches = 0
+
+
+def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
+    """Any opaque hit with 0 < t < ``ldist``, and the light that the
+    transparent hits in that range let through, over a chunked pool with an
+    opacity row (``res["opa"]``).
+
+    Arguments as ``occluded``.  Returns (blocked (R,) bool, filt (R,) f32,
+    visits): ``filt`` is the product of (1 - opacity) over the ray's
+    transparent hits with t < ldist, and 1 where ``blocked`` (no light
+    reaches there, whatever it passed through).  On CUDA tensors the CUDA
+    kernel runs (and ``occluded_transparent.launches`` counts it); on CPU
+    tensors the plain twin ``occluded_transparent_ref`` does."""
+    dev = oT.device
+    if dev.type == "cpu":
+        return occluded_transparent_ref(res, oT, dT, ldist, skip, d,
+                                        order=order)
+    if dev.type != "cuda":
+        raise ValueError(f"occluded_transparent runs on cuda or cpu, "
+                         f"not {dev}")
+    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
+    from . import _build
+    lib = _build.load()
+
+    R, nb, pr, ncp, n = _check_walk(w, dev)
+    _check("ldist", ldist, torch.float32, (R,), dev)
+    blive = w["blive"].contiguous()
+    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
+    filt = torch.empty((R,), dtype=torch.float32, device=dev)
+    visits = torch.empty((nb,), dtype=torch.int32, device=dev)
+    emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ntr_occluded_t(
+        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
+        w["order"].data_ptr(), n, blive.data_ptr(),
+        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
+        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(),
+        w["opa"].data_ptr(), pr, R, d, blocked.data_ptr(), filt.data_ptr(),
+        visits.data_ptr(), emin.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"occluded_transparent kernel launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+    occluded_transparent.launches += 1
+    return blocked, filt, visits
+
+
+occluded_transparent.launches = 0

@@ -1,13 +1,18 @@
 """PyTorch wavefront renderer: a whole frame of rays advances in lockstep.
 
-The counterpart of ``ntracer_tpu/engine/wavefront.py`` for opaque triangle
-``CompositeScene``s with d <= 8 (lights, shadows and reflections included)
-and for ``BoxScene``: rays are generated in 32x16-pixel tile order, traced by
-the nearest-hit walk (``resident_kernels.nearest_hit``), shaded -- with one
-occlusion walk (``resident_kernels.occluded``) per light when the scene
-casts shadows -- bounced, packed to pixel bytes on the device, and pulled
-into the caller's buffer.  Function names follow the
-JAX module so each has a visible counterpart.
+The counterpart of ``ntracer_tpu/engine/wavefront.py`` for triangle
+``CompositeScene``s with d <= 8 (lights, shadows, reflections and
+transparent materials included) and for ``BoxScene``: rays are generated in
+32x16-pixel tile order, traced by the nearest-hit walk
+(``resident_kernels.nearest_hit``), shaded -- with one occlusion walk
+(``resident_kernels.occluded``) per light when the scene casts shadows --
+bounced, packed to pixel bytes on the device, and pulled into the caller's
+buffer.  A scene with a transparent material takes the transparent walks
+instead (``nearest_hit_transparent``: the nearest opaque hit and the K
+nearest transparent hits; ``occluded_transparent``: shadows filtered by the
+glass they cross) and composes the K hits far to near over the opaque
+color.  Function names follow the JAX module so each has a visible
+counterpart.
 
 Layouts stay lane-major as in the JAX package's transposed pipeline: rays
 are (d, R), colors (3, R).  Every function takes tensors on one explicit
@@ -40,6 +45,10 @@ REAL_MAX = float(np.finfo(np.float32).max)
 # point lights dimmer than this cast no shadow ray (tracer.hpp:31)
 LIGHT_THRESHOLD = 1.0 / 512.0
 ROUNDING_FUZZ = float(np.float32(np.finfo(np.float32).eps * 10))
+# Diagnostic masks (frame_colors): a light this flat on a surface is grazing
+# -- its shadow ray runs along the surface, and rounding decides whether the
+# surface's own neighbours block it
+GRAZING_SINE = 1e-5
 
 
 def _unsupported(what, item):
@@ -187,7 +196,8 @@ def _frame_coords(groups, w, device):
 
 def tensors_from_arrays(arrs, device):
     """Device dict of numpy arrays (the JAX package's ``get_device_scene``
-    layout, as numpy) -> the port's tensors on ``device``.  ``res_neff``
+    layout, as numpy; ``res_opa`` with it when the scene has a transparent
+    material) -> the port's tensors on ``device``.  ``res_neff``
     becomes a Python int: the walk's launch reads it on the host.  Added
     once per scene: ``res_base_boxes``, the chunk boxes in pool order as
     the walks take them (every occlusion and bounce walk goes in that
@@ -210,7 +220,8 @@ def device_arrays(flat):
     """Host (numpy) arrays of the device scene, named as in the JAX
     package's ``get_device_scene``: the material rows, lights, bounds, and
     the chunked pool layouts with their slot-indexed rows
-    ``res_slot_pack`` = [fn(d), mat, pool id]."""
+    ``res_slot_pack`` = [fn(d), mat, pool id], and for a scene with a
+    transparent material the per-slot opacity row ``res_opa``."""
     a = flat.arrays
     d = flat.config.d
     n_tris = flat.config.n_tris
@@ -247,6 +258,9 @@ def device_arrays(flat):
     sp[:, d] = np.where(sids >= 0, a["tri_mat"][safe], 0)
     sp[:, d + 1] = np.where(sids >= 0, sids, -1)
     arrs["res_slot_pack"] = sp
+    if flat.config.has_transparency:
+        tri_opacity = np.asarray(a["mat_opacity"], np.float32)[a["tri_mat"]]
+        arrs["res_opa"] = rk.add_opacity(res, tri_opacity)["opa"]
     arrs["res_gt"] = res["gt"]
     arrs["res_ci"] = res["ci"]
     arrs["res_ids"] = res["ids"]
@@ -288,8 +302,6 @@ def get_device_scene(scene, device):
 def check_supported(cfg: SceneConfig):
     """Raise NotImplementedError for scene features outside this port
     (d > 8 is refused earlier, by get_device_scene)."""
-    if cfg.has_transparency:
-        raise _unsupported("transparency", 7)
     if cfg.n_solids:
         raise _unsupported("solids", 8)
 
@@ -309,7 +321,8 @@ def _res_dict(arrs):
                 klo=arrs["res_klo"], khi=arrs["res_khi"],
                 b_lo=arrs["res_blo"], b_hi=arrs["res_bhi"],
                 n_eff=arrs["res_neff"], base_order=arrs["res_order"],
-                base_boxes=arrs.get("res_base_boxes"))
+                base_boxes=arrs.get("res_base_boxes"),
+                opa=arrs.get("res_opa"))
 
 
 def primary_ctx(arrs, cfg, origin):
@@ -322,25 +335,45 @@ def primary_ctx(arrs, cfg, origin):
                                          cfg.d)}
 
 
-def _trace_finish_T(cfg, res):
-    """The (k, R) finish of an opaque trace (no transparent hit slots,
-    K = 0) on one device; solids are not ported."""
+def _trace_finish_T(arrs, cfg, dT, res, K):
+    """The (k, R) finish of a trace on one device.  With K transparent
+    slots (``ttT``/``tslotT`` (K, R), sorted ascending by t): the slots'
+    view-facing normals ``tnormT`` (d, K, R), materials ``tmatT`` and pool
+    ids ``tidT`` (K, R) in one gather of the slot rows, then the trim: a
+    slot counts only in front of the opaque hit.  Solids are not ported."""
     if cfg.n_solids:
         raise _unsupported("solids", 8)
+    d = cfg.d
+    if K:
+        tslot = res.pop("tslotT")
+        rows = arrs["res_slot_pack"][torch.clamp(tslot, min=0).long()] \
+            .permute(2, 0, 1)                               # (d + 2, K, R)
+        fnk = rows[:d]
+        denomk = _dotT(fnk, dT[:, None, :])
+        res["tnormT"] = _unitT(fnk) \
+            * torch.where(denomk > 0, -1.0, 1.0)[None, :, :]
+        res["tmatT"] = rows[d].to(torch.int32)
+        tid = torch.where(tslot >= 0,
+                          rows[d + 1].to(torch.int32) + arrs["tri_base"], -1)
     res["hit"] = res["pid"] >= 0
+    if K:
+        tvalid = (tid >= 0) & (res["ttT"] < res["t"][None, :])
+        res["tidT"] = torch.where(tvalid, tid, -1)
     return res
 
 
 def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
                active=None, pctx=None):
-    """Nearest opaque hit of (d, R) rays over the triangle pool.
+    """Nearest opaque hit of (d, R) rays over the triangle pool and, for a
+    scene with a transparent material, the K = ``cfg.max_transparent_hits``
+    nearest transparent hits in front of it.
 
     ``shared_origin`` (d,) selects the front-to-back order and shared rows of
     primary rays (``pctx`` from primary_ctx, computed here when absent);
     ``active`` masks bounce rays out.  Returns t, pid, mat (R,) and pointT,
-    normalT (d, R)."""
-    if cfg.has_transparency:
-        raise _unsupported("transparency", 7)
+    normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
+    (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty."""
+    K = cfg.max_transparent_hits if cfg.has_transparency else 0
     d = cfg.d
     res_k = _res_dict(arrs)
     skip_local = skip - arrs["tri_base"]
@@ -349,8 +382,18 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         if pctx is None:
             pctx = primary_ctx(arrs, cfg, shared_origin)
         order, sh = pctx["order"], pctx["sh_res"]
-    kt, slot, _vis = rk.nearest_hit(res_k, oT, dT, skip_local, d,
-                                     order=order, active=active, sh=sh)
+    res = {}
+    if K:
+        kt, slot, ktt, ktslot, _vis = rk.nearest_hit_transparent(
+            res_k, oT, dT, skip_local, d, K, order=order, active=active,
+            sh=sh)
+        # stable, as jnp.argsort is: exactly tied surfaces keep slot order
+        order_k = torch.argsort(ktt, dim=0, stable=True)
+        res["ttT"] = torch.gather(ktt, 0, order_k)
+        res["tslotT"] = torch.gather(ktslot, 0, order_k)
+    else:
+        kt, slot, _vis = rk.nearest_hit(res_k, oT, dT, skip_local, d,
+                                         order=order, active=active, sh=sh)
     rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
     gidl = rowT[d + 1].to(torch.int32)
     t = torch.where(slot >= 0, kt, REAL_MAX)
@@ -359,9 +402,9 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     fnT = rowT[:d]
     denom = _dotT(fnT, dT)
     normalT = _unitT(fnT) * torch.where(denom > 0, -1.0, 1.0)[None, :]
-    res = dict(t=t, pid=pid, pointT=pointT, normalT=normalT,
+    res.update(t=t, pid=pid, pointT=pointT, normalT=normalT,
                mat=rowT[d].to(torch.int32))
-    return _trace_finish_T(cfg, res)
+    return _trace_finish_T(arrs, cfg, dT, res, K)
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +449,11 @@ def aabb_distance_T(cfg, arrs, oT, dT):
 def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     """Shadow query (light_reaches, tracer.hpp:1750-1766, with true any-hit
     semantics): is there an opaque hit with 0 < t < ``ldist`` along each
-    (d, R) ray?  -> blocked (R,) bool.
+    (d, R) ray, and how much light do the transparent hits in that range let
+    through?  -> (blocked (R,) bool, filt): ``filt`` (R,) f32 is the product
+    of (1 - opacity) over those hits, 1 where ``blocked``; None in a scene
+    without a transparent material (nothing filters, and the caller skips
+    the multiply).
 
     Rays with ``ldist <= 0`` are inactive; the walk skips ray blocks without
     an active ray, so a wholly inactive batch costs one short launch and no
@@ -414,8 +461,6 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     pool's box, which bounds a global light's infinite distance (no pool hit
     lies beyond it); point-light queries arrive finite and skip it.  ``skip``
     is the pool id of the surface the ray leaves."""
-    if cfg.has_transparency:
-        raise _unsupported("transparency", 7)
     res_k = _res_dict(arrs)
     skip_local = skip - arrs["tri_base"]
     if clamp_exit:
@@ -423,25 +468,38 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
             ldist, rk._scene_exit_T(oT, dT, res_k["b_lo"], res_k["b_hi"]))
     else:
         pool_ldist = ldist
-    blocked, _vis = rk.occluded(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
-    return _occlusion_finish(cfg, blocked)
+    if cfg.has_transparency:
+        blocked, filt, _vis = rk.occluded_transparent(
+            res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+    else:
+        blocked, _vis = rk.occluded(res_k, oT, dT, pool_ldist, skip_local,
+                                    cfg.d)
+        filt = None
+    return _occlusion_finish(cfg, blocked, filt)
 
 
-def _occlusion_finish(cfg, blocked):
+def _occlusion_finish(cfg, blocked, filt):
     """What the pool walk does not cover: solids are tested here, against
     the unclamped ``ldist`` (not ported)."""
     if cfg.n_solids:
         raise _unsupported("solids", 8)
-    return blocked
+    return blocked, filt
+
+
+def _note(masks, name, rays):
+    """OR ``rays`` (R,) bool into the frame's diagnostic mask ``name``."""
+    if masks is not None:
+        masks[name] = rays | masks[name] if name in masks else rays
 
 
 def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
-                  dyn, active=None):
+                  dyn, active=None, masks=None):
     """Local shading (tracer.hpp:1768-1854): (d, R) geometry -> (3, R)
     color, (3, R) child coefficient, (d, R) child direction.  With
     ``cfg.shadows`` every light casts one occlusion query from the hit
     points (skipping the surface ``pid`` they lie on), for the rays in
-    ``active`` that face the light."""
+    ``active`` that face the light.  ``masks`` (a dict, see
+    ``frame_colors``) gathers what the queries found."""
     R = dT.shape[1]
     dev = dT.device
     rowT = arrs["mat_pack"][mi.long()].T
@@ -454,6 +512,12 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
     light = torch.zeros((3, R), dtype=f32, device=dev)
     specular = torch.zeros((3, R), dtype=f32, device=dev)
     spec_a = torch.zeros((R,), dtype=f32, device=dev)
+
+    def note_query(want, blocked, filt, sine):
+        _note(masks, "shadowed", want & blocked)
+        _note(masks, "grazing", want & (sine < GRAZING_SINE))
+        if filt is not None:
+            _note(masks, "filtered", want & ~blocked & (filt < 1))
 
     def add_specular(specular, spec_a, filteredT, light_dirT, mask):
         """Blinn-Phong highlight of one light (tracer.hpp:1701-1707)."""
@@ -479,11 +543,14 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
                                  > LIGHT_THRESHOLD)
             if active is not None:
                 want = want & active
-            blocked = occlusion(arrs, cfg, pointT, lv,
-                                torch.where(want, dist, 0.0), pid,
-                                clamp_exit=False)
+            blocked, filt = occlusion(arrs, cfg, pointT, lv,
+                                      torch.where(want, dist, 0.0), pid,
+                                      clamp_exit=False)
+            note_query(want, blocked, filt, sine)
             ok = want & ~blocked
-            filteredT = plc[:, None] * strength[None, :]
+            filteredT = plc[:, None] if filt is None \
+                else plc[:, None] * filt[None, :]
+            filteredT = filteredT * strength[None, :]
             light = light + torch.where(ok[None, :],
                                         filteredT * sine[None, :], 0.0)
             specular, spec_a = add_specular(specular, spec_a, filteredT, lv,
@@ -501,10 +568,12 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
             if active is not None:
                 want = want & active
             ldT = (-gld)[:, None].expand_as(pointT).contiguous()
-            blocked = occlusion(arrs, cfg, pointT, ldT,
-                                torch.where(want, REAL_MAX, 0.0), pid)
+            blocked, filt = occlusion(arrs, cfg, pointT, ldT,
+                                      torch.where(want, REAL_MAX, 0.0), pid)
+            note_query(want, blocked, filt, sine)
             ok = want & ~blocked
-            filteredT = glc[:, None].expand(3, R)
+            filteredT = glc[:, None] if filt is None \
+                else glc[:, None] * filt[None, :]
             light = light + torch.where(ok[None, :],
                                         filteredT * sine[None, :], 0.0)
             specular, spec_a = add_specular(specular, spec_a, filteredT, ldT,
@@ -539,12 +608,25 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
 # Bounce loop
 # ---------------------------------------------------------------------------
 
-def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None):
+def _primary_masks(res):
+    """Diagnostic masks of a primary trace ``res``, (R,) bool each: ``hit``
+    (an opaque surface), ``layered`` (a valid transparent slot) and ``full``
+    (every slot valid: the ray may cross more glass than it keeps)."""
+    masks = dict(hit=res["hit"])
+    if "tidT" in res:
+        valid = res["tidT"] >= 0
+        masks.update(layered=valid[0], full=valid.all(dim=0))
+    return masks
+
+
+def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
     """Color of (d, R) rays (ray_color, tracer.hpp:1856-1883) with
     reflections unrolled into a weighted bounce loop: bounce rays trace
     with an active mask and skip the surface they leave.  -> (3, R) rows,
     ready for the channel packer (the JAX package's
-    ``ray_colors_packable`` on its transposed pipeline)."""
+    ``ray_colors_packable`` on its transposed pipeline).  A dict passed as
+    ``masks`` is filled with the frame's diagnostic masks (see
+    ``frame_colors``)."""
     check_supported(cfg)
     R = oT.shape[1]
     dev = oT.device
@@ -559,23 +641,58 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None):
                          shared_origin=oT[:, 0] if depth == 0 else None,
                          active=None if depth == 0 else active,
                          pctx=pctx if depth == 0 else None)
+        if masks is not None and depth == 0:
+            masks.update(_primary_masks(res))
         dist = aabb_distance_T(cfg, arrs, oT, dT)
         hit = res["hit"] & (dist >= 0)
         live = hit if depth == 0 else hit & active
         localT, child_coefT, child_dirT = shade_local_T(
             arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"],
-            res["mat"], depth, dyn, active=live)
+            res["mat"], depth, dyn, active=live, masks=masks)
         bgT = background_T(cfg, dyn, dT)
         color_hereT = torch.where(hit[None, :], localT, bgT)
+        weight_scale = None
+        if cfg.has_transparency:
+            color_hereT, weight_scale = _compose_transparent_T(
+                arrs, cfg, dyn, oT, dT, res, color_hereT, depth, masks=masks)
         out = out + torch.where(active[None, :], weight * color_hereT, 0.0)
         if depth == max_bounces:
             break
         weight = weight * child_coefT
+        if weight_scale is not None:
+            weight = weight * weight_scale[None, :]
         active = active & hit & torch.any(child_coefT > 0, dim=0)
         oT = res["pointT"]
         dT = _unitT(child_dirT)
         skip = res["pid"]
     return out
+
+
+def _compose_transparent_T(arrs, cfg, dyn, oT, dT, res, base_colorT, depth,
+                           masks=None):
+    """Far-to-near composition (tracer.hpp:1870-1880) of the K transparent
+    hits of ``res`` over (3, R) color rows: every valid slot is shaded like
+    a surface (its own shadow queries included) and laid over what is behind
+    it by its material's opacity.  Returns (color, transmission): the bounce
+    loop scales the opaque hit's child weight by the light all the slots
+    let through."""
+    R = oT.shape[1]
+    color = base_colorT
+    trans = torch.ones((R,), dtype=f32, device=oT.device)
+    for k in range(cfg.max_transparent_hits - 1, -1, -1):
+        tid = res["tidT"][k]
+        valid = tid >= 0
+        pointT = oT + res["ttT"][k][None, :] * dT
+        mi = res["tmatT"][k]
+        localT, _coef, _dir = shade_local_T(
+            arrs, cfg, dT, pointT, res["tnormT"][:, k],
+            torch.where(valid, tid, 0), mi, depth, dyn, active=valid,
+            masks=masks)
+        op = arrs["mat_pack"][mi.long(), 6]
+        new = localT * op[None, :] + color * (1 - op)[None, :]
+        color = torch.where(valid[None, :], new, color)
+        trans = torch.where(valid, trans * (1 - op), trans)
+    return color, trans
 
 
 # ---------------------------------------------------------------------------
@@ -615,14 +732,18 @@ def _box_colors(d, cam_origin, cam_t, fov_params, xs, ys):
 
 
 def _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t, fov_params,
-                            groups, w, key):
+                            groups, w, key, masks=None):
     """One frame of a composite scene in one pass over all its rays ->
     packed int32 stream (or, with ``key=None``, (R, 3) float colors in
-    linear pixel order)."""
+    linear pixel order; a dict passed as ``masks`` then receives the
+    frame's diagnostic masks in the same order)."""
     pctx = primary_ctx(arrs, cfg, cam_origin)
     xs, ys, unswz = _frame_coords(groups, w, cam_origin.device)
     oT, dT = make_rays(cam_origin, cam_t, *fov_params, xs, ys)
-    colorsT = _ray_colors_T(arrs, cfg, dyn, oT, dT, pctx=pctx)
+    colorsT = _ray_colors_T(arrs, cfg, dyn, oT, dT, pctx=pctx, masks=masks)
+    if masks is not None:
+        for name in masks:
+            masks[name] = unswz(masks[name])
     if key is None:
         return unswz(colorsT.T)
     return packing.pack_device_stream(colorsT, key, permute=unswz)
@@ -641,7 +762,7 @@ def _needs_host_pack(fmt) -> bool:
     return any((not ch.tfloat) and ch.bit_size > 23 for ch in fmt.channels)
 
 
-def _frame(scene, width, height, key, device):
+def _frame(scene, width, height, key, device, masks=None):
     """Dispatch one frame on ``device``; returns the device tensor."""
     device = torch.device(device)
     scene._set_view_size(width, height)
@@ -656,7 +777,7 @@ def _frame(scene, width, height, key, device):
         cfg, arrs, _flat = get_device_scene(scene, device)
         return _frame_packed_composite(arrs, cfg, _scene_dyn(scene, device),
                                        cam_origin, cam_t, fov, groups, width,
-                                       key)
+                                       key, masks=masks)
     return _frame_packed_box(scene.dimension, cam_origin, cam_t, fov, groups,
                              width, key)
 
@@ -670,10 +791,26 @@ def frame_device_arrays(scene, fmt, device):
                   device)
 
 
-def frame_colors(scene, width, height, device):
-    """Float colors of one frame, (height, width, 3) numpy float32."""
-    out = _frame(scene, width, height, None, device)
-    return out[:width * height].cpu().numpy().reshape(height, width, 3)
+def frame_colors(scene, width, height, device, masks=False):
+    """Float colors of one frame, (height, width, 3) numpy float32.
+
+    With ``masks`` (composite scenes) also a dict of (height, width) bool
+    arrays that say what the engine found at each pixel, for choosing the
+    pixels of a check: ``hit``, ``layered`` and ``full`` of the primary
+    trace (``_primary_masks``), and over all shadow queries
+    ``shadowed`` (a wanted query ended blocked), ``filtered`` (one ended
+    unblocked behind glass) and ``grazing`` (one was cast for a light flatter
+    than GRAZING_SINE on its surface)."""
+    found = {} if masks else None
+    out = _frame(scene, width, height, None, device, masks=found)
+    colors = out[:width * height].cpu().numpy().reshape(height, width, 3)
+    if not masks:
+        return colors
+    none = np.zeros((height, width), bool)
+    found = {k: v[:width * height].cpu().numpy().reshape(height, width)
+             for k, v in found.items()}
+    return colors, {k: found.get(k, none) for k in (
+        "hit", "layered", "full", "shadowed", "filtered", "grazing")}
 
 
 def dispatch_packed(scene, fmt, device):

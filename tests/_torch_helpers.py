@@ -15,8 +15,15 @@ import sys
 import types
 
 import numpy as np
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The suite runs several pytest workers side by side.  With torch's default
+# of one intra-op thread per core in each of them the cores are
+# oversubscribed and the spinning thread pools slow every worker down many
+# times over; the small test sizes gain little from threads anyway.
+torch.set_num_threads(1)
 
 PORT = "ntracer_tpu_torch"
 JAX = "ntracer_tpu"
@@ -60,14 +67,68 @@ def random_scene(d=3, n=1200, seed=7, spread=0.6, material=None, dist=-8,
     return scene
 
 
-def polytope_scene(symbol=(3, 3, 5), angle=0.6, dist=-4.0, pkg=PORT):
+def _alternating(a, reflectivity=0.0):
+    """Materials by index as tests/test_pallas.py mixes them: even opaque
+    (a mirror with ``reflectivity``), odd glass."""
+    solid = a.Material((0.3, 0.8, 0.5), reflectivity=reflectivity)
+    glass = a.Material((1, 0.7, 0.7), opacity=0.4)
+    return lambda i: glass if i % 2 else solid
+
+
+def unbatched(pkg=PORT):
+    """Context in which scenes of ``pkg`` are built without grouping
+    triangles into batches (chip_smoke.unbatched): the scalar oracle records
+    one transparent hit per batch per leaf, so only an unbatched scene's
+    oracle keeps every transparent surface."""
+    return _smoke().unbatched(importlib.import_module(pkg + ".kdtree"))
+
+
+def two_lights(scene, nt, point=None):
+    """The point and the global light of scripts/tpu_parity.py (the point
+    light at ``point`` when given), shadows on."""
+    return _smoke().two_lights(nt, scene, point or (0, 5) + (0,) * (
+        nt.dimension - 2))
+
+
+def glass_scene(n=600, seed=31, spread=0.4, all_glass=False, lit=False,
+                reflectivity=0.0, pkg=PORT):
+    """A 3-D scene of ``n`` random triangles, glass and opaque by turns
+    (tests/test_pallas.py's mix), or all of one glass (scripts/
+    tpu_parity.py's "transparent d=3"); ``lit`` adds two lights with
+    shadows, ``reflectivity`` makes the opaque half mirrors."""
+    a = api(pkg)
+    nt = a.NTracer(3)
+    if all_glass:
+        glass = a.Material((0.7, 0.8, 1.0), opacity=0.45)
+        mat = lambda i: glass
+    else:
+        mat = _alternating(a, reflectivity)
+    rng = np.random.RandomState(seed)
+    protos = []
+    for i in range(n):
+        base = rng.uniform(-2, 2, 3)
+        pts = [nt.Vector(*(base + rng.uniform(-spread, spread, 3)))
+               for _ in range(3)]
+        protos.append(nt.TrianglePrototype(pts, mat(i)))
+    scene = nt.build_composite_scene(protos)
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(cam)
+    return two_lights(scene, nt) if lit else scene
+
+
+def polytope_scene(symbol=(3, 3, 5), angle=0.6, dist=-4.0, pkg=PORT,
+                   glass=False, lit=False):
     """A regular 4-D polytope's boundary (the 600-cell by default: 600
-    simplices, several chunks), seen from an oblique camera."""
+    simplices, several chunks), seen from an oblique camera; ``glass``
+    makes every other simplex transparent, ``lit`` adds chip_smoke.py's two
+    lights with shadows."""
     smoke = _smoke()
     a = api(pkg)
     nt = a.NTracer(len(symbol) + 1)
-    protos = smoke.hull_prototypes(nt, smoke.polytope_vertices(list(symbol)),
-                                   a.Material((1, 0.5, 0.5)))
+    protos = smoke.hull_prototypes(
+        nt, smoke.polytope_vertices(list(symbol)),
+        _alternating(a) if glass else a.Material((1, 0.5, 0.5)))
     scene = nt.build_composite_scene(protos)
     cam = nt.Camera()
     cam.translate(nt.Vector.axis(2, dist))
@@ -76,7 +137,7 @@ def polytope_scene(symbol=(3, 3, 5), angle=0.6, dist=-4.0, pkg=PORT):
     cam.normalize()
     cam.origin = cam.axes[2] * dist
     scene.set_camera(cam)
-    return scene
+    return two_lights(scene, nt, (0, 3, -3, 1)) if lit else scene
 
 
 def reflective_scene(seed=9, shadows=False, pkg=PORT):

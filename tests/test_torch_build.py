@@ -24,8 +24,9 @@ def test_nvcc_command_targets_hopper_with_ieee_math():
 
 def test_sources_and_build_dir():
     srcs = _build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["nearest_hit.cu",
-                                                   "occluded.cu"]
+    assert [os.path.basename(s) for s in srcs] == [
+        "nearest_hit.cu", "nearest_hit_transparent.cu", "occluded.cu",
+        "occluded_transparent.cu"]
     assert [os.path.basename(s) for s in _build.headers()] == [
         "pair_test.cuh"]
     pkg = os.path.dirname(os.path.dirname(_build.__file__))
@@ -42,7 +43,8 @@ def test_sources_and_build_dir():
 
 
 @pytest.mark.parametrize("name", ["nearest_hit.cu", "occluded.cu",
-                                  "pair_test.cuh"])
+                                  "nearest_hit_transparent.cu",
+                                  "occluded_transparent.cu", "pair_test.cuh"])
 def test_library_name_follows_every_build_input(name, tmp_path, monkeypatch):
     """An edit to any source or header the build reads changes the
     library's name, so a stale library is never loaded."""
@@ -79,3 +81,14 @@ def test_ctypes_signature_matches_the_c_entry_point():
 
 def test_occluded_ctypes_signature_matches_the_c_entry_point():
     _check_signature("ntr_occluded", _build._OCCLUDED_ARGS, "occluded.cu")
+
+
+@pytest.mark.parametrize("fn,argtypes,source", [
+    ("ntr_nearest_t", "_NEAREST_T_ARGS", "nearest_hit_transparent.cu"),
+    ("ntr_occluded_t", "_OCCLUDED_T_ARGS", "occluded_transparent.cu")])
+def test_transparent_ctypes_signatures_match_the_c_entry_points(
+        fn, argtypes, source):
+    _check_signature(fn, getattr(_build, argtypes), source)
+    # load() binds the entry point with these argtypes
+    src = open(_build.__file__).read()
+    assert f"lib.{fn}.argtypes = {argtypes}" in src

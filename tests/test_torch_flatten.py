@@ -15,13 +15,15 @@ from ntracer_tpu_torch.engine import resident_kernels as prk
 from ntracer_tpu_torch.engine import wavefront as pwf
 
 from _torch_helpers import (JAX, PORT, random_scene, polytope_scene,
-                            reflective_scene, jax_device_scene)
+                            reflective_scene, glass_scene, jax_device_scene)
 
 # each package flattens a scene of its own classes, built from one seed
 SCENES = {
     "3d_random": lambda pkg=PORT: random_scene(3, n=700, seed=3, pkg=pkg),
     "4d_600cell": lambda pkg=PORT: polytope_scene(pkg=pkg),
     "3d_reflective_lit": lambda pkg=PORT: reflective_scene(pkg=pkg),
+    "3d_glass_lit": lambda pkg=PORT: glass_scene(300, lit=True, pkg=pkg),
+    "4d_glass_600cell": lambda pkg=PORT: polytope_scene(glass=True, pkg=pkg),
 }
 
 
@@ -78,6 +80,14 @@ def test_device_arrays_match_jax(name, monkeypatch):
     got = pwf.device_arrays(pflat.flatten_composite(SCENES[name](),
                                                     chunk=512))
     assert "res_slot_pack" in got and "res_gt" in got
+    # the opacity row goes with a transparent material, and only with one
+    assert ("res_opa" in got) == ("glass" in name) == ("res_opa" in ref)
+    if "glass" in name:
+        opa = got["res_opa"]
+        assert opa.shape == got["res_ids"].shape and opa.dtype == np.float32
+        glass = (opa[:, 0] < 1)
+        assert glass.any() and (opa[:, 0][got["res_ids"][:, 0] < 0] == 1).all()
+        assert (opa[:, 1:] == 1).all()
     for k, v in got.items():
         assert k in ref, k
         _assert_same_array(v, ref[k], k)

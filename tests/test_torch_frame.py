@@ -232,16 +232,34 @@ def _scene_with(feature):
     return scene
 
 
-@pytest.mark.parametrize("feature,item", [("shadows_transparent", 7),
-                                          ("transparency", 7),
+@pytest.mark.parametrize("feature,item", [("shadows_transparent", None),
+                                          ("transparency", None),
                                           ("solid", 8), ("d9", 10)])
 def test_unsupported_scenes_raise(feature, item):
+    """Solids and d > 8 name the ROADMAP item that brings them; the
+    transparent scenes (item None) render: the glass changes the frame and
+    the scene is unlocked afterwards."""
     scene = _scene_with(feature)
     fmt = rgb8(32, 32)
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        BlockingRenderer(device="cpu").render(
-            bytearray(fmt.pitch * 32), fmt, scene)
+    buf = bytearray(fmt.pitch * 32)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            BlockingRenderer(device="cpu").render(buf, fmt, scene)
+        assert not scene.locked
+        return
+    assert BlockingRenderer(device="cpu").render(buf, fmt, scene)
     assert not scene.locked
+    cfg, arrs, _ = pwf.get_device_scene(scene, "cpu")
+    assert cfg.has_transparency and "res_opa" in arrs
+    glass = pwf.frame_colors(scene, 32, 32, "cpu")
+    opaque_scene = random_scene(3, n=20, seed=1, material=Material((1, 1, 1)))
+    for light in scene.point_lights:
+        opaque_scene.add_light(light)
+    opaque_scene.set_shadows(scene.shadows)
+    opaque = pwf.frame_colors(opaque_scene, 32, 32, "cpu")
+    assert np.isfinite(glass).all()
+    # the background shows through the glass
+    assert (np.abs(glass - opaque).max(axis=2) > 1e-3).sum() > 20
 
 
 def test_scene_of_the_other_package_raises():

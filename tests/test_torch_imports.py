@@ -12,9 +12,9 @@ FORBIDDEN = ("jax", "ntracer", "ntracer_tpu")
 
 
 def test_port_runs_without_the_jax_package():
-    """A fresh process imports the port, builds a small lit scene, renders
-    it on the CPU and unpickles one of its objects; no forbidden module was
-    loaded on the way."""
+    """A fresh process imports the port, builds a small lit scene and a lit
+    scene of glass, renders them on the CPU and unpickles one of its
+    objects; no forbidden module was loaded on the way."""
     code = (
         "import pickle, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -23,12 +23,12 @@ def test_port_runs_without_the_jax_package():
         "from ntracer_tpu_torch import BlockingRenderer, NTracer, Material\n"
         "import ntracer_tpu_torch.tracer4, ntracer_tpu_torch.tracern\n"
         "from ntracer_tpu_torch.engine import _build, wavefront\n"
-        "from _torch_helpers import lit_scene_3d, rgb8\n"
-        "scene = lit_scene_3d()\n"
+        "from _torch_helpers import glass_scene, lit_scene_3d, rgb8\n"
         "fmt = rgb8(32, 32)\n"
-        "buf = bytearray(fmt.pitch * 32)\n"
-        "assert BlockingRenderer(device='cpu').render(buf, fmt, scene)\n"
-        "assert any(buf)\n"
+        "for scene in (lit_scene_3d(), glass_scene(100, lit=True)):\n"
+        "    buf = bytearray(fmt.pitch * 32)\n"
+        "    assert BlockingRenderer(device='cpu').render(buf, fmt, scene)\n"
+        "    assert any(buf)\n"
         "v = pickle.loads(pickle.dumps(NTracer(4).Vector(1, 2, 3, 4)))\n"
         "assert type(v).__module__ == 'ntracer_tpu_torch.api'\n"
         "m = pickle.loads(pickle.dumps(Material((1, 0, 0), opacity=0.5)))\n"

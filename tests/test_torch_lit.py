@@ -26,8 +26,8 @@ from ntracer_tpu_torch import BlockingRenderer, kdnodes
 from ntracer_tpu_torch.engine import wavefront as pwf
 
 from _torch_helpers import (JAX, PORT, lit_scene, lit_scene_3d,
-                            reflective_scene, random_scene, rgb8,
-                            jax_device_scene)
+                            reflective_scene, random_scene, glass_scene,
+                            rgb8, jax_device_scene)
 
 W = H = 64
 MAX_FLIPS = int(0.002 * W * H)          # 0.2% of the frame: 8 pixels
@@ -60,9 +60,10 @@ def _record_port(monkeypatch, log):
     inner = pwf.occlusion
 
     def occlusion(arrs, cfg, oT, dT, ldist, skip, **kw):
-        blocked = inner(arrs, cfg, oT, dT, ldist, skip, **kw)
+        blocked, filt = inner(arrs, cfg, oT, dT, ldist, skip, **kw)
+        assert filt is None             # no transparent material here
         log.append(((ldist > 0).numpy(), blocked.numpy()))
-        return blocked
+        return blocked, filt
 
     monkeypatch.setattr(pwf, "occlusion", occlusion)
 
@@ -238,10 +239,13 @@ def test_lit_frame_matches_jax_and_oracle(case, monkeypatch):
 
 
 def test_lit_scenes_render_and_unsupported_ones_name_their_item():
-    """A lit scene and a reflective lit scene render; a lit transparent
-    scene still names its ROADMAP item."""
+    """A lit scene, a reflective lit scene and a lit scene of glass render;
+    the transparent occlusion query refuses a pool without an opacity row
+    instead of treating it as opaque, and solids still name their ROADMAP
+    item."""
     fmt = rgb8(32, 32)
-    for scene in (lit_scene_3d(), reflective_scene(shadows=True)):
+    for scene in (lit_scene_3d(), reflective_scene(shadows=True),
+                  glass_scene(200, lit=True)):
         buf = bytearray(fmt.pitch * 32)
         assert BlockingRenderer(device="cpu").render(buf, fmt, scene)
         assert any(buf) and not scene.locked
@@ -250,11 +254,12 @@ def test_lit_scenes_render_and_unsupported_ones_name_their_item():
     import dataclasses
     tcfg = dataclasses.replace(cfg, has_transparency=True)
     z = torch.zeros((3, 512))
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
+    with pytest.raises(ValueError, match="opacity row"):
         pwf.occlusion(arrs, tcfg, z, z, torch.zeros(512),
                       torch.zeros(512, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        pwf._occlusion_finish(dataclasses.replace(cfg, n_solids=1), None)
+        pwf._occlusion_finish(dataclasses.replace(cfg, n_solids=1), None,
+                              None)
 
 
 def test_shadows_change_the_frame():

@@ -132,9 +132,12 @@ def test_occlusion_matches_jax(case, light):
     jb, _filt = jwf.occlusion(case["jdev"], case["cfg"], jnp.asarray(point),
                               jnp.asarray(dirs), jnp.asarray(ldist),
                               jnp.asarray(skip), clamp_exit=clamp)
-    pb = pwf.occlusion(case["tens"], case["pcfg"], _t(point.T), _t(dirs.T),
-                       _t(ldist), _t(skip), clamp_exit=clamp)
+    pb, pf = pwf.occlusion(case["tens"], case["pcfg"], _t(point.T),
+                           _t(dirs.T), _t(ldist), _t(skip), clamp_exit=clamp)
     assert pb.dtype == torch.bool
+    # nothing filters in an opaque scene: the JAX package says so with
+    # ones, the port with None
+    assert pf is None and (np.asarray(_filt) == 1).all()
     assert np.array_equal(pb.numpy(), np.asarray(jb))
     assert pb.numpy()[case["live"]].any()
 
