@@ -24,8 +24,22 @@ at 1024x1024, 8-bit RGB:
     K = 8 transparent slots a ray);
   * one frame of scripts/tpu_parity.py's "transparent d=3" scene (500 glass
     triangles: rays cross more surfaces than they have slots);
+  * the mesh: scripts/bench_mesh.py's sphere of 495,612 triangles
+    (``sphere_mesh(500000)``), written to an OBJ file and loaded with the
+    port's ``load_obj``, under tpu_parity.py's two lights with shadows on, a
+    4-frame orbit.  Its pool (4,054 chunks, 63.3 MiB) is over the line
+    (``resident_kernels.STREAM_POOL_BYTES``), so it renders through the
+    streaming walks: one ``nearest_hit_hbm`` and two ``occluded_hbm`` a
+    frame;
+  * the glass mesh: the same triangles by turns opaque and glass (opacity
+    0.4), the same lights, a 4-frame orbit (one
+    ``nearest_hit_transparent_hbm`` and 18 ``occluded_transparent_hbm`` a
+    frame);
 
-and checks 64 pixels of each frame against the scalar NumPy oracle (5e-5;
+Each streaming kernel is held against its twin at the mesh's full
+wavefronts, and against its resident sibling (kernels 2.1-2.4) on the same
+inputs.  The script checks 64 pixels of each frame against the scalar NumPy
+oracle, computed by forked worker processes on the host (5e-5;
 5e-4 for the composed pixels of the transparent frames), chosen from the
 engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
 shadows d=3 frame's with at least 16 pixels in a cast shadow, the glass
@@ -33,7 +47,9 @@ shadows d=3 frame's with at least 16 pixels in a cast shadow, the glass
 glass.  Both 120-cell frames are checked from a camera turned 0.6 rad off
 the axis view: that view is a mirror hyperplane of the polytope, its rays
 meet mirrored simplices on their common boundary, and there the last bit
-decides (tests/test_torch_mirror_view.py).  Each kernel's launch count is set
+decides (tests/test_torch_mirror_view.py); so are both mesh frames (the
+axis camera looks through the sphere's polar holes).  Each kernel's launch
+count is set
 to 0 before a path is driven and read after it.  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
 kernel's numbers and ``{"ok": true, "device": {...}}``.
@@ -43,9 +59,11 @@ Exits non-zero without a result when torch finds no CUDA device.
 
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +78,10 @@ ORACLE_TOL = 5e-5          # tests/test_pallas.py:356
 ORACLE_TOL_GLASS = 5e-4    # composed pixels, tests/test_engine.py:89
 ORACLE_MAX_OVER = 2
 OBLIQUE = 0.6              # radians off the axis view, for the oracle's frames
+MESH_TRIS = 500000         # scripts/bench_mesh.py --tris 500000
+MESH_DISTANCE = -3.0       # scripts/bench_mesh.py's camera
+# processes that compute the oracle's pixels (the card's host has 8 cores)
+ORACLE_WORKERS = min(8, len(os.sched_getaffinity(0)))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
 # the tensor cores, and device memory.
@@ -201,6 +223,53 @@ def mesh_d3_scene(nt, material, n, seed=3):
     return two_lights(nt, scene, (0, 5, 0))
 
 
+def sphere_mesh(n_target):
+    """Lat/long tessellated unit sphere with ~n_target triangles (the mesh
+    of scripts/bench_mesh.py).  Degenerate triangles are dropped, the polar
+    rings with them: the sphere has a small hole at each pole."""
+    rows = max(4, int(math.sqrt(n_target / 4)))
+    cols = 2 * rows
+    th = np.linspace(0, math.pi, rows + 1)
+    ph = np.linspace(0, 2 * math.pi, cols + 1)
+    v = np.empty((rows + 1, cols + 1, 3), np.float32)
+    v[..., 0] = np.sin(th)[:, None] * np.cos(ph)[None, :]
+    v[..., 1] = np.sin(th)[:, None] * np.sin(ph)[None, :]
+    v[..., 2] = np.cos(th)[:, None]
+    tris = []
+    for i in range(rows):
+        for j in range(cols):
+            a, b, c, d = v[i, j], v[i + 1, j], v[i + 1, j + 1], v[i, j + 1]
+            if i:
+                tris.append((a, b, c))
+            if i != rows - 1:
+                tris.append((a, c, d))
+    tris = np.asarray(tris, np.float32)
+    area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0],
+                                   tris[:, 2] - tris[:, 0]), axis=1)
+    return tris[area > 1e-10]
+
+
+def write_obj(tris, path):
+    """``tris`` (N, 3, 3) as a Wavefront OBJ file: three vertices a
+    triangle, nine significant digits (every float32 reads back exactly)."""
+    with open(path, "w") as f:
+        np.savetxt(f, tris.reshape(-1, 3), fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, np.arange(1, 3 * len(tris) + 1).reshape(-1, 3),
+                   fmt="f %d %d %d")
+
+
+def mesh_scene(nt, protos):
+    """A mesh seen from scripts/bench_mesh.py's camera, under
+    tpu_parity.py's two lights (the point light at (0, 5, 0)), shadows on.
+    Returns (scene, camera)."""
+    scene = nt.build_composite_scene(protos)
+    camera = nt.Camera()
+    camera.translate(nt.Vector(0, 0, MESH_DISTANCE))
+    scene.set_camera(camera)
+    two_lights(nt, scene, (0, 5, 0))
+    return scene, camera
+
+
 class unbatched:
     """Build scenes without grouping triangles into batches.  The scalar
     oracle records one transparent hit per batch per leaf, the engine keeps
@@ -229,6 +298,17 @@ def time_cuda(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed(fn):
+    """Run ``fn`` once: (its result, ms on the host clock around it, the
+    card synchronized on both sides).  For the twins on the mesh, whose
+    one call takes seconds."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1000 * (time.perf_counter() - t1)
 
 
 def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
@@ -335,6 +415,27 @@ def report_frames(label, frame_s, buf, name_limit):
           f"included) [{name_limit}]")
 
 
+_ORACLE_SCENE = None
+
+
+def _oracle_pixel(xy):
+    return _ORACLE_SCENE._pixel_color(*xy)
+
+
+def oracle_colors(scene, pixels):
+    """The scalar oracle's colors at ``pixels``, from ``ORACLE_WORKERS``
+    forked processes (the oracle is plain Python and NumPy: the workers
+    never touch the card).  The pool is closed before this returns."""
+    global _ORACLE_SCENE
+    _ORACLE_SCENE = scene
+    ctx = multiprocessing.get_context("fork")
+    try:
+        with ctx.Pool(ORACLE_WORKERS) as pool:
+            return pool.map(_oracle_pixel, pixels, chunksize=1)
+    finally:
+        _ORACLE_SCENE = None
+
+
 def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
     """Hold ``colors`` (H, W, 3) against the scalar oracle at ``pixels``."""
     if colors.shape != (H, W, 3) or not np.isfinite(colors).all():
@@ -342,8 +443,7 @@ def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
     scene._set_view_size(W, H)
     over = []
     worst = 0.0
-    for x, y in pixels:
-        ref = scene._pixel_color(x, y)
+    for (x, y), ref in zip(pixels, oracle_colors(scene, pixels)):
         diff = float(np.abs(ref - colors[y, x]).max())
         worst = max(worst, diff)
         if diff > tol:
@@ -356,8 +456,10 @@ def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
         raise SystemExit("the frame disagrees with the oracle")
 
 
-WALKS = ("nearest_hit", "occluded", "nearest_hit_transparent",
-         "occluded_transparent")
+RESIDENT = ("nearest_hit", "occluded", "nearest_hit_transparent",
+            "occluded_transparent")
+STREAMING = tuple(name + "_hbm" for name in RESIDENT)
+WALKS = RESIDENT + STREAMING
 
 
 def reset_launches(rk):
@@ -473,6 +575,59 @@ def main():
     print(f"   lit: 900 simplices, pool {tuple(larrs['res_gt'].shape)}, "
           f"d={lcfg.d}, {lcfg.n_point_lights} point and "
           f"{lcfg.n_global_lights} global lights, shadows {lcfg.shadows}")
+    done(t0)
+
+    # the mesh: an OBJ file through the port's loader, a pool over the line
+    t0 = phase("mesh scenes")
+    from ntracer_tpu_torch.wavefront_obj import load_obj
+    nt3 = NTracer(3)
+    tris = sphere_mesh(MESH_TRIS)
+    with tempfile.TemporaryDirectory() as tmp:
+        obj_path = os.path.join(tmp, "sphere.obj")
+        t1 = time.perf_counter()
+        write_obj(tris, obj_path)
+        obj_mb = os.path.getsize(obj_path) / 2 ** 20
+        t2 = time.perf_counter()
+        mesh_protos = load_obj(obj_path, nt3)
+        t3 = time.perf_counter()
+    if not np.array_equal(mesh_protos._src_arrays["pts"], tris):
+        raise SystemExit("load_obj did not read back the mesh")
+    mesh, mesh_camera = mesh_scene(nt3, mesh_protos)
+    t4 = time.perf_counter()
+    mcfg, marrs, _flat = wf.get_device_scene(mesh, dev)
+    t5 = time.perf_counter()
+    n_chunks = marrs["res_gt"].shape[0]
+    print(f"   mesh: {len(tris)} triangles, OBJ {obj_mb:.1f} MiB written in "
+          f"{t2 - t1:.2f} s, load_obj {t3 - t2:.2f} s, scene build "
+          f"{t4 - t3:.2f} s, device scene {t5 - t4:.2f} s; pool "
+          f"{tuple(marrs['res_gt'].shape)}, "
+          f"{rk.pool_bytes(n_chunks * rk.CK, 3) / 2 ** 20:.1f} MiB against "
+          f"the line's {rk.STREAM_POOL_BYTES / 2 ** 20:.0f} MiB, streams "
+          f"{'res_is_hbm' in marrs}")
+    if "res_is_hbm" not in marrs:
+        raise SystemExit("the mesh's pool is not over the line")
+    # the same triangles, opaque and glass by turns (the glass 120-cell's
+    # mix).  The oracle is asked about this scene as it is, batched: a ray
+    # crosses the sphere's surface at two far apart points, so no triangle
+    # batch holds two of its glass hits (but at a shared edge), and the
+    # oracle's one transparent hit per batch per leaf is every hit.  (An
+    # unbatched copy builds in 11-13 s, but its oracle takes 72-86 s a
+    # pixel on the CPU against 1.2-4.1 s batched.)
+    solid3, glass3 = Material((0.3, 0.8, 0.5)), \
+        Material((1, 0.7, 0.7), opacity=0.4)
+    mix = [glass3 if i % 2 else solid3 for i in range(len(tris))]
+    t1 = time.perf_counter()
+    gmesh, gmesh_camera = mesh_scene(
+        nt3, nt3.TrianglePrototype.batch_from_points(tris, mix))
+    t2 = time.perf_counter()
+    gmcfg, gmarrs, _flat = wf.get_device_scene(gmesh, dev)
+    t3 = time.perf_counter()
+    print(f"   glass mesh: {int((gmarrs['res_opa'][:, 0] < 1).sum())} glass "
+          f"slots, K={gmcfg.max_transparent_hits}, scene build {t2 - t1:.2f} "
+          f"s, device scene {t3 - t2:.2f} s; streams "
+          f"{'res_is_hbm' in gmarrs}")
+    if "res_is_hbm" not in gmarrs:
+        raise SystemExit("the glass mesh's pool is not over the line")
     done(t0)
 
     fmt = ImageFormat(W, H, [Channel(8, 1, 0, 0), Channel(8, 0, 1, 0),
@@ -756,6 +911,263 @@ def main():
           f"[{name_limit}]")
     done(t0)
 
+    # The streaming kernels 2.5-2.8 at the mesh's full wavefronts (d = 3,
+    # 4,054 chunks through the ring), each against its twin and against its
+    # resident sibling on the same inputs.  A mesh walk takes 0.1-0.4 s and
+    # its twin tens of seconds: three timed kernel calls, and the twin's
+    # one call timed.
+    slot_bytes = {opa: 512 * (3 * 3 + 3 + 1 + opa) for opa in (0, 1)}
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for opa, sb in slot_bytes.items():
+        ring = min(8, (optin - 4096) // sb) * sb
+        print(f"   ring at d = 3{' with opacity' if opa else ''}: "
+              f"{ring // sb} slots of {sb} B, {ring / 1024:.1f} KiB; shared "
+              f"memory lets {per_sm // (ring + 4096)} blocks of 512 threads "
+              f"share an SM")
+
+    t0 = phase("nearest_hit_hbm kernel vs twin")
+    _f, _o, _t, moT, mdT, mpctx, mskip, mhit = primary(mesh, mcfg, marrs)
+    mres = wf._res_dict(marrs)
+    mbytes = pool_bytes(marrs)
+    msine = -wf._dotT(mdT, mhit["normalT"])
+    hmodes = {
+        "mesh primary": (moT, mdT, mskip,
+                         dict(order=mpctx["order"], sh=mpctx["sh_res"])),
+        "mesh bounce": (mhit["pointT"], wf._unitT(
+            mdT - mhit["normalT"] * (-2 * msine)[None, :]), mhit["pid"],
+            dict(active=mhit["hit"] & (blk % 2 == 0))),
+    }
+    near_h = {}
+    for label, (o_, d_, s_, kw) in hmodes.items():
+        args = (mres, o_, d_, s_, 3)
+        kt, ks, kv = rk.nearest_hit_hbm(*args, **kw)
+        (pt, ps, pv), twin_ms = timed(
+            lambda: rk.nearest_hit_hbm_ref(*args, **kw))
+        rt, rs, rv = rk.nearest_hit(*args, **kw)
+        torch.cuda.synchronize()
+        diffs = dict(slot=int((ks != ps).sum()), t_bits=bit_diffs(kt, pt),
+                     visits=int((kv != pv).sum()),
+                     slot_vs_2_1=int((ks != rs).sum()),
+                     t_bits_vs_2_1=bit_diffs(kt, rt),
+                     visits_vs_2_1=int((kv != rv).sum()))
+        err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
+                    .max())
+        ms = time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)
+        res_ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 3)
+        read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
+        need = read & (rk._scene_exit_T(o_, d_, mres["b_lo"],
+                                        mres["b_hi"]) > 0)
+        bound_ms, bound_by = walk_bound(
+            3, "sh" in kw, need, read, kv, n_chunks, mbytes,
+            int("active" in kw), R * 8 + kv.numel() * 4)
+        near_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, err=err, resident_ms=res_ms,
+                             live_blocks=int((kv > 0).sum()))
+        print(f"   {label}: {R} rays, {int(need.sum())} to test, "
+              f"{int((ks >= 0).sum())} hits, {int((kv > 0).sum())} live "
+              f"blocks, visits/block {float(kv.float().mean()):.4f}; diffs "
+              f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.5 {ms:.4f} ms, "
+              f"kernel 2.1 on the same inputs {res_ms:.4f} ms, twin "
+              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached "
+              f"[{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"nearest_hit_hbm != twin or kernel 2.1: "
+                             f"{label}")
+    done(t0)
+
+    t0 = phase("occluded_hbm kernel vs twin")
+    hcases = {
+        "mesh point light": shadow_rays(marrs, mhit,
+                                        light_pos=marrs["pl_pos"][0]),
+        "mesh global light": shadow_rays(marrs, mhit,
+                                         light_dir=marrs["gl_dir"][0]),
+    }
+    occ_h = {}
+    for label, (point, dirs, ldist) in hcases.items():
+        args = (mres, point, dirs, ldist, mhit["pid"], 3)
+        kb, kv = rk.occluded_hbm(*args)
+        (pb, pv), twin_ms = timed(lambda: rk.occluded_hbm_ref(*args))
+        rb, rv = rk.occluded(*args)
+        torch.cuda.synchronize()
+        diffs = dict(blocked=int((kb != pb).sum()),
+                     visits=int((kv != pv).sum()),
+                     blocked_vs_2_2=int((kb != rb).sum()),
+                     visits_vs_2_2=int((kv != rv).sum()))
+        ms = time_cuda(lambda: rk.occluded_hbm(*args), 3)
+        res_ms = time_cuda(lambda: rk.occluded(*args), 3)
+        bound_ms, bound_by = walk_bound(
+            3, False, ldist > 0, ldist > 0, kv, n_chunks, mbytes, 4,
+            R + kv.numel() * 4, early=kb)
+        occ_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, err=float(diffs["blocked"]),
+                            resident_ms=res_ms,
+                            live_blocks=int((kv > 0).sum()))
+        print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
+              f"{int(kb.sum())} blocked, live blocks {int((kv > 0).sum())}, "
+              f"visits/block {float(kv.float().mean()):.4f}; diffs "
+              f"{json.dumps(diffs)}; kernel 2.6 {ms:.4f} ms, kernel 2.2 on "
+              f"the same inputs {res_ms:.4f} ms, twin {twin_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+              f"the bound reached [{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"occluded_hbm != twin or kernel 2.2: {label}")
+        if not 0 < int(kb.sum()) < int((ldist > 0).sum()):
+            raise SystemExit(f"the mesh's shadow rays decide nothing: "
+                             f"{label}")
+    point, dirs, ldist = hcases["mesh global light"]
+    dead = torch.zeros_like(ldist)
+    kb, kv = rk.occluded_hbm(mres, point, dirs, dead, mhit["pid"], 3)
+    if bool(kb.any()) or bool(kv.any()):
+        raise SystemExit("a dead wavefront was walked")
+    dead_h_ms = time_cuda(lambda: rk.occluded_hbm(mres, point, dirs, dead,
+                                                  mhit["pid"], 3), 20)
+    # the all-chunks entry pass alone: every block live, every origin far
+    # outside the pool's box and a distance no chunk is within, so no
+    # block visits a chunk
+    far = torch.full_like(point, 10.0)
+    tiny = torch.full_like(ldist, 1e-30)
+    kb, kv = rk.occluded_hbm(mres, far, dirs, tiny, mhit["pid"], 3)
+    if bool(kb.any()) or bool(kv.any()):
+        raise SystemExit("the entry-pass probe visited a chunk")
+    entry_ms = time_cuda(lambda: rk.occluded_hbm(mres, far, dirs, tiny,
+                                                 mhit["pid"], 3), 5)
+    print(f"   dead wavefront: {R} inactive rays, kernel {dead_h_ms:.4f} ms "
+          f"(wrapper included); the entry pass alone ({R // 512} live "
+          f"blocks x {n_chunks} chunks): {entry_ms:.4f} ms, "
+          f"{entry_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
+    for label, c in list(near_h.items()) + list(occ_h.items()):
+        share = entry_ms * c["live_blocks"] / (R // 512) / c["ms"]
+        print(f"   {label}: entry pass of its {c['live_blocks']} live blocks "
+              f"~{100 * share:.1f}% of the kernel's {c['ms']:.4f} ms")
+    done(t0)
+
+    t0 = phase("nearest_hit_transparent_hbm kernel vs twin")
+    _f, _o, _t, gmoT, gmdT, gmpctx, gmskip, gmhit = primary(gmesh, gmcfg,
+                                                            gmarrs)
+    gmres = wf._res_dict(gmarrs)
+    gmbytes = pool_bytes(gmarrs, opacity=True)
+    gmsine = -wf._dotT(gmdT, gmhit["normalT"])
+    thmodes = {
+        "glass mesh primary": (gmoT, gmdT, gmskip,
+                               dict(order=gmpctx["order"],
+                                    sh=gmpctx["sh_res"])),
+        "glass mesh bounce": (gmhit["pointT"], wf._unitT(
+            gmdT - gmhit["normalT"] * (-2 * gmsine)[None, :]), gmhit["pid"],
+            dict(active=gmhit["hit"] & (blk % 2 == 0))),
+    }
+    near_th = {}
+    for label, (o_, d_, s_, kw) in thmodes.items():
+        args = (gmres, o_, d_, s_, 3, K)
+        kt, ks, ktt, kts, kv = rk.nearest_hit_transparent_hbm(*args, **kw)
+        (pt, ps, ptt, pts, pv), twin_ms = timed(
+            lambda: rk.nearest_hit_transparent_hbm_ref(*args, **kw))
+        replaced = rk.nearest_hit_transparent_hbm_ref.replaced
+        rt, rs, rtt, rts, rv = rk.nearest_hit_transparent(*args, **kw)
+        torch.cuda.synchronize()
+        diffs = dict(slot=int((ks != ps).sum()), t_bits=bit_diffs(kt, pt),
+                     tslot=int((kts != pts).sum()),
+                     tt_bits=bit_diffs(ktt, ptt),
+                     visits=int((kv != pv).sum()),
+                     slot_vs_2_3=int((ks != rs).sum()),
+                     t_bits_vs_2_3=bit_diffs(kt, rt))
+        moved = int((kts != rts).any(dim=0).sum())
+        err = max(float(torch.nan_to_num(
+            torch.where(a.view(torch.int32) == b.view(torch.int32), 0.0,
+                        torch.abs(a - b)), nan=float("inf")).max())
+            for a, b in ((kt, pt), (ktt, ptt)))
+        ms = time_cuda(lambda: rk.nearest_hit_transparent_hbm(*args, **kw),
+                       3)
+        res_ms = time_cuda(lambda: rk.nearest_hit_transparent(*args, **kw),
+                           3)
+        read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
+        need = read & (rk._scene_exit_T(o_, d_, gmres["b_lo"],
+                                        gmres["b_hi"]) > 0)
+        bound_ms, bound_by = walk_bound(
+            3, "sh" in kw, need, read, kv, n_chunks, gmbytes,
+            int("active" in kw), R * 8 + K * R * 8 + kv.numel() * 4)
+        filled = kts >= 0
+        near_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, err=err, resident_ms=res_ms,
+                              replaced=replaced, slots_moved=moved)
+        print(f"   {label}: {R} rays, {int(need.sum())} to test, "
+              f"{int((ks >= 0).sum())} opaque hits, {int(filled.sum())} "
+              f"slots filled, {replaced} slots replaced, visits/block "
+              f"{float(kv.float().mean()):.4f} (kernel 2.3's "
+              f"{float(rv.float().mean()):.4f}); {moved} rays' slot "
+              f"positions differ from kernel 2.3's; diffs "
+              f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.7 {ms:.4f} ms, "
+              f"kernel 2.3 on the same inputs {res_ms:.4f} ms, twin "
+              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached "
+              f"[{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"nearest_hit_transparent_hbm != twin, or t "
+                             f"and opaque slot != kernel 2.3's: {label}")
+        if not int(filled.sum()):
+            raise SystemExit(f"no transparent slot was filled: {label}")
+    done(t0)
+
+    t0 = phase("occluded_transparent_hbm kernel vs twin")
+    thcases = {
+        "glass mesh point light": shadow_rays(
+            gmarrs, gmhit, light_pos=gmarrs["pl_pos"][0]),
+        "glass mesh global light": shadow_rays(
+            gmarrs, gmhit, light_dir=gmarrs["gl_dir"][0]),
+    }
+    occ_th = {}
+    for label, (point, dirs, ldist) in thcases.items():
+        args = (gmres, point, dirs, ldist, gmhit["pid"], 3)
+        kb, kf, kv = rk.occluded_transparent_hbm(*args)
+        (pb, pf, pv), twin_ms = timed(
+            lambda: rk.occluded_transparent_hbm_ref(*args))
+        rb, rf, rv = rk.occluded_transparent(*args)
+        torch.cuda.synchronize()
+        diffs = dict(blocked=int((kb != pb).sum()),
+                     filt_bits=bit_diffs(kf, pf),
+                     visits=int((kv != pv).sum()),
+                     blocked_vs_2_4=int((kb != rb).sum()),
+                     filt_bits_vs_2_4=bit_diffs(kf, rf),
+                     visits_vs_2_4=int((kv != rv).sum()))
+        ms = time_cuda(lambda: rk.occluded_transparent_hbm(*args), 3)
+        res_ms = time_cuda(lambda: rk.occluded_transparent(*args), 3)
+        bound_ms, bound_by = walk_bound(
+            3, False, ldist > 0, ldist > 0, kv, n_chunks, gmbytes, 4,
+            R * 5 + kv.numel() * 4, early=kb)
+        n_filtered = int(((kf < 1) & ~kb).sum())
+        occ_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             err=float(torch.abs(kf - pf).max()),
+                             resident_ms=res_ms)
+        print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
+              f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
+              f"glass; diffs {json.dumps(diffs)}, live blocks "
+              f"{int((kv > 0).sum())}, visits/block "
+              f"{float(kv.float().mean()):.4f}; kernel 2.8 {ms:.4f} ms, "
+              f"kernel 2.4 on the same inputs {res_ms:.4f} ms, twin "
+              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached "
+              f"[{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"occluded_transparent_hbm != twin or kernel "
+                             f"2.4: {label}")
+        if not n_filtered or not int(kb.sum()):
+            raise SystemExit(f"the glass mesh's shadow rays are neither "
+                             f"blocked nor filtered: {label}")
+    point, dirs, ldist = thcases["glass mesh global light"]
+    dead = torch.zeros_like(ldist)
+    kb, kf, kv = rk.occluded_transparent_hbm(gmres, point, dirs, dead,
+                                             gmhit["pid"], 3)
+    if bool(kb.any()) or bool(kv.any()) or not bool((kf == 1).all()):
+        raise SystemExit("a dead wavefront was walked")
+    dead_th_ms = time_cuda(lambda: rk.occluded_transparent_hbm(
+        gmres, point, dirs, dead, gmhit["pid"], 3), 20)
+    print(f"   dead wavefront: {R} inactive rays, kernel {dead_th_ms:.4f} "
+          f"ms (wrapper included) [{name_limit}]")
+    done(t0)
+
     t0 = phase("flagship frame")
     renderer = nt_torch.BlockingRenderer()
     reset_launches(rk)
@@ -768,7 +1180,7 @@ def main():
         raise SystemExit("the flagship path did not go through nearest_hit")
     report_frames("flagship", frame_s, buf, name_limit)
 
-    def stage_times(sc, cfg_, arrs_, extra):
+    def stage_times(sc, cfg_, arrs_, extra, reps=5):
         """Where the device time goes, at the scene's camera (CUDA
         events).  ``extra`` maps the stage's context (the primary
         wavefront, its hits, the frame's rows) to more stages, or to
@@ -793,13 +1205,14 @@ def main():
                 colorsT, fmt_key, permute=_unswz),
             "device_frame": lambda: wf.frame_device_arrays(sc, fmt, dev),
         }
-        stage_ms = {k: round(time_cuda(f, 5), 4) for k, f in stages.items()}
+        stage_ms = {k: round(time_cuda(f, reps), 4)
+                    for k, f in stages.items()}
         packed = wf.frame_device_arrays(sc, fmt, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(reps):
             packed.cpu()
-        stage_ms["pull"] = round(1000 * (time.perf_counter() - t1) / 5, 4)
+        stage_ms["pull"] = round(1000 * (time.perf_counter() - t1) / reps, 4)
         return stage_ms
 
     def one_frame(sc):
@@ -920,6 +1333,69 @@ def main():
                          "kernels")
     done(t0)
 
+    def only(path, want):
+        """Fail unless ``path`` launched exactly ``want`` of each walk (and
+        none of the others)."""
+        got = launches[path]
+        bad = {n: got[n] for n in WALKS if got[n] != want.get(n, 0)}
+        if bad:
+            raise SystemExit(f"the {path} path launched {json.dumps(bad)}, "
+                             f"wanted {json.dumps(want)}")
+
+    # a pool over the line: one streaming walk and two streaming occlusion
+    # walks a frame, no resident one
+    t0 = phase("mesh frame")
+    reset_launches(rk)
+    frame_s = orbit(nt3, mesh, mesh_camera, MESH_DISTANCE, LIT_FRAMES,
+                    renderer, buf, fmt)
+    launches["mesh"] = read_launches(rk)
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['mesh'])}")
+    only("mesh", {"nearest_hit_hbm": LIT_FRAMES + 1,
+                  "occluded_hbm": 2 * (LIT_FRAMES + 1)})
+    report_frames("mesh", frame_s, buf, name_limit)
+
+    def mesh_stages(c):
+        return {
+            "walk": lambda: rk.nearest_hit_hbm(
+                c["res"], c["oT"], c["dT"], c["skip"], 3,
+                order=c["pctx"]["order"], sh=c["pctx"]["sh_res"]),
+            **shadow_stage(marrs, mcfg)(c),
+        }
+
+    stage_ms = stage_times(mesh, mcfg, marrs, mesh_stages, reps=2)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    done(t0)
+
+    # the glass mesh: one streaming K-slot walk and (K + 1) x 2 streaming
+    # filtered occlusion walks a frame
+    t0 = phase("glass mesh frame")
+    reset_launches(rk)
+    frame_s = orbit(nt3, gmesh, gmesh_camera, MESH_DISTANCE, LIT_FRAMES,
+                    renderer, buf, fmt)
+    launches["glass mesh"] = read_launches(rk)
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['glass mesh'])}")
+    only("glass mesh",
+         {"nearest_hit_transparent_hbm": LIT_FRAMES + 1,
+          "occluded_transparent_hbm": (K + 1) * 2 * (LIT_FRAMES + 1)})
+    report_frames("glass mesh", frame_s, buf, name_limit)
+
+    def glass_mesh_stages(c):
+        base = torch.zeros_like(c["oT"][:3])
+        return {
+            "walk": lambda: rk.nearest_hit_transparent_hbm(
+                c["res"], c["oT"], c["dT"], c["skip"], 3, K,
+                order=c["pctx"]["order"], sh=c["pctx"]["sh_res"]),
+            **shadow_stage(gmarrs, gmcfg)(c),
+            "compose": lambda: wf._compose_transparent_T(
+                gmarrs, gmcfg, c["dyn"], c["oT"], c["dT"], c["hit"], base, 0),
+        }
+
+    stage_ms = stage_times(gmesh, gmcfg, gmarrs, glass_mesh_stages, reps=2)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    done(t0)
+
     t0 = phase("oracle")
     rng = np.random.RandomState(0)
     oracle_check(scene, wf.frame_colors(scene, W, H, dev),
@@ -1000,6 +1476,38 @@ def main():
           f"are seen through glass, {int(masks['full'].sum())} fill all {K} "
           f"slots and are excluded from the oracle's pixels")
     oracle_check(d3, colors, pixels, tol=ORACLE_TOL_GLASS)
+    # the mesh frames from the turned camera: the axis camera looks through
+    # the sphere's polar holes, whose rims are slivers
+    for sc_ in (mesh, gmesh):
+        turn(nt3, sc_, nt3.Camera(), MESH_DISTANCE, OBLIQUE)
+    t1 = time.perf_counter()
+    colors, masks = wf.frame_colors(mesh, W, H, dev, masks=True)
+    pixels = pick_pixels(rng, {"hit": 48, None: 16}, masks)
+    print(f"   mesh frame: {int(masks['hit'].sum())} pixels hit the sphere, "
+          f"{int(masks['shadowed'].sum())} shadowed "
+          f"({int((masks['shadowed'] & masks['grazing']).sum())} by a "
+          f"grazing light)")
+    oracle_check(mesh, colors, pixels)
+    t2 = time.perf_counter()
+    colors, masks = wf.frame_colors(gmesh, W, H, dev, masks=True)
+    t3 = time.perf_counter()
+    pixels = pick_pixels(
+        rng, {"layered": 24, "filtered": 16, "shadowed": 8, None: 16}, masks,
+        exclude=masks["full"])
+    n_layered = count_in(pixels, masks["layered"])
+    n_filtered = count_in(pixels, masks["filtered"])
+    print(f"   glass mesh frame: {int(masks['layered'].sum())} pixels are seen "
+          f"through glass, {int(masks['filtered'].sum())} are lit through "
+          f"glass, {int(masks['shadowed'].sum())} shadowed, "
+          f"{int(masks['full'].sum())} fill all {K} slots (excluded); the "
+          f"{len(pixels)} oracle pixels hold {n_layered} layered and "
+          f"{n_filtered} filtered ones")
+    if n_layered < 16 or n_filtered < 8:
+        raise SystemExit("the glass mesh oracle covers too few transparent "
+                         "pixels")
+    oracle_check(gmesh, colors, pixels, tol=ORACLE_TOL_GLASS)
+    print(f"   mesh oracle {t2 - t1:.2f} s, glass mesh oracle "
+          f"{time.perf_counter() - t3:.2f} s ({ORACLE_WORKERS} processes)")
     done(t0)
 
     bad = [m for m in sys.modules
@@ -1032,6 +1540,20 @@ def main():
                      csrc + "occluded_transparent.cu", tpu + "1452",
                      "glass 120-cell", occ_t, "glass point light",
                      dead_ms=dead_t_ms),
+        # the streaming variants of the same sources (STREAM), with
+        # chunk_ring.cuh
+        kernel_entry("nearest_hit_hbm", csrc + "nearest_hit.cu", tpu + "1754",
+                     "mesh", near_h, "mesh primary"),
+        kernel_entry("occluded_hbm", csrc + "occluded.cu", tpu + "1963",
+                     "mesh", occ_h, "mesh point light", dead_ms=dead_h_ms,
+                     entry_ms=entry_ms),
+        kernel_entry("nearest_hit_transparent_hbm",
+                     csrc + "nearest_hit_transparent.cu", tpu + "2174",
+                     "glass mesh", near_th, "glass mesh primary"),
+        kernel_entry("occluded_transparent_hbm",
+                     csrc + "occluded_transparent.cu", tpu + "2383",
+                     "glass mesh", occ_th, "glass mesh point light",
+                     dead_ms=dead_th_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

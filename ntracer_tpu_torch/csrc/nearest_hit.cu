@@ -31,16 +31,24 @@
 // Making the pair test cheaper (fewer divisions, several rays a thread,
 // async staging of the next chunk) is later work.
 //
+// STREAM: kernel 2.5, which replaces `nearest_hit_hbm` (pallas_call body
+// `_nearest_hbm_kernel` -> `_nearest_hbm_live`) for pools over the line
+// (resident_kernels.STREAM_POOL_BYTES, 48 MiB: more than the H100's 50 MB L2
+// holds beside the rest).  The same walk, visits and outputs, bit for bit;
+// each visited chunk is copied into a ring of slots in shared memory by
+// TMA bulk copies while the previous group is tested (chunk_ring.cuh), not
+// staged by the block's own loads after the previous visit.
+//
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).  No a*b+c
 // is contracted, so every operation rounds as in the twin.
 
-#include "pair_test.cuh"
+#include "chunk_ring.cuh"
 
 namespace {
 
 using namespace ntr;
 
-template <int D, bool SHARED>
+template <int D, bool SHARED, bool STREAM>
 __global__ void __launch_bounds__(RB) nearest_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ init_t,
@@ -49,10 +57,7 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
     int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, int pr, int R, float* __restrict__ out_t,
     int* __restrict__ out_slot, int* __restrict__ visits,
-    float* __restrict__ emin_all) {
-  __shared__ float s_g[D * D * CK];    // plane rows of the visited chunk
-  __shared__ float s_c[D * CK];        // offset rows (ci, or sh if SHARED)
-  __shared__ int s_id[CK];             // pool id row
+    float* __restrict__ emin_all, int n_slots) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -78,16 +83,15 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
 
   float best = it;
   int best_id = -1;
-  int nvis = 0;
 
-  auto visit = [&](int idx) {
-    stage_chunk<D>(gt, ci, ids, pr, idx, s_g, s_c, s_id);
+  auto bound = [&]() { return block_max(best, s_red); };
+  auto test = [&](int idx, const Chunk& ch) {
     float cbest = INFINITY;
     int carg = 0;
     for (int l = 0; l < CK; ++l) {
       float t;
       const bool valid =
-          pair_test<D, SHARED>(s_g, s_c, l, o, dv, t) && (s_id[l] != sk);
+          pair_test<D, SHARED>(ch.g, ch.c, l, o, dv, t) && (ch.id[l] != sk);
       if (valid && t < cbest) {
         cbest = t;
         carg = l;
@@ -97,40 +101,71 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
       best = cbest;
       best_id = idx * CK + carg;
     }
-    __syncthreads();
   };
 
   // 2. the walk
-  int cur[NCAND], nxt[NCAND];
-  find_cands(0, block_max(best, s_red), n_eff, emin, s_cand, cur);
-  while (cur[0] != SENT) {
-    // the next group is picked with the bound from before this group
-    const int kn = cur[NCAND - 1] == SENT ? n_eff : cur[NCAND - 1] + 1;
-    find_cands(kn, block_max(best, s_red), n_eff, emin, s_cand, nxt);
-    for (int j = 0; j < NCAND; ++j) {
-      if (cur[j] != SENT) {
-        visit(order[cur[j]]);
-        ++nvis;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) cur[j] = nxt[j];
-  }
+  int nvis;
+  if constexpr (STREAM)
+    nvis = stream_walk<D, false>(gt, ci, ids, nullptr, pr, order, n_eff, emin,
+                                 n_slots, s_cand, bound, test);
+  else
+    nvis = resident_walk<D, NCAND, false>(gt, ci, ids, nullptr, pr, order,
+                                          n_eff, emin, s_cand, bound, test);
 
   out_t[r] = best;
   out_slot[r] = best_id;
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <int D, bool SHARED>
-void launch(int grid, cudaStream_t s, const float* oT, const float* dT,
-            const int* skip, const float* init_t, const int* order, int n_eff,
-            const int* blive, const float* klo_t, const float* khi_t, int ncp,
-            const float* gt, const float* ci, const int* ids, int pr, int R,
-            float* out_t, int* out_slot, int* visits, float* emin) {
-  nearest_kernel<D, SHARED><<<grid, RB, 0, s>>>(
-      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
-      ids, pr, R, out_t, out_slot, visits, emin);
+template <int D, bool SHARED, bool STREAM>
+int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
+           const int* skip, const float* init_t, const int* order, int n_eff,
+           const int* blive, const float* klo_t, const float* khi_t, int ncp,
+           const float* gt, const float* ci, const int* ids, int pr, int R,
+           float* out_t, int* out_slot, int* visits, float* emin) {
+  auto kernel = nearest_kernel<D, SHARED, STREAM>;
+  int n_slots = 0, smem = 0;
+  if (STREAM) {
+    const cudaError_t err = ring_config<D, false>(kernel, &n_slots, &smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, RB, smem, s>>>(oT, dT, skip, init_t, order, n_eff, blive,
+                                klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,
+                                out_slot, visits, emin, n_slots);
+  return (int)cudaGetLastError();
+}
+
+template <bool STREAM>
+int launch_d(const float* oT, const float* dT, const int* skip,
+             const float* init_t, const int* order, int n_eff,
+             const int* blive, const float* klo_t, const float* khi_t,
+             int ncp, const float* gt, const float* ci, const int* ids,
+             int pr, int R, int d, int shared, float* out_t, int* out_slot,
+             int* visits, float* emin, void* stream) {
+  const int grid = R / RB;
+  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return shared ? launch<DD, true, STREAM>(                                \
+                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
+                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
+                        out_slot, visits, emin)                              \
+                  : launch<DD, false, STREAM>(                               \
+                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
+                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
+                        out_slot, visits, emin);
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // namespace
@@ -147,32 +182,23 @@ int ntr_nearest_hit(const float* oT, const float* dT, const int* skip,
                     int ncp, const float* gt, const float* ci, const int* ids,
                     int pr, int R, int d, int shared, float* out_t,
                     int* out_slot, int* visits, float* emin, void* stream) {
-  const int grid = R / RB;
-  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NTR_CASE(DD)                                                        \
-  case DD:                                                                  \
-    if (shared)                                                             \
-      launch<DD, true>(grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                       klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
-                       out_slot, visits, emin);                             \
-    else                                                                    \
-      launch<DD, false>(grid, s, oT, dT, skip, init_t, order, n_eff, blive, \
-                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,       \
-                        out_slot, visits, emin);                            \
-    break;
-  switch (d) {
-    NTR_CASE(3)
-    NTR_CASE(4)
-    NTR_CASE(5)
-    NTR_CASE(6)
-    NTR_CASE(7)
-    NTR_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NTR_CASE
-  return (int)cudaGetLastError();
+  return launch_d<false>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
+                         out_slot, visits, emin, stream);
+}
+
+// The streaming walk (kernel 2.5): arguments and outputs as
+// ntr_nearest_hit; gt, ci and ids must be 16-byte aligned.
+int ntr_nearest_hit_hbm(const float* oT, const float* dT, const int* skip,
+                        const float* init_t, const int* order, int n_eff,
+                        const int* blive, const float* klo_t,
+                        const float* khi_t, int ncp, const float* gt,
+                        const float* ci, const int* ids, int pr, int R, int d,
+                        int shared, float* out_t, int* out_slot, int* visits,
+                        float* emin, void* stream) {
+  return launch_d<true>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                        khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
+                        out_slot, visits, emin, stream);
 }
 
 const char* ntr_error_string(int err) {

@@ -38,9 +38,20 @@
 // candidate a step costs two block syncs more per visit than the grouped
 // walk; a dead block costs one load and K + 2 stores per ray.
 //
+// STREAM: kernel 2.7, which replaces `nearest_hit_transparent_hbm`
+// (pallas_call body `_nearest_t_hbm_kernel` -> `_nearest_t_hbm_live`) for
+// pools over the line.  The TPU kernel walks there in groups of four, the
+// next group picked with the bound from before the current one, and so
+// does this variant (chunk_ring.cuh streams the visited chunks into
+// shared-memory slots).  Its test of a chunk is the one above, so against
+// `nearest_hit_transparent_hbm_ref` it agrees bit for bit as the resident
+// variant does against its twin; against the resident variant it agrees on
+// t and the opaque slot, while a stale bound may visit more chunks, whose
+// far glass hits take slots and move later hits' slot positions.
+//
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "pair_test.cuh"
+#include "chunk_ring.cuh"
 
 namespace {
 
@@ -48,7 +59,7 @@ using namespace ntr;
 
 constexpr int KMAX = 8;          // transparent slots a ray can hold
 
-template <int D, bool SHARED>
+template <int D, bool SHARED, bool STREAM>
 __global__ void __launch_bounds__(RB) nearest_t_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ init_t,
@@ -58,14 +69,10 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
     const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
     int K, float* __restrict__ out_t, int* __restrict__ out_slot,
     float* __restrict__ out_tt, int* __restrict__ out_tslot,
-    int* __restrict__ visits, float* __restrict__ emin_all) {
-  __shared__ float s_g[D * D * CK];    // plane rows of the visited chunk
-  __shared__ float s_c[D * CK];        // offset rows (ci, or sh if SHARED)
-  __shared__ int s_id[CK];             // pool id row
-  __shared__ float s_opa[CK];          // opacity row
+    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
-  __shared__ int s_cand[1];
+  __shared__ int s_cand[NCAND];
 
   const int tid = threadIdx.x;
   const int blk = blockIdx.x;
@@ -92,7 +99,6 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
 
   float best = it;
   int best_id = -1;
-  int nvis = 0;
   float tt[KMAX];                      // the K slots; -inf beyond K
   int ts[KMAX];
 #pragma unroll
@@ -101,9 +107,8 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
     ts[i] = -1;
   }
 
-  auto visit = [&](int idx) {
-    stage_opacity(opa, idx, s_opa);
-    stage_chunk<D>(gt, ci, ids, pr, idx, s_g, s_c, s_id);
+  auto bound = [&]() { return block_max(best, s_red); };
+  auto test = [&](int idx, const Chunk& ch) {
     float cbest = INFINITY;
     int carg = 0;
     float ct[KMAX];                    // this chunk's nearest transparent
@@ -116,9 +121,9 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
     for (int l = 0; l < CK; ++l) {
       float t;
       const bool valid =
-          pair_test<D, SHARED>(s_g, s_c, l, o, dv, t) && (s_id[l] != sk);
+          pair_test<D, SHARED>(ch.g, ch.c, l, o, dv, t) && (ch.id[l] != sk);
       if (!valid) continue;
-      if (s_opa[l] >= 1.f) {
+      if (ch.opa[l] >= 1.f) {
         if (t < cbest) {
           cbest = t;
           carg = l;
@@ -170,20 +175,17 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
         }
       }
     }
-    __syncthreads();
   };
 
-  // 2. the walk: one candidate a step, the next one picked with the bound
-  // from before this visit
-  int cur[1], nxt[1];
-  find_cands<1>(0, block_max(best, s_red), n_eff, emin, s_cand, cur);
-  while (cur[0] != SENT) {
-    find_cands<1>(cur[0] + 1, block_max(best, s_red), n_eff, emin, s_cand,
-                  nxt);
-    visit(order[cur[0]]);
-    ++nvis;
-    cur[0] = nxt[0];
-  }
+  // 2. the walk: resident, one candidate a step, the next one picked with
+  // the bound from before this visit; streaming, the TPU kernel's groups
+  int nvis;
+  if constexpr (STREAM)
+    nvis = stream_walk<D, true>(gt, ci, ids, opa, pr, order, n_eff, emin,
+                                n_slots, s_cand, bound, test);
+  else
+    nvis = resident_walk<D, 1, true>(gt, ci, ids, opa, pr, order, n_eff,
+                                     emin, s_cand, bound, test);
 
   out_t[r] = best;
   out_slot[r] = best_id;
@@ -197,17 +199,59 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <int D, bool SHARED>
-void launch(int grid, cudaStream_t s, const float* oT, const float* dT,
-            const int* skip, const float* init_t, const int* order, int n_eff,
-            const int* blive, const float* klo_t, const float* khi_t, int ncp,
-            const float* gt, const float* ci, const int* ids,
-            const float* opa, int pr, int R, int K, float* out_t,
-            int* out_slot, float* out_tt, int* out_tslot, int* visits,
-            float* emin) {
-  nearest_t_kernel<D, SHARED><<<grid, RB, 0, s>>>(
-      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
-      ids, opa, pr, R, K, out_t, out_slot, out_tt, out_tslot, visits, emin);
+template <int D, bool SHARED, bool STREAM>
+int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
+           const int* skip, const float* init_t, const int* order, int n_eff,
+           const int* blive, const float* klo_t, const float* khi_t, int ncp,
+           const float* gt, const float* ci, const int* ids, const float* opa,
+           int pr, int R, int K, float* out_t, int* out_slot, float* out_tt,
+           int* out_tslot, int* visits, float* emin) {
+  auto kernel = nearest_t_kernel<D, SHARED, STREAM>;
+  int n_slots = 0, smem = 0;
+  if (STREAM) {
+    const cudaError_t err = ring_config<D, true>(kernel, &n_slots, &smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, RB, smem, s>>>(oT, dT, skip, init_t, order, n_eff, blive,
+                                klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,
+                                out_t, out_slot, out_tt, out_tslot, visits,
+                                emin, n_slots);
+  return (int)cudaGetLastError();
+}
+
+template <bool STREAM>
+int launch_d(const float* oT, const float* dT, const int* skip,
+             const float* init_t, const int* order, int n_eff,
+             const int* blive, const float* klo_t, const float* khi_t,
+             int ncp, const float* gt, const float* ci, const int* ids,
+             const float* opa, int pr, int R, int d, int shared, int K,
+             float* out_t, int* out_slot, float* out_tt, int* out_tslot,
+             int* visits, float* emin, void* stream) {
+  const int grid = R / RB;
+  if (R % RB || grid == 0 || K < 1 || K > KMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return shared ? launch<DD, true, STREAM>(                                \
+                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
+                        klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,       \
+                        out_t, out_slot, out_tt, out_tslot, visits, emin)    \
+                  : launch<DD, false, STREAM>(                               \
+                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
+                        klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,       \
+                        out_t, out_slot, out_tt, out_tslot, visits, emin);
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // namespace
@@ -225,33 +269,26 @@ int ntr_nearest_t(const float* oT, const float* dT, const int* skip,
                   const float* opa, int pr, int R, int d, int shared, int K,
                   float* out_t, int* out_slot, float* out_tt, int* out_tslot,
                   int* visits, float* emin, void* stream) {
-  const int grid = R / RB;
-  if (R % RB || grid == 0 || K < 1 || K > KMAX)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NTR_CASE(DD)                                                         \
-  case DD:                                                                   \
-    if (shared)                                                              \
-      launch<DD, true>(grid, s, oT, dT, skip, init_t, order, n_eff, blive,   \
-                       klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K, out_t, \
-                       out_slot, out_tt, out_tslot, visits, emin);           \
-    else                                                                     \
-      launch<DD, false>(grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                        klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,       \
-                        out_t, out_slot, out_tt, out_tslot, visits, emin);   \
-    break;
-  switch (d) {
-    NTR_CASE(3)
-    NTR_CASE(4)
-    NTR_CASE(5)
-    NTR_CASE(6)
-    NTR_CASE(7)
-    NTR_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NTR_CASE
-  return (int)cudaGetLastError();
+  return launch_d<false>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
+                         out_t, out_slot, out_tt, out_tslot, visits, emin,
+                         stream);
+}
+
+// The streaming walk (kernel 2.7, groups of four): arguments and outputs as
+// ntr_nearest_t; gt, ci, ids and opa must be 16-byte aligned.
+int ntr_nearest_t_hbm(const float* oT, const float* dT, const int* skip,
+                      const float* init_t, const int* order, int n_eff,
+                      const int* blive, const float* klo_t,
+                      const float* khi_t, int ncp, const float* gt,
+                      const float* ci, const int* ids, const float* opa,
+                      int pr, int R, int d, int shared, int K, float* out_t,
+                      int* out_slot, float* out_tt, int* out_tslot,
+                      int* visits, float* emin, void* stream) {
+  return launch_d<true>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                        khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
+                        out_t, out_slot, out_tt, out_tslot, visits, emin,
+                        stream);
 }
 
 }  // extern "C"

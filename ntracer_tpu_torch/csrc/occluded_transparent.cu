@@ -33,9 +33,15 @@
 // loop, a blocked ray lowers the block's bound, and a dead block costs one
 // load and two stores per ray.
 //
+// STREAM: kernel 2.8, which replaces `occluded_transparent_hbm`
+// (pallas_call body `_occl_t_hbm_kernel` -> `_occl_t_hbm_live`) for pools
+// over the line: the same walk, `blocked`, `filt` and visits, bit for bit,
+// with each visited chunk (opacity row included) copied into a ring of
+// shared-memory slots while the previous group is tested (chunk_ring.cuh).
+//
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "pair_test.cuh"
+#include "chunk_ring.cuh"
 
 namespace {
 
@@ -44,7 +50,7 @@ using namespace ntr;
 constexpr int LEVELS = 7;        // log2(CK): depth of the lane tree
 static_assert((1 << LEVELS) == CK, "the lane tree spans one chunk");
 
-template <int D>
+template <int D, bool STREAM>
 __global__ void __launch_bounds__(RB) occluded_t_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
@@ -53,11 +59,7 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
     int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
     unsigned char* __restrict__ out_blocked, float* __restrict__ out_filt,
-    int* __restrict__ visits, float* __restrict__ emin_all) {
-  __shared__ float s_g[D * D * CK];    // plane rows of the visited chunk
-  __shared__ float s_c[D * CK];        // offset rows
-  __shared__ int s_id[CK];             // pool id row
-  __shared__ float s_opa[CK];          // opacity row
+    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -83,14 +85,11 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
 
   bool blocked = false;
   float filt = 1.f;
-  int nvis = 0;
 
   // largest ldist among the block's rays that are not blocked yet
   auto lmax = [&]() -> float { return block_max(blocked ? 0.f : ld, s_red); };
 
-  auto visit = [&](int idx) {
-    stage_opacity(opa, idx, s_opa);
-    stage_chunk<D>(gt, ci, ids, pr, idx, s_g, s_c, s_id);
+  auto test = [&](int, const Chunk& ch) {
     // no t < ld can hold for ld <= 0 (valid needs t > 0) or NaN
     if (!blocked && ld > 0.f) {
       float st[LEVELS];                // carry stack of the lane tree
@@ -101,9 +100,9 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
         const int l = (int)(__brev((unsigned)j) >> (32 - LEVELS));
         float t;
         float x = 1.f;
-        if (pair_test<D, false>(s_g, s_c, l, o, dv, t) && (s_id[l] != sk) &&
-            (t < ld)) {
-          const float op = s_opa[l];
+        if (pair_test<D, false>(ch.g, ch.c, l, o, dv, t) &&
+            (ch.id[l] != sk) && (t < ld)) {
+          const float op = ch.opa[l];
           if (op >= 1.f) {
             blocked = true;
             break;
@@ -125,29 +124,57 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
       }
       if (!blocked) filt = filt * prod;
     }
-    __syncthreads();
   };
 
   // 2. the walk
-  int cur[NCAND], nxt[NCAND];
-  find_cands(0, lmax(), n_eff, emin, s_cand, cur);
-  while (cur[0] != SENT) {
-    // the next group is picked with the bound from before this group
-    const int kn = cur[NCAND - 1] == SENT ? n_eff : cur[NCAND - 1] + 1;
-    find_cands(kn, lmax(), n_eff, emin, s_cand, nxt);
-    for (int j = 0; j < NCAND; ++j) {
-      if (cur[j] != SENT) {
-        visit(order[cur[j]]);
-        ++nvis;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) cur[j] = nxt[j];
-  }
+  int nvis;
+  if constexpr (STREAM)
+    nvis = stream_walk<D, true>(gt, ci, ids, opa, pr, order, n_eff, emin,
+                                n_slots, s_cand, lmax, test);
+  else
+    nvis = resident_walk<D, NCAND, true>(gt, ci, ids, opa, pr, order, n_eff,
+                                         emin, s_cand, lmax, test);
 
   out_blocked[r] = blocked ? 1 : 0;
   out_filt[r] = blocked ? 1.f : filt;
   if (tid == 0) visits[blk] = nvis;
+}
+
+template <bool STREAM>
+int launch_d(const float* oT, const float* dT, const int* skip,
+             const float* ldist, const int* order, int n_eff,
+             const int* blive, const float* klo_t, const float* khi_t,
+             int ncp, const float* gt, const float* ci, const int* ids,
+             const float* opa, int pr, int R, int d, unsigned char* blocked,
+             float* filt, int* visits, float* emin, void* stream) {
+  const int grid = R / RB;
+  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int n_slots = 0, smem = 0;
+#define NTR_CASE(DD)                                                         \
+  case DD: {                                                                 \
+    auto kernel = occluded_t_kernel<DD, STREAM>;                             \
+    if (STREAM) {                                                            \
+      const cudaError_t err = ring_config<DD, true>(kernel, &n_slots, &smem); \
+      if (err != cudaSuccess) return (int)err;                               \
+    }                                                                        \
+    kernel<<<grid, RB, smem, s>>>(oT, dT, skip, ldist, order, n_eff, blive,  \
+                                  klo_t, khi_t, ncp, gt, ci, ids, opa, pr,   \
+                                  R, blocked, filt, visits, emin, n_slots);  \
+    break;                                                                   \
+  }
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -164,27 +191,23 @@ int ntr_occluded_t(const float* oT, const float* dT, const int* skip,
                    const float* opa, int pr, int R, int d,
                    unsigned char* blocked, float* filt, int* visits,
                    float* emin, void* stream) {
-  const int grid = R / RB;
-  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NTR_CASE(DD)                                                       \
-  case DD:                                                                 \
-    occluded_t_kernel<DD><<<grid, RB, 0, s>>>(                             \
-        oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t, ncp, gt,   \
-        ci, ids, opa, pr, R, blocked, filt, visits, emin);                 \
-    break;
-  switch (d) {
-    NTR_CASE(3)
-    NTR_CASE(4)
-    NTR_CASE(5)
-    NTR_CASE(6)
-    NTR_CASE(7)
-    NTR_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NTR_CASE
-  return (int)cudaGetLastError();
+  return launch_d<false>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked, filt,
+                         visits, emin, stream);
+}
+
+// The streaming walk (kernel 2.8): arguments and outputs as ntr_occluded_t;
+// gt, ci, ids and opa must be 16-byte aligned.
+int ntr_occluded_t_hbm(const float* oT, const float* dT, const int* skip,
+                       const float* ldist, const int* order, int n_eff,
+                       const int* blive, const float* klo_t,
+                       const float* khi_t, int ncp, const float* gt,
+                       const float* ci, const int* ids, const float* opa,
+                       int pr, int R, int d, unsigned char* blocked,
+                       float* filt, int* visits, float* emin, void* stream) {
+  return launch_d<true>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
+                        khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked, filt,
+                        visits, emin, stream);
 }
 
 }  // extern "C"

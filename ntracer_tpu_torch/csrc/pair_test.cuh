@@ -2,7 +2,8 @@
 // nearest_hit_transparent.cu, occluded_transparent.cu), so the kernels
 // cannot drift apart: the constants, NaN-propagating min/max, the slab
 // entry of a ray into a chunk box, the block's entry minima, the candidate
-// scan, chunk staging and the ray x slot pair test.
+// scan, chunk staging, the resident walk's loop and the ray x slot pair
+// test.  The streaming walk's loop is chunk_ring.cuh's.
 //
 // One CUDA block walks one 512-ray block, one thread per ray.  Everything
 // here rounds every operation (build with --fmad=false and IEEE division,
@@ -171,6 +172,54 @@ __device__ __forceinline__ void stage_opacity(const float* __restrict__ opa,
                                               int idx, float* s_opa) {
   if (threadIdx.x < CK)
     s_opa[threadIdx.x] = opa[(size_t)idx * CP * CK + threadIdx.x];
+}
+
+// One chunk in shared memory, as a walk's test reads it: D*D plane rows,
+// D offset rows, the pool id row and (transparent walks) the opacity row,
+// CK entries each.
+struct Chunk {
+  const float* g;
+  const float* c;
+  const int* id;
+  const float* opa;
+};
+
+// The resident walk's loop: groups of N candidate positions, the next group
+// picked with the bound from before this group's tests (`bound()`, a block
+// reduction every thread calls), each visit staged in shared memory and
+// handed to `test(idx, chunk)`, a block sync after each test.  Returns the
+// number of visits.  OPA stages the opacity row too.
+template <int D, int N, bool OPA, class Bound, class Test>
+__device__ __forceinline__ int resident_walk(
+    const float* __restrict__ gt, const float* __restrict__ ci,
+    const int* __restrict__ ids, const float* __restrict__ opa, int pr,
+    const int* __restrict__ order, int n_eff, const float* __restrict__ emin,
+    int* s_cand, Bound bound, Test test) {
+  __shared__ float s_g[D * D * CK];    // plane rows of the visited chunk
+  __shared__ float s_c[D * CK];        // offset rows (ci, or sh if shared)
+  __shared__ int s_id[CK];             // pool id row
+  __shared__ float s_opa[OPA ? CK : 1];
+  int cur[N], nxt[N];
+  int nvis = 0;
+  find_cands<N>(0, bound(), n_eff, emin, s_cand, cur);
+  while (cur[0] != SENT) {
+    // the next group is picked with the bound from before this group
+    const int kn = cur[N - 1] == SENT ? n_eff : cur[N - 1] + 1;
+    find_cands<N>(kn, bound(), n_eff, emin, s_cand, nxt);
+    for (int j = 0; j < N; ++j) {
+      if (cur[j] != SENT) {
+        const int idx = order[cur[j]];
+        if (OPA) stage_opacity(opa, idx, s_opa);
+        stage_chunk<D>(gt, ci, ids, pr, idx, s_g, s_c, s_id);
+        test(idx, Chunk{s_g, s_c, s_id, s_opa});
+        __syncthreads();
+        ++nvis;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) cur[j] = nxt[j];
+  }
+  return nvis;
 }
 
 // Ray x slot pair test against the staged chunk (tracer.hpp:411-440): the

@@ -149,6 +149,14 @@ def load():
             lib.ntr_nearest_t.restype = ctypes.c_int
             lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
             lib.ntr_occluded_t.restype = ctypes.c_int
+            # the streaming walks (the STREAM variants in the same
+            # sources) take their resident sibling's arguments
+            for name, args in (("ntr_nearest_hit_hbm", _NEAREST_ARGS),
+                               ("ntr_occluded_hbm", _OCCLUDED_ARGS),
+                               ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
+                               ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS)):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = ctypes.c_int
             lib.ntr_error_string.argtypes = [ctypes.c_int]
             lib.ntr_error_string.restype = ctypes.c_char_p
             _lib = lib

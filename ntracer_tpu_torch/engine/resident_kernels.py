@@ -45,6 +45,16 @@ twin.  ``occluded_transparent`` is the occlusion walk with a second output,
 t < ldist, multiplied per visited chunk as a halving tree over the 128
 lanes (lanes i and i + 64, then i and i + 32, ...), which is the TPU
 kernel's association; ``filt`` is 1 where ``blocked``.
+
+Pools over ``STREAM_POOL_BYTES`` take the streaming walks
+(``nearest_hit_hbm``, ``occluded_hbm``, ``nearest_hit_transparent_hbm``,
+``occluded_transparent_hbm``; the kernels are the STREAM variants of the
+same CUDA sources): each visited chunk is copied into a ring of slots in
+shared memory while the previous group is tested.  They compute what their
+resident siblings compute, with one exception that is the TPU kernels':
+the streaming K-slot walk picks its candidates in groups of four, so its
+slot positions (and visits) may differ from ``nearest_hit_transparent``'s
+on the same inputs.
 """
 
 from __future__ import annotations
@@ -64,6 +74,17 @@ EXIT_SCALE = float(np.float32(1) + np.float32(16) * ROUNDING_FUZZ)
 
 # candidate chunks picked per walk step (the TPU kernel's P_CAND)
 P_CAND = 4
+# Pools whose layouts (``pool_bytes``) take more than this stream their
+# visited chunks (the ``*_hbm`` walks).  It equals the JAX package's line
+# (``POOL_VMEM_BUDGET``, counted by ``pool_vmem_bytes``), so both packages
+# take the streaming walks on the same scenes, and for glass the same visit
+# rule; on the H100 it sits just under the 50 MB L2, which a larger pool no
+# longer fits in.
+STREAM_POOL_BYTES = 48 * 1024 * 1024
+# Elements of the largest slab a twin makes at once, on the card and on the
+# CPU: (blocks, 512, n_eff) entry bounds or (blocks, 512, 128) pair tests
+# (``_twin_step``)
+TWIN_SLAB = {"cuda": 1 << 29, "cpu": 1 << 20}
 # transparent slots a ray can hold in the CUDA kernel (registers per thread)
 MAX_K = 8
 SENT = 1 << 30    # "no candidate" position
@@ -71,6 +92,14 @@ SENT = 1 << 30    # "no candidate" position
 
 def _pad8(n):
     return -(-n // 8) * 8
+
+
+def pool_bytes(n_tris, d, ck: int = CK):
+    """Bytes of a pool's layouts as the JAX package counts them
+    (``pool_vmem_bytes``): ``ceil(n_tris / ck)`` chunks of padded plane
+    rows, offset rows and id rows, no opacity row."""
+    nc = -(-n_tris // ck)
+    return nc * (_pad8(d * d) * ck + 2 * C_PAD * ck) * 4
 
 
 def _check_k(K):
@@ -354,6 +383,18 @@ def _entry_all(d, o, dv, klo_t, khi_t, n):
     return torch.where(ok, entry, float(INF))
 
 
+def _entry_minima(w, o, dv):
+    """Block minima of the slab entries, (nb, n_eff), for the blocks of
+    ``o``/``dv`` (d, nb, RB, 1), in steps of blocks whose (blocks, 512,
+    n_eff) slab stays within ``TWIN_SLAB``."""
+    n, nb = w["n_eff"], o.shape[1]
+    step = _twin_step(n, o.device.type)
+    return torch.cat([
+        torch.amin(_entry_all(w["d"], o[:, b:b + step], dv[:, b:b + step],
+                              w["klo_t"], w["khi_t"], n), dim=1)
+        for b in range(0, nb, step)])
+
+
 def _chunk_hits_vals(d, shared, g, ci, idrow, o, dv, skip):
     """Ray-block x chunk pair test (tracer.hpp:411-440): (n, RB, CK) t and
     valid for ``n`` blocks, each against its own chunk.  ``g`` (n, pr, CK),
@@ -435,13 +476,14 @@ def _insert_transparent(tt, tid, tmt, base, K):
 
 def _walk_blocks(w, b0, b1):
     """Twin walk of ray blocks [b0, b1), vectorized over blocks.  With
-    ``w["K"]`` slots it is the transparent walk: one candidate a step,
-    opaque slots compete for the nearest hit and transparent ones go to the
-    K slots.  Returns (best, best_id, visits, tt, tid, replaced);
+    ``w["K"]`` slots it is the transparent walk: one candidate a step
+    (``P_CAND`` with ``w["grouped"]``, the streaming walk's rule), opaque
+    slots compete for the nearest hit and transparent ones go to the K
+    slots.  Returns (best, best_id, visits, tt, tid, replaced);
     ``tt``/``tid`` are (nb, RB, K) (K = 0: empty), ``replaced`` counts the
     filled slots that a nearer hit took over on the way."""
     d, shared, n, K = w["d"], w["shared"], w["n_eff"], w["K"]
-    p = 1 if K else P_CAND
+    p = 1 if K and not w.get("grouped") else P_CAND
     nb = b1 - b0
     sl = slice(b0 * RAY_BLOCK, b1 * RAY_BLOCK)
     dev = w["oT"].device
@@ -463,8 +505,7 @@ def _walk_blocks(w, b0, b1):
     if n == 0:
         return best, best_id, visits, tt, tid, replaced
 
-    emin = torch.amin(_entry_all(d, o, dv, w["klo_t"], w["khi_t"], n),
-                      dim=1)                                    # (nb, n)
+    emin = _entry_minima(w, o, dv)                      # (nb, n)
     order = w["order"].long()
     none = torch.full((nb,), n, dtype=torch.int64, device=dev)
     cur = _find_cands(emin, torch.amax(best, dim=1),
@@ -502,10 +543,14 @@ def _walk_blocks(w, b0, b1):
     return best, best_id, visits, tt, tid, replaced
 
 
-def _twin_step(x):
-    """Blocks a twin walks together: bounds the (blocks, 512, 128) slabs'
-    memory."""
-    return 256 if x.is_cuda else 16
+def _twin_step(width, device_type):
+    """Blocks a twin takes together: as many as keep a (blocks, 512,
+    width) slab within ``TWIN_SLAB`` elements, at least one.  The entry
+    pass steps with width n_eff (the entry bounds of every chunk position),
+    the walk with width 128 (one chunk's pair tests).  Outputs do not depend
+    on either step: blocks walk independently."""
+    kind = "cuda" if device_type == "cuda" else "cpu"
+    return max(1, TWIN_SLAB[kind] // (RAY_BLOCK * max(width, 1)))
 
 
 def _walk_ref(w):
@@ -514,7 +559,7 @@ def _walk_ref(w):
     ``w["replaced"]``."""
     nb = w["oT"].shape[1] // RAY_BLOCK
     K = w["K"]
-    step = _twin_step(w["oT"])
+    step = _twin_step(CK, w["oT"].device.type)
     ts, ids, vis, tts, tids = [], [], [], [], []
     w["replaced"] = 0
     for b0 in range(0, nb, step):
@@ -554,6 +599,23 @@ def nearest_hit_transparent_ref(res, oT, dT, skip, d, K, order=None,
 
 
 nearest_hit_transparent_ref.replaced = 0
+
+
+def nearest_hit_transparent_hbm_ref(res, oT, dT, skip, d, K, order=None,
+                                    active=None, sh=None):
+    """Plain-torch twin of ``nearest_hit_transparent_hbm``: the K-slot walk
+    of ``nearest_hit_transparent_ref`` with the streaming walk's grouped
+    rule (four candidates a step, picked with the bound from before the
+    previous group).  ``replaced`` as there."""
+    _check_k(K)
+    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
+    w["grouped"] = True
+    out = _walk_ref(w)
+    nearest_hit_transparent_hbm_ref.replaced = w["replaced"]
+    return out
+
+
+nearest_hit_transparent_hbm_ref.replaced = 0
 
 
 def _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=False):
@@ -613,8 +675,7 @@ def _occlusion_blocks(w, b0, b1):
     def lmax():                         # largest ldist of the unblocked rays
         return torch.amax(torch.where(blocked, 0.0, ldist), dim=1)
 
-    emin = torch.amin(_entry_all(d, o, dv, w["klo_t"], w["khi_t"], n),
-                      dim=1)                                    # (nb, n)
+    emin = _entry_minima(w, o, dv)                      # (nb, n)
     order = w["order"].long()
     none = torch.full((nb,), n, dtype=torch.int64, device=dev)
     cur = _find_cands(emin, lmax(), torch.zeros_like(none), n)
@@ -646,7 +707,7 @@ def _occlusion_blocks(w, b0, b1):
 
 def _occlusion_ref(w):
     nb = w["oT"].shape[1] // RAY_BLOCK
-    step = _twin_step(w["oT"])
+    step = _twin_step(CK, w["oT"].device.type)
     bl, fl, vis = [], [], []
     for b0 in range(0, nb, step):
         b, f, v = _occlusion_blocks(w, b0, min(nb, b0 + step))
@@ -669,6 +730,14 @@ def occluded_transparent_ref(res, oT, dT, ldist, skip, d, order=None):
     the opacity row, ``filt`` multiplied per visit as the halving tree."""
     return _occlusion_ref(
         _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True))
+
+
+# The streaming walks visit what the resident ones visit (kernels 2.5, 2.6
+# and 2.8 compute what 2.1, 2.2 and 2.4 compute), so their twins are the
+# same walks.
+nearest_hit_hbm_ref = nearest_hit_ref
+occluded_hbm_ref = occluded_ref
+occluded_transparent_hbm_ref = occluded_transparent_ref
 
 
 # ---------------------------------------------------------------------------
@@ -712,6 +781,98 @@ def _check_walk(w, dev):
     return R, R // RAY_BLOCK, pr, w["klo_t"].shape[1], n
 
 
+def _device(name, dev):
+    """Whether a wrapper takes its twin (CPU tensors) or its kernel (CUDA
+    tensors); any other device raises."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    return True
+
+
+def _check_stream(w):
+    """The streaming kernels copy each piece of a chunk as one 16-byte
+    aligned range."""
+    for k in ("gt", "ci", "ids", "opa"):
+        if w[k] is not None and w[k].data_ptr() % 16:
+            raise ValueError(f"{k} is not 16-byte aligned")
+
+
+def _launched(name, fn, err):
+    if err:
+        from . import _build
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+    fn.launches += 1
+
+
+def _nearest_kernel(name, w, dev):
+    """Launch the C entry ``name`` (a nearest-hit walk, with ``w["K"]``
+    the K-slot one) on the walk inputs ``w``; returns its outputs as the
+    twin does."""
+    from . import _build
+    lib = _build.load()
+    R, nb, pr, ncp, n = _check_walk(w, dev)
+    if name.endswith("_hbm"):
+        _check_stream(w)
+    f32, i32 = torch.float32, torch.int32
+    K = w["K"]
+    init_t = w["init_t"].contiguous()
+    blive = w["blive"].contiguous()
+    out_t = torch.empty((R,), dtype=f32, device=dev)
+    out_slot = torch.empty((R,), dtype=i32, device=dev)
+    visits = torch.empty((nb,), dtype=i32, device=dev)
+    emin = torch.empty((max(nb * n, 1),), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
+            init_t.data_ptr(), w["order"].data_ptr(), n, blive.data_ptr(),
+            w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
+            w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr())
+    if not K:
+        err = getattr(lib, name)(
+            *head, pr, R, w["d"], int(w["shared"]), out_t.data_ptr(),
+            out_slot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+        return err, (out_t, out_slot, visits)
+    out_tt = torch.empty((K, R), dtype=f32, device=dev)
+    out_tslot = torch.empty((K, R), dtype=i32, device=dev)
+    err = getattr(lib, name)(
+        *head, w["opa"].data_ptr(), pr, R, w["d"], int(w["shared"]), K,
+        out_t.data_ptr(), out_slot.data_ptr(), out_tt.data_ptr(),
+        out_tslot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+    return err, (out_t, out_slot, out_tt, out_tslot, visits)
+
+
+def _occlusion_kernel(name, w, dev):
+    """Launch the C entry ``name`` (an occlusion walk, with ``w["opa"]``
+    the filtered one) on the walk inputs ``w``; returns its outputs as the
+    twin does."""
+    from . import _build
+    lib = _build.load()
+    R, nb, pr, ncp, n = _check_walk(w, dev)
+    _check("ldist", w["ldist"], torch.float32, (R,), dev)
+    if name.endswith("_hbm"):
+        _check_stream(w)
+    blive = w["blive"].contiguous()
+    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
+    visits = torch.empty((nb,), dtype=torch.int32, device=dev)
+    emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
+            w["ldist"].data_ptr(), w["order"].data_ptr(), n,
+            blive.data_ptr(), w["klo_t"].data_ptr(), w["khi_t"].data_ptr(),
+            ncp, w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr())
+    if w["opa"] is None:
+        err = getattr(lib, name)(*head, pr, R, w["d"], blocked.data_ptr(),
+                                 visits.data_ptr(), emin.data_ptr(), stream)
+        return err, (blocked, visits)
+    filt = torch.empty((R,), dtype=torch.float32, device=dev)
+    err = getattr(lib, name)(*head, w["opa"].data_ptr(), pr, R, w["d"],
+                             blocked.data_ptr(), filt.data_ptr(),
+                             visits.data_ptr(), emin.data_ptr(), stream)
+    return err, (blocked, filt, visits)
+
+
 def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
     """Nearest opaque hit of each ray over the chunked pool.
 
@@ -725,39 +886,32 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
     CUDA kernel runs (and ``nearest_hit.launches`` counts it); on CPU
     tensors the plain twin ``nearest_hit_ref`` does."""
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
-    dev = oT.device
-    if dev.type == "cpu":
+    if not _device("nearest_hit", oT.device):
         return _walk_ref(w)
-    if dev.type != "cuda":
-        raise ValueError(f"nearest_hit runs on cuda or cpu, not {dev}")
-    from . import _build
-    lib = _build.load()
-
-    R, nb, pr, ncp, n = _check_walk(w, dev)
-    f32, i32 = torch.float32, torch.int32
-    init_t = w["init_t"].contiguous()
-    blive = w["blive"].contiguous()
-
-    out_t = torch.empty((R,), dtype=f32, device=dev)
-    out_slot = torch.empty((R,), dtype=i32, device=dev)
-    visits = torch.empty((nb,), dtype=i32, device=dev)
-    emin = torch.empty((max(nb * n, 1),), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ntr_nearest_hit(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), init_t.data_ptr(),
-        w["order"].data_ptr(), n, blive.data_ptr(),
-        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(), pr,
-        R, d, int(w["shared"]), out_t.data_ptr(), out_slot.data_ptr(),
-        visits.data_ptr(), emin.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"nearest_hit kernel launch failed: "
-                           f"{_build.error_string(err)} ({err})")
-    nearest_hit.launches += 1
-    return out_t, out_slot, visits
+    err, out = _nearest_kernel("ntr_nearest_hit", w, oT.device)
+    _launched("nearest_hit", nearest_hit, err)
+    return out
 
 
 nearest_hit.launches = 0
+
+
+def nearest_hit_hbm(res, oT, dT, skip, d, order=None, active=None,
+                    sh=None):
+    """``nearest_hit`` for pools over ``STREAM_POOL_BYTES``: the same walk
+    and outputs, with each visited chunk streamed into a ring of slots in
+    shared memory while the previous group is tested.  On CUDA tensors the
+    kernel runs (``nearest_hit_hbm.launches`` counts it); on CPU tensors
+    the twin ``nearest_hit_hbm_ref`` does."""
+    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
+    if not _device("nearest_hit_hbm", oT.device):
+        return _walk_ref(w)
+    err, out = _nearest_kernel("ntr_nearest_hit_hbm", w, oT.device)
+    _launched("nearest_hit_hbm", nearest_hit_hbm, err)
+    return out
+
+
+nearest_hit_hbm.launches = 0
 
 
 def occluded(res, oT, dT, ldist, skip, d, order=None):
@@ -772,36 +926,31 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
     ``occluded.launches`` counts it); on CPU tensors the plain twin
     ``occluded_ref`` does.  A block without an active ray costs the kernel
     one load per ray and no walk."""
-    dev = oT.device
-    if dev.type == "cpu":
+    if not _device("occluded", oT.device):
         return occluded_ref(res, oT, dT, ldist, skip, d, order=order)
-    if dev.type != "cuda":
-        raise ValueError(f"occluded runs on cuda or cpu, not {dev}")
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
-    from . import _build
-    lib = _build.load()
-
-    R, nb, pr, ncp, n = _check_walk(w, dev)
-    _check("ldist", ldist, torch.float32, (R,), dev)
-    blive = w["blive"].contiguous()
-    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
-    visits = torch.empty((nb,), dtype=torch.int32, device=dev)
-    emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ntr_occluded(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
-        w["order"].data_ptr(), n, blive.data_ptr(),
-        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(), pr,
-        R, d, blocked.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"occluded kernel launch failed: "
-                           f"{_build.error_string(err)} ({err})")
-    occluded.launches += 1
-    return blocked, visits
+    err, out = _occlusion_kernel("ntr_occluded", w, oT.device)
+    _launched("occluded", occluded, err)
+    return out
 
 
 occluded.launches = 0
+
+
+def occluded_hbm(res, oT, dT, ldist, skip, d, order=None):
+    """``occluded`` for pools over ``STREAM_POOL_BYTES``, with streamed
+    chunks: the same walk and outputs.  On CUDA tensors the kernel runs
+    (``occluded_hbm.launches`` counts it); on CPU tensors the twin
+    ``occluded_hbm_ref`` does."""
+    if not _device("occluded_hbm", oT.device):
+        return occluded_hbm_ref(res, oT, dT, ldist, skip, d, order=order)
+    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
+    err, out = _occlusion_kernel("ntr_occluded_hbm", w, oT.device)
+    _launched("occluded_hbm", occluded_hbm, err)
+    return out
+
+
+occluded_hbm.launches = 0
 
 
 def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
@@ -818,43 +967,39 @@ def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
     does."""
     _check_k(K)
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
-    dev = oT.device
-    if dev.type == "cpu":
+    if not _device("nearest_hit_transparent", oT.device):
         return _walk_ref(w)
-    if dev.type != "cuda":
-        raise ValueError(f"nearest_hit_transparent runs on cuda or cpu, "
-                         f"not {dev}")
-    from . import _build
-    lib = _build.load()
-
-    R, nb, pr, ncp, n = _check_walk(w, dev)
-    f32, i32 = torch.float32, torch.int32
-    init_t = w["init_t"].contiguous()
-    blive = w["blive"].contiguous()
-
-    out_t = torch.empty((R,), dtype=f32, device=dev)
-    out_slot = torch.empty((R,), dtype=i32, device=dev)
-    out_tt = torch.empty((K, R), dtype=f32, device=dev)
-    out_tslot = torch.empty((K, R), dtype=i32, device=dev)
-    visits = torch.empty((nb,), dtype=i32, device=dev)
-    emin = torch.empty((max(nb * n, 1),), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ntr_nearest_t(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), init_t.data_ptr(),
-        w["order"].data_ptr(), n, blive.data_ptr(),
-        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(),
-        w["opa"].data_ptr(), pr, R, d, int(w["shared"]), K,
-        out_t.data_ptr(), out_slot.data_ptr(), out_tt.data_ptr(),
-        out_tslot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"nearest_hit_transparent kernel launch failed: "
-                           f"{_build.error_string(err)} ({err})")
-    nearest_hit_transparent.launches += 1
-    return out_t, out_slot, out_tt, out_tslot, visits
+    err, out = _nearest_kernel("ntr_nearest_t", w, oT.device)
+    _launched("nearest_hit_transparent", nearest_hit_transparent, err)
+    return out
 
 
 nearest_hit_transparent.launches = 0
+
+
+def nearest_hit_transparent_hbm(res, oT, dT, skip, d, K, order=None,
+                                active=None, sh=None):
+    """``nearest_hit_transparent`` for pools over ``STREAM_POOL_BYTES``,
+    with streamed chunks and the TPU kernel's grouped rule: four
+    candidates a step, picked with the bound from before the previous
+    group.  A stale bound may visit more chunks than the one-a-step walk,
+    and a far glass hit from such a chunk takes a slot, so slot positions
+    (and visits) may differ from ``nearest_hit_transparent``'s; t and the
+    opaque slot do not.  Arguments and outputs as there.  On CUDA tensors
+    the kernel runs (``nearest_hit_transparent_hbm.launches`` counts it);
+    on CPU tensors the twin ``nearest_hit_transparent_hbm_ref`` does."""
+    _check_k(K)
+    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
+    w["grouped"] = True
+    if not _device("nearest_hit_transparent_hbm", oT.device):
+        return _walk_ref(w)
+    err, out = _nearest_kernel("ntr_nearest_t_hbm", w, oT.device)
+    _launched("nearest_hit_transparent_hbm", nearest_hit_transparent_hbm,
+              err)
+    return out
+
+
+nearest_hit_transparent_hbm.launches = 0
 
 
 def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
@@ -868,37 +1013,30 @@ def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
     reaches there, whatever it passed through).  On CUDA tensors the CUDA
     kernel runs (and ``occluded_transparent.launches`` counts it); on CPU
     tensors the plain twin ``occluded_transparent_ref`` does."""
-    dev = oT.device
-    if dev.type == "cpu":
+    if not _device("occluded_transparent", oT.device):
         return occluded_transparent_ref(res, oT, dT, ldist, skip, d,
                                         order=order)
-    if dev.type != "cuda":
-        raise ValueError(f"occluded_transparent runs on cuda or cpu, "
-                         f"not {dev}")
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
-    from . import _build
-    lib = _build.load()
-
-    R, nb, pr, ncp, n = _check_walk(w, dev)
-    _check("ldist", ldist, torch.float32, (R,), dev)
-    blive = w["blive"].contiguous()
-    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
-    filt = torch.empty((R,), dtype=torch.float32, device=dev)
-    visits = torch.empty((nb,), dtype=torch.int32, device=dev)
-    emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ntr_occluded_t(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
-        w["order"].data_ptr(), n, blive.data_ptr(),
-        w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr(),
-        w["opa"].data_ptr(), pr, R, d, blocked.data_ptr(), filt.data_ptr(),
-        visits.data_ptr(), emin.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"occluded_transparent kernel launch failed: "
-                           f"{_build.error_string(err)} ({err})")
-    occluded_transparent.launches += 1
-    return blocked, filt, visits
+    err, out = _occlusion_kernel("ntr_occluded_t", w, oT.device)
+    _launched("occluded_transparent", occluded_transparent, err)
+    return out
 
 
 occluded_transparent.launches = 0
+
+
+def occluded_transparent_hbm(res, oT, dT, ldist, skip, d, order=None):
+    """``occluded_transparent`` for pools over ``STREAM_POOL_BYTES``, with
+    streamed chunks: the same walk and outputs.  On CUDA tensors the kernel
+    runs (``occluded_transparent_hbm.launches`` counts it); on CPU tensors
+    the twin ``occluded_transparent_hbm_ref`` does."""
+    if not _device("occluded_transparent_hbm", oT.device):
+        return occluded_transparent_hbm_ref(res, oT, dT, ldist, skip, d,
+                                            order=order)
+    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
+    err, out = _occlusion_kernel("ntr_occluded_t_hbm", w, oT.device)
+    _launched("occluded_transparent_hbm", occluded_transparent_hbm, err)
+    return out
+
+
+occluded_transparent_hbm.launches = 0

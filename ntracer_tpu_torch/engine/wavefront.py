@@ -11,8 +11,10 @@ buffer.  A scene with a transparent material takes the transparent walks
 instead (``nearest_hit_transparent``: the nearest opaque hit and the K
 nearest transparent hits; ``occluded_transparent``: shadows filtered by the
 glass they cross) and composes the K hits far to near over the opaque
-color.  Function names follow the JAX module so each has a visible
-counterpart.
+color.  A pool whose layouts take more than ``rk.STREAM_POOL_BYTES`` (the
+JAX package's line) takes the streaming variants of the same four walks
+(``*_hbm``), as the JAX package does.  Function names follow the JAX module
+so each has a visible counterpart.
 
 Layouts stay lane-major as in the JAX package's transposed pipeline: rays
 are (d, R), colors (3, R).  Every function takes tensors on one explicit
@@ -220,8 +222,11 @@ def device_arrays(flat):
     """Host (numpy) arrays of the device scene, named as in the JAX
     package's ``get_device_scene``: the material rows, lights, bounds, and
     the chunked pool layouts with their slot-indexed rows
-    ``res_slot_pack`` = [fn(d), mat, pool id], and for a scene with a
-    transparent material the per-slot opacity row ``res_opa``."""
+    ``res_slot_pack`` = [fn(d), mat, pool id], for a scene with a
+    transparent material the per-slot opacity row ``res_opa``, and for a
+    pool over ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``: the walks
+    then stream its chunks.  The port's walks have no chunk limit
+    (the JAX package falls back to its XLA scan at 16,383 chunks)."""
     a = flat.arrays
     d = flat.config.d
     n_tris = flat.config.n_tris
@@ -261,6 +266,8 @@ def device_arrays(flat):
     if flat.config.has_transparency:
         tri_opacity = np.asarray(a["mat_opacity"], np.float32)[a["tri_mat"]]
         arrs["res_opa"] = rk.add_opacity(res, tri_opacity)["opa"]
+    if rk.pool_bytes(len(bins) * rk.CK, d) > rk.STREAM_POOL_BYTES:
+        arrs["res_is_hbm"] = np.asarray([1], np.int32)
     arrs["res_gt"] = res["gt"]
     arrs["res_ci"] = res["ci"]
     arrs["res_ids"] = res["ids"]
@@ -325,6 +332,11 @@ def _res_dict(arrs):
                 opa=arrs.get("res_opa"))
 
 
+def _streams(arrs):
+    """Whether the scene's pool is over the line: its walks stream."""
+    return "res_is_hbm" in arrs
+
+
 def primary_ctx(arrs, cfg, origin):
     """Per-frame context of the shared-origin (primary) trace: the
     front-to-back chunk order and the hoisted origin-dot rows."""
@@ -384,7 +396,9 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         order, sh = pctx["order"], pctx["sh_res"]
     res = {}
     if K:
-        kt, slot, ktt, ktslot, _vis = rk.nearest_hit_transparent(
+        nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
+            else rk.nearest_hit_transparent
+        kt, slot, ktt, ktslot, _vis = nearest_t(
             res_k, oT, dT, skip_local, d, K, order=order, active=active,
             sh=sh)
         # stable, as jnp.argsort is: exactly tied surfaces keep slot order
@@ -392,8 +406,9 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         res["ttT"] = torch.gather(ktt, 0, order_k)
         res["tslotT"] = torch.gather(ktslot, 0, order_k)
     else:
-        kt, slot, _vis = rk.nearest_hit(res_k, oT, dT, skip_local, d,
-                                         order=order, active=active, sh=sh)
+        nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
+        kt, slot, _vis = nearest(res_k, oT, dT, skip_local, d, order=order,
+                                 active=active, sh=sh)
     rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
     gidl = rowT[d + 1].to(torch.int32)
     t = torch.where(slot >= 0, kt, REAL_MAX)
@@ -469,11 +484,13 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     else:
         pool_ldist = ldist
     if cfg.has_transparency:
-        blocked, filt, _vis = rk.occluded_transparent(
-            res_k, oT, dT, pool_ldist, skip_local, cfg.d)
-    else:
-        blocked, _vis = rk.occluded(res_k, oT, dT, pool_ldist, skip_local,
+        occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
+            else rk.occluded_transparent
+        blocked, filt, _vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
                                     cfg.d)
+    else:
+        occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
+        blocked, _vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
         filt = None
     return _occlusion_finish(cfg, blocked, filt)
 

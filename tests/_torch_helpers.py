@@ -186,6 +186,29 @@ def lit_scene(d=6, n=200, seed=3, off_view=0.15, pkg=PORT):
     return scene
 
 
+def mirror_scene_1500(pkg=PORT):
+    """tests/test_pallas.py's scene over the JAX package's pool line (its
+    ``test_hbm_resident_path_matches_xla``): 1,500 random 3-D triangles of
+    a reflective material (0.3), a point light, shadows on."""
+    a = api(pkg)
+    nt = a.NTracer(3)
+    mat = a.Material((1, 0.6, 0.4), reflectivity=0.3)
+    rng = np.random.RandomState(9)
+    protos = []
+    for _ in range(1500):
+        base = rng.uniform(-2, 2, 3)
+        pts = [nt.Vector(*(base + rng.uniform(-0.4, 0.4, 3)))
+               for _ in range(3)]
+        protos.append(nt.TrianglePrototype(pts, mat))
+    scene = nt.build_composite_scene(protos)
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(cam)
+    scene.add_light(nt.PointLight(nt.Vector(0, 4, -4), (1, 0.8, 0.6)))
+    scene.set_shadows(True)
+    return scene
+
+
 def lit_scene_3d(seed=5, pkg=PORT):
     """A 3-D scene of 1,200 triangles with a point and a global light and
     shadows on."""

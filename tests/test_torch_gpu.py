@@ -15,7 +15,8 @@ from ntracer_tpu_torch.engine import wavefront as pwf
 from ntracer_tpu_torch.engine import resident_kernels as prk
 
 from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
-                            lit_scene, lit_scene_3d, glass_scene, rgb8)
+                            lit_scene, lit_scene_3d, glass_scene, rgb8,
+                            mirror_scene_1500, api)
 
 pytestmark = pytest.mark.gpu
 W = H = 64
@@ -272,3 +273,173 @@ def test_card_glass_frame_matches_cpu_frame(cuda, make):
     diff = np.abs(np.frombuffer(bytes(a), np.uint8).astype(int)
                   - np.frombuffer(bytes(b), np.uint8).astype(int))
     assert diff.max() <= 1
+
+
+def _glass_high_d(d=7, n=600, seed=3):
+    """``n`` random d-D simplices centred in the viewed 3-space (as
+    ``lit_scene(off_view=0)`` places them), glass and opaque by turns, under a
+    point and a global light: the streaming walks' shorter ring (six or
+    seven slots at d = 7 and 8)."""
+    a = api()
+    nt = a.NTracer(d)
+    solid = a.Material((0.3, 0.8, 0.5))
+    glass = a.Material((1, 0.7, 0.7), opacity=0.4)
+    rng = np.random.RandomState(seed)
+    protos = []
+    for i in range(n):
+        base = rng.uniform(-2, 2, d)
+        base[3:] = 0
+        pts = [nt.Vector(*(base + rng.uniform(-0.7, 0.7, d)))
+               for _ in range(d)]
+        protos.append(nt.TrianglePrototype(pts, glass if i % 2 else solid))
+    scene = nt.build_composite_scene(protos)
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(cam)
+    scene.add_light(nt.PointLight(nt.Vector.axis(1, 5), (1, 0.9, 0.7)))
+    scene.add_light(nt.GlobalLight(nt.Vector.axis(1, -1), (0.2, 0.2, 0.3)))
+    scene.set_shadows(True)
+    return scene
+
+
+def _narrow_glass():
+    """Glass and opaque by turns seen through a 0.1 rad field of view: the
+    grouped schedule of kernel 2.7 moves slots against kernel 2.3's."""
+    scene = glass_scene(3000, seed=31, spread=0.4, lit=True)
+    scene.set_fov(0.1)
+    return scene
+
+
+OVER_THE_LINE = {
+    "3d_mirror_1500": mirror_scene_1500,
+    "4d_600cell": lambda: polytope_scene(lit=True),
+    "8d_lit": lambda: lit_scene(8, n=600, off_view=0.0),
+    "3d_mixed": lambda: glass_scene(600, lit=True),
+    "3d_all_glass": lambda: glass_scene(500, seed=3, spread=0.7,
+                                        all_glass=True, lit=True),
+    "3d_narrow_glass": _narrow_glass,
+    "7d_glass": _glass_high_d,
+}
+
+
+def _equal(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        else:
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("name", sorted(OVER_THE_LINE))
+def test_streaming_kernels_match_twins(cuda, name, monkeypatch):
+    """Kernels 2.5-2.8 on pools over the line (the line monkeypatched to
+    1 KiB): each equals its twin bit for bit, in primary and bounce mode
+    and for shadow rays towards a point light and along a global light;
+    2.5 = 2.1, 2.6 = 2.2 and 2.8 = 2.4 on the same inputs, and 2.7 has
+    2.3's t and opaque slot."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    scene = OVER_THE_LINE[name]()
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    assert "res_is_hbm" in arrs
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    res = pwf._res_dict(arrs)
+    d = cfg.d
+    skip = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    blk = torch.arange(N, device=cuda) // prk.RAY_BLOCK
+    kw = dict(order=pctx["order"], sh=pctx["sh_res"])
+    # the first surface along each primary ray, glass or opaque
+    if cfg.has_transparency:
+        t, slot, tt, ts, _v = prk.nearest_hit_transparent_hbm_ref(
+            res, oT, dT, skip, d, 8, **kw)
+        all_t = torch.cat([torch.where(slot >= 0, t, float("inf"))[None],
+                           tt])
+        k = all_t.argmin(dim=0, keepdim=True)
+        first = torch.gather(all_t, 0, k)[0]
+        fslot = torch.gather(torch.cat([slot[None], ts]), 0, k)[0]
+    else:
+        t, fslot, _v = prk.nearest_hit_hbm_ref(res, oT, dT, skip, d, **kw)
+        first = torch.where(fslot >= 0, t, float("inf"))
+    found = torch.isfinite(first)
+    print(f"{name}: {int(found.sum())} of {N} primary rays hit")
+    assert int(found.sum()) > 20
+    pid = torch.where(found, res["ids"][:, 0].reshape(-1)[
+        fslot.clamp(min=0).long()], -1).to(torch.int32)
+    point = torch.where(found[None, :], oT + torch.where(
+        found, first, 0.0)[None, :] * dT, 0.0)
+    live = found & (blk % 2 == 0)
+    rng = np.random.RandomState(5)
+    b_dT = pwf._unitT(torch.as_tensor(
+        rng.normal(size=dT.shape).astype(np.float32), device=cuda))
+    for args, akw in (((oT, dT, skip), kw),
+                      ((point, b_dT, pid), dict(active=live))):
+        if cfg.has_transparency:
+            before = prk.nearest_hit_transparent_hbm.launches
+            got = prk.nearest_hit_transparent_hbm(res, *args, d, 8, **akw)
+            assert prk.nearest_hit_transparent_hbm.launches == before + 1
+            torch.cuda.synchronize()
+            _equal(got, prk.nearest_hit_transparent_hbm_ref(res, *args, d, 8,
+                                                            **akw))
+            one = prk.nearest_hit_transparent(res, *args, d, 8, **akw)
+            _equal(got[:2], one[:2])
+            print(f"{name}: {int((got[3] != one[3]).any(dim=0).sum())} rays' "
+                  f"slots differ between the schedules")
+        else:
+            before = prk.nearest_hit_hbm.launches
+            got = prk.nearest_hit_hbm(res, *args, d, **akw)
+            assert prk.nearest_hit_hbm.launches == before + 1
+            torch.cuda.synchronize()
+            _equal(got, prk.nearest_hit_hbm_ref(res, *args, d, **akw))
+            _equal(got, prk.nearest_hit(res, *args, d, **akw))
+    lv = point - arrs["pl_pos"][0][:, None]
+    dist = prk._sqrt(pwf._dotT(lv, lv))
+    gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous() \
+        if cfg.n_global_lights else (lv / dist[None, :]).contiguous()
+    exit_t = prk._scene_exit_T(point, gl, res["b_lo"], res["b_hi"])
+    for dirs, ldist in (
+            ((lv / dist[None, :]).contiguous(), torch.where(live, dist, 0.0)),
+            (gl, torch.where(live, exit_t, 0.0))):
+        args = (res, point, dirs, ldist, pid, d)
+        if cfg.has_transparency:
+            before = prk.occluded_transparent_hbm.launches
+            got = prk.occluded_transparent_hbm(*args)
+            assert prk.occluded_transparent_hbm.launches == before + 1
+            torch.cuda.synchronize()
+            _equal(got, prk.occluded_transparent_hbm_ref(*args))
+            _equal(got, prk.occluded_transparent(*args))
+        else:
+            before = prk.occluded_hbm.launches
+            got = prk.occluded_hbm(*args)
+            assert prk.occluded_hbm.launches == before + 1
+            torch.cuda.synchronize()
+            _equal(got, prk.occluded_hbm_ref(*args))
+            _equal(got, prk.occluded(*args))
+        assert not got[0][~live].any() and got[-1].any()
+
+
+STREAMING = ("nearest_hit_hbm", "occluded_hbm", "nearest_hit_transparent_hbm",
+             "occluded_transparent_hbm")
+RESIDENT = ("nearest_hit", "occluded", "nearest_hit_transparent",
+            "occluded_transparent")
+
+
+@pytest.mark.parametrize("make", [mirror_scene_1500,
+                                  lambda: glass_scene(300, lit=True)])
+def test_card_frame_over_the_line_takes_the_streaming_kernels(cuda, make,
+                                                              monkeypatch):
+    """A scene over the line renders on the card through the streaming
+    kernels only, and as the CPU renders it."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    scene = make()
+    cfg, arrs, _ = pwf.get_device_scene(scene, cuda)
+    assert "res_is_hbm" in arrs
+    before = {n: getattr(prk, n).launches for n in STREAMING + RESIDENT}
+    got = pwf.frame_colors(scene, W, H, cuda)
+    moved = {n: getattr(prk, n).launches - before[n]
+             for n in STREAMING + RESIDENT}
+    assert not any(moved[n] for n in RESIDENT), moved
+    walks = ("nearest_hit_transparent_hbm", "occluded_transparent_hbm") \
+        if cfg.has_transparency else ("nearest_hit_hbm", "occluded_hbm")
+    assert all(moved[n] > 0 for n in walks), moved
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
