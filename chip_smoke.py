@@ -35,10 +35,22 @@ at 1024x1024, 8-bit RGB:
     0.4), the same lights, a 4-frame orbit (one
     ``nearest_hit_transparent_hbm`` and 18 ``occluded_transparent_hbm`` a
     frame);
+  * the orthoplex d=10: scripts/polytope.py's 10-orthoplex {3,...,3,4}
+    (1,024 simplices, two 512-triangle tiles) from its camera at -4 on axis
+    2, fov 0.8, under tpu_parity.py's two lights (the point light at
+    (0, 3, -3, 1, 0, ...)) with shadows on, a 4-frame orbit.  A scene of
+    more than 8 dimensions takes the grid walks (kernels 2.9 and 2.10:
+    ``grid_kernels.nearest_hit`` and ``occluded``): one 2.9 and two 2.10
+    launches a frame;
+  * one frame of scripts/tpu_parity.py's "generic d=10" (40 random 10-D
+    simplices, ``NTracer(10, force_generic=True)``) under the same lights.
 
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its resident sibling (kernels 2.1-2.4) on the same
-inputs.  The script checks 64 pixels of each frame against the scalar NumPy
+inputs; the grid kernels against their twins at the orthoplex's full
+wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
+rays to three lights and a dead wavefront), and at d = 9 (the 9-orthoplex)
+and d = 16 (200 random simplices, rays aimed at them) for a runtime d.  The script checks 64 pixels of each frame against the scalar NumPy
 oracle, computed by forked worker processes on the host (5e-5;
 5e-4 for the composed pixels of the transparent frames), chosen from the
 engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
@@ -48,7 +60,7 @@ glass.  Both 120-cell frames are checked from a camera turned 0.6 rad off
 the axis view: that view is a mirror hyperplane of the polytope, its rays
 meet mirrored simplices on their common boundary, and there the last bit
 decides (tests/test_torch_mirror_view.py); so are both mesh frames (the
-axis camera looks through the sphere's polar holes).  Each kernel's launch
+axis camera looks through the sphere's polar holes) and the orthoplex.  Each kernel's launch
 count is set
 to 0 before a path is driven and read after it.  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
@@ -205,6 +217,78 @@ def cell120_scene(nt, material, cam_distance, lit):
     return scene, camera, len(protos)
 
 
+def orthoplex_scene(nt, material, cam_distance=-4.0):
+    """The orthoplex {3,...,3,4} of ``nt``'s dimension as
+    scripts/polytope.py renders it (``polytope.py 3 3 3 3 3 3 3 3 4`` at
+    d = 10: 1,024 simplices): camera at ``cam_distance`` on axis 2, fov
+    0.8, under ``two_lights`` with the point light at (0, 3, -3, 1, 0, ...).
+    Returns (scene, camera, simplices)."""
+    d = nt.dimension
+    protos = hull_prototypes(nt, polytope_vertices([3] * (d - 2) + [4]),
+                             material)
+    scene = nt.build_composite_scene(protos)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, cam_distance))
+    scene.set_camera(camera)
+    scene.set_fov(0.8)
+    two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    return scene, camera, len(protos)
+
+
+def generic_scene(nt, material):
+    """scripts/tpu_parity.py's "generic d=10" (``nt`` is ``NTracer(10,
+    force_generic=True)``): 40 random 10-D simplices, camera at -9 on axis
+    2, here under ``two_lights`` (the point light at (0, 3, -3, 1, 0, ...)),
+    shadows on."""
+    d = nt.dimension
+    rng = np.random.RandomState(5)
+    protos = []
+    for _ in range(40):
+        base = rng.uniform(-2, 2, d)
+        pts = [nt.Vector(*(base + rng.uniform(-1.0, 1.0, d)))
+               for _ in range(d)]
+        protos.append(nt.TrianglePrototype(pts, material))
+    scene = nt.build_composite_scene(protos)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -9))
+    scene.set_camera(camera)
+    return two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+
+
+def random_pool(nt, material, n, seed=3):
+    """``n`` random simplices of ``nt``'s dimension (lit_scene's spread:
+    bases in [-2, 2]^d, vertices within 0.7 of them) under ``two_lights``,
+    camera at -8 on axis 2.  Few of them cross the camera's 3-space at
+    large d: ``aimed`` makes rays that meet them.  Returns (scene,
+    simplices (n, d, d))."""
+    d = nt.dimension
+    rng = np.random.RandomState(seed)
+    pts = (rng.uniform(-2, 2, (n, 1, d))
+           + rng.uniform(-0.7, 0.7, (n, d, d))).astype(np.float32)
+    scene = nt.build_composite_scene(
+        nt.TrianglePrototype.batch_from_points(pts, [material] * n))
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(camera)
+    two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    return scene, pts
+
+
+def aimed(origin, simplices, n, seed=11):
+    """(d, n) unit directions from ``origin`` (d,) to seeded points inside
+    seeded ``simplices`` (m, d, d): barycentric weights of at least
+    1 / (2d), away from the edges."""
+    rng = np.random.RandomState(seed)
+    m, d, _ = simplices.shape
+    w = rng.uniform(1, 2, (n, d))
+    w /= w.sum(axis=1, keepdims=True)
+    tri = rng.randint(m, size=n)
+    v = np.einsum("nk,nkc->nc", w, simplices[tri].astype(np.float64)) \
+        - np.asarray(origin, np.float64)
+    return np.ascontiguousarray(
+        (v / np.linalg.norm(v, axis=1, keepdims=True)).T, np.float32)
+
+
 def mesh_d3_scene(nt, material, n, seed=3):
     """scripts/tpu_parity.py's 3-D meshes: ``n`` random triangles of one
     material, its two lights, shadows on ("shadows d=3": 700 opaque ones;
@@ -312,7 +396,7 @@ def timed(fn):
 
 
 def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
-               mask_bytes, out_bytes, early=None):
+               mask_bytes, out_bytes, early=None, lanes=128):
     """The least time (ms) the card could take for one walk on this run's
     data, and which bound it is: the larger of bytes over the memory rate
     and operations over the float32 rate.
@@ -341,7 +425,10 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     needed rays of each block in that block's visits (a decided ray needs
     none), x 128 slots: d*d multiply-adds per plane-dot set (two sets when
     the origin dots are not shared), the division, and 3 (shared: 2) + 1
-    per edge plane."""
+    per edge plane.  The grid walks (kernels 2.9 and 2.10) count the same
+    way with ``lanes`` = 512 triangles a tile for the 128 slots a chunk:
+    ``visits`` are then the tiles each block ran and ``chunks`` the pool's
+    tiles (the slab entries of the needed rays into every tile's box)."""
     rays = need.numel()
     full = need if early is None else need & ~early
     need_blk = full.reshape(-1, 512).sum(dim=1)
@@ -351,7 +438,7 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     bytes_ms = 1e3 * (in_bytes + out_bytes) / PEAK_BYTES
     pair_ops = ((2 * d * d + 1 + 3 * (d - 1)) if shared
                 else (4 * d * d + 2 + 4 * (d - 1)))
-    pairs = int((need_blk * visits.long()).sum()) * 128
+    pairs = int((need_blk * visits.long()).sum()) * lanes
     if early is not None:
         pairs += int((need & early).sum())
     ops = pairs * pair_ops + int(need.sum()) * chunks * 4 * d
@@ -367,6 +454,13 @@ def pool_bytes(arrs, opacity=False):
                ("res_gt", "res_ci", "res_ids", "res_klo", "res_khi",
                 "res_order")) \
         + (arrs["res_opa"][:, 0].numel() * 4 if opacity else 0)
+
+
+def grid_pool_bytes(arrs):
+    """Bytes of a grid pool's rows and tile boxes (the shared rows of a
+    primary trace replace ``ci`` and have its size)."""
+    return sum(arrs[k].numel() * 4 for k in
+               ("kern_gt", "kern_ci", "kern_klo", "kern_khi", "kern_kany"))
 
 
 def turn(nt, scene, camera, cam_distance, angle):
@@ -459,16 +553,27 @@ def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
 RESIDENT = ("nearest_hit", "occluded", "nearest_hit_transparent",
             "occluded_transparent")
 STREAMING = tuple(name + "_hbm" for name in RESIDENT)
-WALKS = RESIDENT + STREAMING
+# kernels 2.9 and 2.10: grid_kernels.nearest_hit and .occluded (d > 8)
+GRID = ("grid_nearest_hit", "grid_occluded")
+WALKS = RESIDENT + STREAMING + GRID
 
 
-def reset_launches(rk):
-    for name in WALKS:
-        getattr(rk, name).launches = 0
+def walk_wrappers():
+    """Every kernel's wrapper by its name in the ``kernels`` line."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    fns = {name: getattr(rk, name) for name in RESIDENT + STREAMING}
+    fns.update(grid_nearest_hit=gk.nearest_hit, grid_occluded=gk.occluded)
+    return fns
 
 
-def read_launches(rk):
-    return {name: getattr(rk, name).launches for name in WALKS}
+def reset_launches():
+    for fn in walk_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in walk_wrappers().items()}
 
 
 def bit_diffs(a, b):
@@ -517,6 +622,7 @@ def main():
     from ntracer_tpu_torch import NTracer, Material, ImageFormat, Channel
     from ntracer_tpu_torch import kdnodes, kdtree
     from ntracer_tpu_torch.engine import _build
+    from ntracer_tpu_torch.engine import grid_kernels as gk
     from ntracer_tpu_torch.engine import resident_kernels as rk
     from ntracer_tpu_torch.engine import wavefront as wf
 
@@ -628,6 +734,35 @@ def main():
           f"{'res_is_hbm' in gmarrs}")
     if "res_is_hbm" not in gmarrs:
         raise SystemExit("the glass mesh's pool is not over the line")
+    done(t0)
+
+    # scenes of more than 8 dimensions: the grid walks (kernels 2.9, 2.10)
+    t0 = phase("d > 8 scenes")
+    nt10 = NTracer(10)
+    t1 = time.perf_counter()
+    orth, orth_camera, n_orth = orthoplex_scene(nt10, opaque)
+    ocfg, oarrs, _flat = wf.get_device_scene(orth, dev)
+    n_tiles = oarrs["kern_gt"].shape[1] // 512
+    print(f"   orthoplex d=10: {n_orth} simplices, pool "
+          f"{tuple(oarrs['kern_gt'].shape)} ({n_tiles} tiles), "
+          f"{ocfg.n_point_lights} point and {ocfg.n_global_lights} "
+          f"global light, shadows {ocfg.shadows}; built in "
+          f"{time.perf_counter() - t1:.2f} s")
+    ntg = NTracer(10, force_generic=True)
+    generic = generic_scene(ntg, Material((0.8, 0.5, 0.9)))
+    orth9, _cam, n_orth9 = orthoplex_scene(NTracer(9), opaque)
+    o9cfg, o9arrs, _flat = wf.get_device_scene(orth9, dev)
+    t1 = time.perf_counter()
+    pool16, simplices16 = random_pool(NTracer(16), Material((0.8, 0.5, 0.9)),
+                                      200)
+    p16cfg, p16arrs, _flat = wf.get_device_scene(pool16, dev)
+    print(f"   orthoplex d=9: {n_orth9} simplices, pool "
+          f"{tuple(o9arrs['kern_gt'].shape)}; random d=16: 200 simplices, "
+          f"pool {tuple(p16arrs['kern_gt'].shape)}, built in "
+          f"{time.perf_counter() - t1:.2f} s")
+    if not all("kern_gt" in a and not any(k.startswith("res_") for k in a)
+               for a in (oarrs, o9arrs, p16arrs)):
+        raise SystemExit("a d > 8 scene has no grid layout")
     done(t0)
 
     fmt = ImageFormat(W, H, [Channel(8, 1, 0, 0), Channel(8, 0, 1, 0),
@@ -1168,12 +1303,155 @@ def main():
           f"ms (wrapper included) [{name_limit}]")
     done(t0)
 
+    # Kernels 2.9 and 2.10 at full wavefronts, each against its twin: the
+    # grid walks of the 10-orthoplex (two 512-triangle tiles), the
+    # 9-orthoplex (one) and a 16-D random pool (one), for a runtime d.  A
+    # twin's one call takes seconds: it is timed once.
+    t0 = phase("grid nearest_hit kernel vs twin")
+    _f, ocam_o, _t, ooT, odT, opctx, oskip, ohit = primary(orth, ocfg, oarrs)
+    _f, o9cam_o, _t, o9oT, o9dT, o9pctx, o9skip, o9hit = primary(
+        orth9, o9cfg, o9arrs)
+    p16cam_o = torch.as_tensor(pool16._cam._origin, device=dev)
+    p16oT = p16cam_o[:, None].expand(16, R).contiguous()
+    p16dT = torch.as_tensor(aimed(pool16._cam._origin, simplices16, R),
+                            device=dev)
+    p16pctx = wf.primary_ctx(p16arrs, p16cfg, p16cam_o)
+    p16hit = wf.trace_pool(p16arrs, p16cfg, p16oT, p16dT, skip,
+                           shared_origin=p16cam_o, pctx=p16pctx)
+    okern, o9kern, p16kern = (wf._kern_dict(a) for a in
+                              (oarrs, o9arrs, p16arrs))
+    osine = -wf._dotT(odT, ohit["normalT"])
+    gmodes = {
+        "orthoplex primary": (ocfg, oarrs, okern, ooT, odT, oskip,
+                              dict(sh=opctx["sh_kern"])),
+        # the frame's bounce wavefront: every ray, the misses' infinite
+        # origins too, each skipping the surface it leaves
+        "orthoplex bounce": (ocfg, oarrs, okern, ohit["pointT"], wf._unitT(
+            odT - ohit["normalT"] * (-2 * osine)[None, :]), ohit["pid"], {}),
+        "orthoplex9 primary": (o9cfg, o9arrs, o9kern, o9oT, o9dT, o9skip,
+                               dict(sh=o9pctx["sh_kern"])),
+        # shared-origin rays from the camera aimed at the simplices (few of
+        # them cross the camera's 3-space)
+        "random16 aimed": (p16cfg, p16arrs, p16kern, p16oT, p16dT, skip,
+                           dict(sh=p16pctx["sh_kern"])),
+    }
+    near_g = {}
+    for label, (cfg_, arrs_, kern_, o_, d_, s_, kw) in gmodes.items():
+        args = (kern_, o_, d_, s_, cfg_.d)
+        kt, kid, ktl = gk.nearest_hit(*args, **kw)
+        (pt, pid, ptl), twin_ms = timed(lambda: gk.nearest_hit_ref(*args,
+                                                                   **kw))
+        torch.cuda.synchronize()
+        diffs = dict(ids=int((kid != pid).sum()), t_bits=bit_diffs(kt, pt),
+                     tiles=int((ktl != ptl).sum()))
+        err = float(torch.nan_to_num(
+            torch.where(kt.view(torch.int32) == pt.view(torch.int32), 0.0,
+                        torch.abs(kt - pt)), nan=float("inf")).max())
+        ms = time_cuda(lambda: gk.nearest_hit(*args, **kw), 5)
+        nj = arrs_["kern_gt"].shape[1] // 512
+        read = torch.ones_like(kid, dtype=torch.bool)
+        need = rk._scene_exit_T(o_, d_, kern_["b_lo"], kern_["b_hi"]) > 0
+        bound_ms, bound_by = walk_bound(
+            cfg_.d, "sh" in kw, need, read, ktl, nj, grid_pool_bytes(arrs_),
+            0, R * 8 + ktl.numel() * 4, lanes=512)
+        near_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, err=err,
+                             tiles_per_block=float(ktl.float().mean()))
+        print(f"   {label}: d={cfg_.d}, {R} rays, {int(need.sum())} to test, "
+              f"{int((kid >= 0).sum())} hits, {int((ktl > 0).sum())} live "
+              f"blocks, tiles/block {float(ktl.float().mean()):.4f} of {nj}; "
+              f"diffs {json.dumps(diffs)}, max |dt| {err}; kernel {ms:.4f} "
+              f"ms, twin {twin_ms:.4f} ms (one call), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of the bound "
+              f"reached [{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"grid nearest_hit kernel != twin: {label}")
+        if not int((kid >= 0).sum()):
+            raise SystemExit(f"no ray hits: {label}")
+    done(t0)
+
+    # kernel 2.10: shadow rays from the primary hits (misses inactive, each
+    # skipping the surface it lies on) towards the point light (finite
+    # distances), along the global light (REAL_MAX, unclamped, as the grid
+    # branch sends it) and from a light at the camera: the engine casts a
+    # point light's shadow ray from the point away from the light, so these
+    # cross the body and most end blocked; then a wavefront without any
+    # active ray
+    t0 = phase("grid occluded kernel vs twin")
+
+    def grid_shadow_rays(hit_, light_pos=None, light_dir=None):
+        point = torch.where(hit_["hit"][None, :], hit_["pointT"], 0.0)
+        if light_pos is not None:
+            lv = point - light_pos[:, None]
+            dist = rk._sqrt(wf._dotT(lv, lv))
+            return point, (lv / dist[None, :]).contiguous(), \
+                torch.where(hit_["hit"], dist, 0.0)
+        ld = (-light_dir)[:, None].expand_as(point).contiguous()
+        return point, ld, torch.where(hit_["hit"], wf.REAL_MAX, 0.0)
+
+    gcases = {
+        "orthoplex point light": (ocfg, oarrs, okern, ohit, grid_shadow_rays(
+            ohit, light_pos=oarrs["pl_pos"][0])),
+        "orthoplex global light": (ocfg, oarrs, okern, ohit, grid_shadow_rays(
+            ohit, light_dir=oarrs["gl_dir"][0])),
+        "orthoplex camera light": (ocfg, oarrs, okern, ohit, grid_shadow_rays(
+            ohit, light_pos=ocam_o)),
+        "orthoplex9 global light": (o9cfg, o9arrs, o9kern, o9hit,
+                                    grid_shadow_rays(
+                                        o9hit, light_dir=o9arrs["gl_dir"][0])),
+        "random16 global light": (p16cfg, p16arrs, p16kern, p16hit,
+                                  grid_shadow_rays(
+                                      p16hit, light_dir=p16arrs["gl_dir"][0])),
+    }
+    occ_g = {}
+    for label, (cfg_, arrs_, kern_, hit_, (point, dirs, ldist)) in \
+            gcases.items():
+        args = (kern_, point, dirs, ldist, hit_["pid"], cfg_.d)
+        kb, ktl = gk.occluded(*args)
+        (pb, ptl), twin_ms = timed(lambda: gk.occluded_ref(*args))
+        torch.cuda.synchronize()
+        diffs = dict(blocked=int((kb != pb).sum()),
+                     tiles=int((ktl != ptl).sum()))
+        ms = time_cuda(lambda: gk.occluded(*args), 5)
+        nj = arrs_["kern_gt"].shape[1] // 512
+        bound_ms, bound_by = walk_bound(
+            cfg_.d, False, ldist > 0, ldist > 0, ktl, nj,
+            grid_pool_bytes(arrs_), 4, R + ktl.numel() * 4, early=kb,
+            lanes=512)
+        occ_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, err=float(diffs["blocked"]),
+                            tiles_per_block=float(ktl.float().mean()))
+        print(f"   {label}: d={cfg_.d}, {R} rays, {int((ldist > 0).sum())} "
+              f"active, {int(kb.sum())} blocked, live blocks "
+              f"{int((ktl > 0).sum())}, tiles/block "
+              f"{float(ktl.float().mean()):.4f} of {nj}; diffs "
+              f"{json.dumps(diffs)}; kernel {ms:.4f} ms, twin {twin_ms:.4f} "
+              f"ms (one call), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached "
+              f"[{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"grid occluded kernel != twin: {label}")
+    point, dirs, ldist = gcases["orthoplex camera light"][4]
+    kb, _ktl = gk.occluded(okern, point, dirs, ldist, ohit["pid"], 10)
+    if not int(kb.sum()):
+        raise SystemExit("no shadow ray crossing the orthoplex is blocked")
+    point, dirs, ldist = gcases["orthoplex global light"][4]
+    dead = torch.zeros_like(ldist)
+    kb, ktl = gk.occluded(okern, point, dirs, dead, ohit["pid"], 10)
+    if bool(kb.any()) or bool(ktl.any()):
+        raise SystemExit("a dead wavefront was walked")
+    dead_g_ms = time_cuda(lambda: gk.occluded(okern, point, dirs, dead,
+                                              ohit["pid"], 10), 20)
+    print(f"   dead wavefront: {R} inactive rays, kernel {dead_g_ms:.4f} ms "
+          f"(wrapper included) [{name_limit}]")
+    done(t0)
+
     t0 = phase("flagship frame")
     renderer = nt_torch.BlockingRenderer()
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt, scene, camera, cam_distance, FRAMES, renderer, buf,
                     fmt)
-    launches = {"flagship": read_launches(rk)}
+    launches = {"flagship": read_launches()}
     print(f"   launches in {FRAMES + 1} renders: "
           f"{json.dumps(launches['flagship'])}")
     if launches["flagship"]["nearest_hit"] < FRAMES + 1:
@@ -1187,17 +1465,23 @@ def main():
         another ``walk``."""
         fov_, cam_o_, cam_t_, oT_, dT_, pctx_, skip_, hit_ = primary(
             sc, cfg_, arrs_)
-        res_ = wf._res_dict(arrs_)
+        grid = "kern_gt" in arrs_
+        res_ = wf._kern_dict(arrs_) if grid else wf._res_dict(arrs_)
         dyn = wf._scene_dyn(sc, dev)
         colorsT = wf._ray_colors_T(arrs_, cfg_, dyn, oT_, dT_, pctx=pctx_)
         ctx = dict(hit=hit_, oT=oT_, dT=dT_, skip=skip_, pctx=pctx_, dyn=dyn,
                    res=res_)
+        if grid:
+            walk = lambda: gk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
+                                          sh=pctx_["sh_kern"])
+        else:
+            walk = lambda: rk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
+                                          order=pctx_["order"],
+                                          sh=pctx_["sh_res"])
         stages = {
             "raygen": lambda: wf.make_rays(cam_o_, cam_t_, *fov_, xs, ys),
             "frame_prep": lambda: wf.primary_ctx(arrs_, cfg_, cam_o_),
-            "walk": lambda: rk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
-                                           order=pctx_["order"],
-                                           sh=pctx_["sh_res"]),
+            "walk": walk,
             **extra(ctx),
             "trace_shade": lambda: wf._ray_colors_T(arrs_, cfg_, dyn, oT_,
                                                     dT_, pctx=pctx_),
@@ -1217,21 +1501,21 @@ def main():
 
     def one_frame(sc):
         """Render one frame of ``sc``: (launch counts, host ms)."""
-        reset_launches(rk)
+        reset_launches()
         t1 = time.perf_counter()
         if not renderer.render(buf, fmt, sc):
             raise SystemExit("render was aborted")
-        return read_launches(rk), 1000 * (time.perf_counter() - t1)
+        return read_launches(), 1000 * (time.perf_counter() - t1)
 
     stage_ms = stage_times(scene, cfg, arrs, lambda c: {})
     print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
     done(t0)
 
     t0 = phase("lit frame")
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt6, lit, lit_camera, lit_distance, LIT_FRAMES, renderer,
                     buf, fmt)
-    launches["lit"] = read_launches(rk)
+    launches["lit"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['lit'])}")
     if launches["lit"]["nearest_hit"] < LIT_FRAMES + 1 or \
@@ -1264,10 +1548,10 @@ def main():
     # shadow rays, and part of the frame lies in shadow
     t0 = phase("lit 120-cell frame")
     l120cfg, l120arrs, _flat = wf.get_device_scene(lit120, dev)
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt, lit120, lit120_camera, cam_distance, LIT_FRAMES,
                     renderer, buf, fmt)
-    launches["lit 120-cell"] = read_launches(rk)
+    launches["lit 120-cell"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['lit 120-cell'])}")
     if launches["lit 120-cell"]["nearest_hit"] < LIT_FRAMES + 1 or \
@@ -1293,10 +1577,10 @@ def main():
     # the main path of the transparent walks: one K-slot walk and
     # (K + 1) x 2 filtered occlusion walks a frame
     t0 = phase("glass 120-cell frame")
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt, glass, glass_camera, cam_distance, LIT_FRAMES,
                     renderer, buf, fmt)
-    launches["glass 120-cell"] = read_launches(rk)
+    launches["glass 120-cell"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['glass 120-cell'])}")
     if launches["glass 120-cell"]["nearest_hit_transparent"] \
@@ -1345,10 +1629,10 @@ def main():
     # a pool over the line: one streaming walk and two streaming occlusion
     # walks a frame, no resident one
     t0 = phase("mesh frame")
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt3, mesh, mesh_camera, MESH_DISTANCE, LIT_FRAMES,
                     renderer, buf, fmt)
-    launches["mesh"] = read_launches(rk)
+    launches["mesh"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['mesh'])}")
     only("mesh", {"nearest_hit_hbm": LIT_FRAMES + 1,
@@ -1370,10 +1654,10 @@ def main():
     # the glass mesh: one streaming K-slot walk and (K + 1) x 2 streaming
     # filtered occlusion walks a frame
     t0 = phase("glass mesh frame")
-    reset_launches(rk)
+    reset_launches()
     frame_s = orbit(nt3, gmesh, gmesh_camera, MESH_DISTANCE, LIT_FRAMES,
                     renderer, buf, fmt)
-    launches["glass mesh"] = read_launches(rk)
+    launches["glass mesh"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['glass mesh'])}")
     only("glass mesh",
@@ -1394,6 +1678,40 @@ def main():
 
     stage_ms = stage_times(gmesh, gmcfg, gmarrs, glass_mesh_stages, reps=2)
     print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    done(t0)
+
+    # the d > 8 path: one grid walk and two grid occlusion walks a frame (a
+    # point and a global light), no chunk walk
+    t0 = phase("orthoplex d=10 frame")
+    reset_launches()
+    frame_s = orbit(nt10, orth, orth_camera, -4.0, LIT_FRAMES, renderer, buf,
+                    fmt)
+    launches["orthoplex d=10"] = read_launches()
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['orthoplex d=10'])}")
+    only("orthoplex d=10", {"grid_nearest_hit": LIT_FRAMES + 1,
+                            "grid_occluded": 2 * (LIT_FRAMES + 1)})
+    report_frames("orthoplex d=10", frame_s, buf, name_limit)
+
+    def grid_stages(c):
+        point, ld, ldist = grid_shadow_rays(c["hit"],
+                                            light_dir=oarrs["gl_dir"][0])
+        return {"shadow": lambda: wf.occlusion(oarrs, ocfg, point, ld, ldist,
+                                               c["hit"]["pid"])}
+
+    stage_ms = stage_times(orth, ocfg, oarrs, grid_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    # one frame of tpu_parity.py's random 10-D simplices
+    launches["generic d=10"], ms = one_frame(generic)
+    print(f"   generic d=10: one frame {ms:.3f} ms (first render of the "
+          f"scene), launches {json.dumps(launches['generic d=10'])} "
+          f"[{name_limit}]")
+    only("generic d=10", {"grid_nearest_hit": 1, "grid_occluded": 2})
+    # the paths of d <= 8 take no grid walk
+    for path, got in launches.items():
+        if path not in ("orthoplex d=10", "generic d=10") and \
+                any(got[n] for n in GRID):
+            raise SystemExit(f"the {path} path launched a grid walk")
     done(t0)
 
     t0 = phase("oracle")
@@ -1508,6 +1826,28 @@ def main():
     oracle_check(gmesh, colors, pixels, tol=ORACLE_TOL_GLASS)
     print(f"   mesh oracle {t2 - t1:.2f} s, glass mesh oracle "
           f"{time.perf_counter() - t3:.2f} s ({ORACLE_WORKERS} processes)")
+    # the d > 8 frames: the orthoplex from the turned camera (a convex body:
+    # its shadowed pixels are grazing ones), the random simplices as
+    # tpu_parity.py's camera sees them
+    turn(nt10, orth, nt10.Camera(), -4.0, OBLIQUE)
+    t1 = time.perf_counter()
+    colors, masks = wf.frame_colors(orth, W, H, dev, masks=True)
+    pixels = pick_pixels(rng, {"hit": 48, None: 16}, masks)
+    print(f"   orthoplex d=10 frame: {int(masks['hit'].sum())} pixels hit the "
+          f"body, {int(masks['shadowed'].sum())} shadowed "
+          f"({int((masks['shadowed'] & masks['grazing']).sum())} by a "
+          f"grazing light)")
+    oracle_check(orth, colors, pixels)
+    t2 = time.perf_counter()
+    colors, masks = wf.frame_colors(generic, W, H, dev, masks=True)
+    print(f"   generic d=10 frame: {int(masks['hit'].sum())} pixels hit a "
+          f"simplex, {int(masks['shadowed'].sum())} shadowed")
+    hit_px = {"hit": min(32, int(masks["hit"].sum()))}
+    oracle_check(generic, colors, pick_pixels(
+        rng, {**(hit_px if hit_px["hit"] else {}),
+              None: ORACLE_PIXELS - hit_px["hit"]}, masks))
+    print(f"   orthoplex oracle {t2 - t1:.2f} s, generic oracle "
+          f"{time.perf_counter() - t2:.2f} s ({ORACLE_WORKERS} processes)")
     done(t0)
 
     bad = [m for m in sys.modules
@@ -1554,6 +1894,15 @@ def main():
                      csrc + "occluded_transparent.cu", tpu + "2383",
                      "glass mesh", occ_th, "glass mesh point light",
                      dead_ms=dead_th_ms),
+    ]
+    pallas = "ntracer_tpu/engine/pallas_kernels.py:"
+    kernels += [
+        kernel_entry("grid_nearest_hit", csrc + "grid_walk.cu",
+                     pallas + "222", "orthoplex d=10", near_g,
+                     "orthoplex primary"),
+        kernel_entry("grid_occluded", csrc + "grid_walk.cu", pallas + "346",
+                     "orthoplex d=10", occ_g, "orthoplex global light",
+                     dead_ms=dead_g_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

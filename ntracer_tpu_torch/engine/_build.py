@@ -50,6 +50,10 @@ _NEAREST_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
 # ntr_occluded_t's C signature (csrc/occluded_transparent.cu)
 _OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                     _I, _I, _I, _P, _P, _P, _P, _P]
+# ntr_grid_nearest_hit's and ntr_grid_occluded's C signatures
+# (csrc/grid_walk.cu)
+_GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
+_GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
 
 
 def sources():
@@ -149,6 +153,10 @@ def load():
             lib.ntr_nearest_t.restype = ctypes.c_int
             lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
             lib.ntr_occluded_t.restype = ctypes.c_int
+            lib.ntr_grid_nearest_hit.argtypes = _GRID_NEAREST_ARGS
+            lib.ntr_grid_nearest_hit.restype = ctypes.c_int
+            lib.ntr_grid_occluded.argtypes = _GRID_OCCLUDED_ARGS
+            lib.ntr_grid_occluded.restype = ctypes.c_int
             # the streaming walks (the STREAM variants in the same
             # sources) take their resident sibling's arguments
             for name, args in (("ntr_nearest_hit_hbm", _NEAREST_ARGS),

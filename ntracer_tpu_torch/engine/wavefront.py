@@ -1,8 +1,8 @@
 """PyTorch wavefront renderer: a whole frame of rays advances in lockstep.
 
 The counterpart of ``ntracer_tpu/engine/wavefront.py`` for triangle
-``CompositeScene``s with d <= 8 (lights, shadows, reflections and
-transparent materials included) and for ``BoxScene``: rays are generated in
+``CompositeScene``s (lights, shadows, reflections, and for d <= 8
+transparent materials) and for ``BoxScene``: rays are generated in
 32x16-pixel tile order, traced by the nearest-hit walk
 (``resident_kernels.nearest_hit``), shaded -- with one occlusion walk
 (``resident_kernels.occluded``) per light when the scene casts shadows --
@@ -13,8 +13,12 @@ nearest transparent hits; ``occluded_transparent``: shadows filtered by the
 glass they cross) and composes the K hits far to near over the opaque
 color.  A pool whose layouts take more than ``rk.STREAM_POOL_BYTES`` (the
 JAX package's line) takes the streaming variants of the same four walks
-(``*_hbm``), as the JAX package does.  Function names follow the JAX module
-so each has a visible counterpart.
+(``*_hbm``), as the JAX package does.  A scene of more than 8 dimensions
+(``d > rk.C_PAD``) has no chunked layout: its opaque pool takes the grid
+walks of ``grid_kernels`` (``nearest_hit``, ``occluded``) over 512-triangle
+tiles in flatten order, as the JAX package's Pallas grid kernels do, and
+the rest of the frame is the same.  Function names follow the JAX module so
+each has a visible counterpart.
 
 Layouts stay lane-major as in the JAX package's transposed pipeline: rays
 are (d, R), colors (3, R).  Every function takes tensors on one explicit
@@ -31,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import grid_kernels as gk
 from . import packing
 from . import resident_kernels as rk
 from .flatten import check_scene, flatten_composite, SceneConfig
@@ -226,7 +231,11 @@ def device_arrays(flat):
     transparent material the per-slot opacity row ``res_opa``, and for a
     pool over ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``: the walks
     then stream its chunks.  The port's walks have no chunk limit
-    (the JAX package falls back to its XLA scan at 16,383 chunks)."""
+    (the JAX package falls back to its XLA scan at 16,383 chunks).
+
+    A scene of more than ``rk.C_PAD`` dimensions gets no chunked layout:
+    its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and the grid
+    walks' layouts ``kern_*`` (``grid_kernels.prepare_tri_arrays``)."""
     a = flat.arrays
     d = flat.config.d
     n_tris = flat.config.n_tris
@@ -241,6 +250,8 @@ def device_arrays(flat):
         np.asarray(a["mat_spec_exp"], np.float32)[:, None],
     ], axis=1)
     arrs["tri_base"] = np.int32(0)
+    if d > rk.C_PAD:
+        return _grid_arrays(a, d, n_tris, arrs)
 
     fn_norm = np.linalg.norm(a["tri_fn"], axis=1)
     bins = rk.centroid_bins(a["cull_lo"], a["cull_hi"], fn_norm, rk.CK)
@@ -280,18 +291,41 @@ def device_arrays(flat):
     return arrs
 
 
+def _grid_arrays(a, d, n_tris, arrs):
+    """``device_arrays`` of a scene with d > ``rk.C_PAD`` (the JAX
+    package's ``get_device_scene`` for an opaque pool without a chunked
+    layout): ``tri_pack`` and the grid walks' ``kern_*`` arrays."""
+    # pool ids and material ids are carried as float32: exact below 2^24
+    if n_tris >= 2 ** 24:
+        raise ValueError("tri_pack stores ids as float32, exact only below "
+                         "2^24 triangles")
+    arrs["tri_pack"] = np.concatenate([
+        np.asarray(a["tri_fn"], np.float32),
+        np.asarray(a["tri_mat"], np.float32)[:, None]], axis=1)
+    kern = gk.prepare_tri_arrays(a["tri_p1"], a["tri_fn"], a["tri_en"],
+                                 a["tri_dc"], a["cull_lo"], a["cull_hi"], d)
+    for k, name in (("gt", "gt"), ("ci", "ci"), ("k_lo", "klo"),
+                    ("k_hi", "khi"), ("k_any", "kany"), ("b_lo", "blo"),
+                    ("b_hi", "bhi")):
+        arrs["kern_" + name] = kern[k]
+    return arrs
+
+
 def get_device_scene(scene, device):
     """Flatten a CompositeScene and move its layouts to ``device``, cached
     on the scene as ``_torch_cache`` (keyed on ``scene._version`` and the
-    device).  Render flags are re-read from the scene on every call."""
+    device).  Render flags are re-read from the scene on every call.  A
+    scene with d > 8 and a transparent material is refused: the JAX
+    package traces it with its XLA chunk scan, which is not ported."""
     check_scene(scene, CompositeScene)
-    if scene.dimension > rk.C_PAD:
-        raise _unsupported(f"a {scene.dimension}-D scene (d > 8)", 10)
     device = torch.device(device)
     key = (scene._version, str(device))
     cache = scene._torch_cache
     if cache is None or cache[0] != key:
         flat = flatten_composite(scene, chunk=CHUNK)
+        if flat.config.d > rk.C_PAD and flat.config.has_transparency:
+            raise _unsupported(f"a transparent {flat.config.d}-D scene "
+                               f"(d > 8)", 10)
         cache = (key, flat.config,
                  tensors_from_arrays(device_arrays(flat), device), flat)
         scene._torch_cache = cache
@@ -308,7 +342,7 @@ def get_device_scene(scene, device):
 
 def check_supported(cfg: SceneConfig):
     """Raise NotImplementedError for scene features outside this port
-    (d > 8 is refused earlier, by get_device_scene)."""
+    (transparency at d > 8 is refused earlier, by get_device_scene)."""
     if cfg.n_solids:
         raise _unsupported("solids", 8)
 
@@ -332,14 +366,29 @@ def _res_dict(arrs):
                 opa=arrs.get("res_opa"))
 
 
+def _kern_dict(arrs):
+    return dict(gt=arrs["kern_gt"], ci=arrs["kern_ci"], k_lo=arrs["kern_klo"],
+                k_hi=arrs["kern_khi"], k_any=arrs["kern_kany"],
+                b_lo=arrs["kern_blo"], b_hi=arrs["kern_bhi"])
+
+
 def _streams(arrs):
     """Whether the scene's pool is over the line: its walks stream."""
     return "res_is_hbm" in arrs
 
 
+def _grid(arrs):
+    """Whether the scene's pool takes the grid walks (d > 8)."""
+    return "kern_gt" in arrs
+
+
 def primary_ctx(arrs, cfg, origin):
     """Per-frame context of the shared-origin (primary) trace: the
-    front-to-back chunk order and the hoisted origin-dot rows."""
+    front-to-back chunk order and the hoisted origin-dot rows; for the
+    grid walks (d > 8) the hoisted rows alone (``sh_kern``)."""
+    if _grid(arrs):
+        return {"sh_kern": gk.shared_rows(arrs["kern_gt"], arrs["kern_ci"],
+                                          origin, cfg.d)}
     res = _res_dict(arrs)
     order, dmin = rk.chunk_order(res["klo"], res["khi"], origin)
     return {"order": order, "dmin": dmin,
@@ -384,35 +433,47 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     primary rays (``pctx`` from primary_ctx, computed here when absent);
     ``active`` masks bounce rays out.  Returns t, pid, mat (R,) and pointT,
     normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
-    (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty."""
+    (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty.
+
+    A pool of d > 8 takes the grid walk and gathers its hit rows by pool id
+    from ``tri_pack``; as in the JAX package's grid branch it traces every
+    ray, the bounce loop's dead ones too (``active`` does not reach it:
+    their results are masked downstream)."""
     K = cfg.max_transparent_hits if cfg.has_transparency else 0
     d = cfg.d
-    res_k = _res_dict(arrs)
     skip_local = skip - arrs["tri_base"]
-    order = sh = None
-    if shared_origin is not None:
-        if pctx is None:
-            pctx = primary_ctx(arrs, cfg, shared_origin)
-        order, sh = pctx["order"], pctx["sh_res"]
+    if shared_origin is not None and pctx is None:
+        pctx = primary_ctx(arrs, cfg, shared_origin)
+    shared = shared_origin is not None
     res = {}
-    if K:
-        nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
-            else rk.nearest_hit_transparent
-        kt, slot, ktt, ktslot, _vis = nearest_t(
-            res_k, oT, dT, skip_local, d, K, order=order, active=active,
-            sh=sh)
-        # stable, as jnp.argsort is: exactly tied surfaces keep slot order
-        order_k = torch.argsort(ktt, dim=0, stable=True)
-        res["ttT"] = torch.gather(ktt, 0, order_k)
-        res["tslotT"] = torch.gather(ktslot, 0, order_k)
+    if _grid(arrs):
+        kt, kid, _tiles = gk.nearest_hit(
+            _kern_dict(arrs), oT, dT, skip_local, d,
+            sh=pctx["sh_kern"] if shared else None)
+        rowT = arrs["tri_pack"][torch.clamp(kid, 0, cfg.n_tris - 1).long()].T
+        found, gidl = kid >= 0, kid
     else:
-        nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-        kt, slot, _vis = nearest(res_k, oT, dT, skip_local, d, order=order,
-                                 active=active, sh=sh)
-    rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
-    gidl = rowT[d + 1].to(torch.int32)
-    t = torch.where(slot >= 0, kt, REAL_MAX)
-    pid = torch.where(slot >= 0, gidl + arrs["tri_base"], -1)
+        res_k = _res_dict(arrs)
+        order, sh = (pctx["order"], pctx["sh_res"]) if shared else (None, None)
+        if K:
+            nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
+                else rk.nearest_hit_transparent
+            kt, slot, ktt, ktslot, _vis = nearest_t(
+                res_k, oT, dT, skip_local, d, K, order=order, active=active,
+                sh=sh)
+            # stable, as jnp.argsort is: exactly tied surfaces keep slot
+            # order
+            order_k = torch.argsort(ktt, dim=0, stable=True)
+            res["ttT"] = torch.gather(ktt, 0, order_k)
+            res["tslotT"] = torch.gather(ktslot, 0, order_k)
+        else:
+            nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
+            kt, slot, _vis = nearest(res_k, oT, dT, skip_local, d,
+                                     order=order, active=active, sh=sh)
+        rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
+        found, gidl = slot >= 0, rowT[d + 1].to(torch.int32)
+    t = torch.where(found, kt, REAL_MAX)
+    pid = torch.where(found, gidl + arrs["tri_base"], -1)
     pointT = oT + t[None, :] * dT
     fnT = rowT[:d]
     denom = _dotT(fnT, dT)
@@ -474,10 +535,16 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     an active ray, so a wholly inactive batch costs one short launch and no
     host sync.  ``clamp_exit`` cuts ``ldist`` to the ray's exit from the
     pool's box, which bounds a global light's infinite distance (no pool hit
-    lies beyond it); point-light queries arrive finite and skip it.  ``skip``
-    is the pool id of the surface the ray leaves."""
-    res_k = _res_dict(arrs)
+    lies beyond it); point-light queries arrive finite and skip it.  The
+    grid walk (d > 8) takes ``ldist`` unclamped, as the JAX package's grid
+    kernel branch does.  ``skip`` is the pool id of the surface the ray
+    leaves."""
     skip_local = skip - arrs["tri_base"]
+    if _grid(arrs):
+        blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
+                                      skip_local, cfg.d)
+        return _occlusion_finish(cfg, blocked, None)
+    res_k = _res_dict(arrs)
     if clamp_exit:
         pool_ldist = torch.minimum(
             ldist, rk._scene_exit_T(oT, dT, res_k["b_lo"], res_k["b_hi"]))

@@ -140,6 +140,67 @@ def polytope_scene(symbol=(3, 3, 5), angle=0.6, dist=-4.0, pkg=PORT,
     return two_lights(scene, nt, (0, 3, -3, 1)) if lit else scene
 
 
+class _Stand:
+    """A stand-in scene for ``chip_smoke.turn`` before the scene exists."""
+
+    def set_camera(self, camera):
+        pass
+
+
+def orthoplex_scene(d=10, pkg=PORT, reflectivity=0.0, companion=None,
+                    angle=0.6):
+    """chip_smoke.py's orthoplex of dimension ``d`` (its camera at -4 on
+    axis 2, fov 0.8, its two lights, shadows on) seen from the camera turned
+    by ``angle`` (the axis view is a mirror hyperplane of the polytope).
+    ``reflectivity`` > 0 makes every surface a mirror and the reflection
+    depth 2.  ``companion`` adds a second body: ``"shade"`` an orthoplex of
+    0.4 the size in the view beside the first, along the global light's
+    shadow rays, so that it casts a shadow on it; ``"floor"`` one large
+    simplex in the hyperplane y = -1 under it (a regular (d-1)-simplex of
+    circumradius 30), so that reflections go from one to the other (in a
+    scene of more than three dimensions a ray reflected off a body leaves
+    the view's 3-space, and misses a small body there)."""
+    smoke = _smoke()
+    a = api(pkg)
+    nt = a.NTracer(d)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -4.0))
+    smoke.turn(nt, _Stand(), camera, -4.0, angle)
+    verts = smoke.polytope_vertices([3] * (d - 2) + [4])
+    simplices = [smoke.hull_simplices(verts)]
+    if companion == "shade":
+        # the point (0.9, 0, -0.3, 0, ...) projected into the view's 3-space
+        axes = np.array([[camera.axes[i][c] for c in range(d)]
+                         for i in range(3)])
+        p = np.zeros(d)
+        p[[0, 2]] = 0.9, -0.3
+        simplices.append(smoke.hull_simplices(0.4 * verts
+                                              + axes.T @ (axes @ p)))
+    elif companion == "floor":
+        unit = smoke.polytope_vertices([3] * (d - 2))       # (d, d - 1)
+        simplices.append(np.insert(30 * unit, 1, -1.0, axis=1)[None])
+    else:
+        assert companion is None
+    pts = np.concatenate(simplices).astype(np.float32)
+    mat = a.Material((1, 0.5, 0.5), reflectivity=reflectivity)
+    scene = nt.build_composite_scene(
+        nt.TrianglePrototype.batch_from_points(pts, [mat] * len(pts)))
+    scene.set_camera(camera)
+    scene.set_fov(0.8)
+    smoke.two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    if reflectivity:
+        scene.set_max_reflect_depth(2)
+    return scene
+
+
+def generic_scene(pkg=PORT):
+    """chip_smoke.py's "generic d=10" (scripts/tpu_parity.py's 40 random
+    10-D simplices, ``force_generic``, under two lights)."""
+    a = api(pkg)
+    return _smoke().generic_scene(a.NTracer(10, force_generic=True),
+                                  a.Material((0.8, 0.5, 0.9)))
+
+
 def reflective_scene(seed=9, shadows=False, pkg=PORT):
     """A 3-D scene with reflective material, a point and a global light:
     the bounce loop runs its bounce traces (and, with ``shadows``, its

@@ -25,8 +25,8 @@ def test_nvcc_command_targets_hopper_with_ieee_math():
 def test_sources_and_build_dir():
     srcs = _build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "nearest_hit.cu", "nearest_hit_transparent.cu", "occluded.cu",
-        "occluded_transparent.cu"]
+        "grid_walk.cu", "nearest_hit.cu", "nearest_hit_transparent.cu",
+        "occluded.cu", "occluded_transparent.cu"]
     assert [os.path.basename(s) for s in _build.headers()] == [
         "chunk_ring.cuh", "pair_test.cuh"]
     pkg = os.path.dirname(os.path.dirname(_build.__file__))
@@ -45,7 +45,7 @@ def test_sources_and_build_dir():
 @pytest.mark.parametrize("name", ["nearest_hit.cu", "occluded.cu",
                                   "nearest_hit_transparent.cu",
                                   "occluded_transparent.cu", "pair_test.cuh",
-                                  "chunk_ring.cuh"])
+                                  "chunk_ring.cuh", "grid_walk.cu"])
 def test_library_name_follows_every_build_input(name, tmp_path, monkeypatch):
     """An edit to any source or header the build reads changes the
     library's name, so a stale library is never loaded."""
@@ -107,3 +107,25 @@ def test_streaming_ctypes_signatures_match_the_c_entry_points(
     _check_signature(fn, getattr(_build, argtypes), source)
     src = open(_build.__file__).read()
     assert f'("{fn}", {argtypes})' in src
+
+
+@pytest.mark.parametrize("fn,argtypes", [
+    ("ntr_grid_nearest_hit", "_GRID_NEAREST_ARGS"),
+    ("ntr_grid_occluded", "_GRID_OCCLUDED_ARGS")])
+def test_grid_ctypes_signatures_match_the_c_entry_points(fn, argtypes):
+    """The grid walks for d > 8 (kernels 2.9 and 2.10, csrc/grid_walk.cu),
+    bound by load() with these argtypes."""
+    _check_signature(fn, getattr(_build, argtypes), "grid_walk.cu")
+    src = open(_build.__file__).read()
+    assert f"lib.{fn}.argtypes = {argtypes}" in src
+
+
+def test_grid_kernels_take_d_up_to_16():
+    """The CUDA grid kernels hold a ray's coordinates in registers for
+    d <= MAX_D, and refuse a larger d: the wrappers' cap is the source's."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    assert re.search(r"constexpr int MAXD = %d;" % gk.MAX_D, src)
+    assert re.search(r"constexpr int TB = %d;" % gk.TRI_BLOCK, src)
+    assert re.search(r"constexpr int RB = %d;" % gk.RAY_BLOCK, src)
+    assert gk.MAX_D >= 16

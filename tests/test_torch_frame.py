@@ -97,11 +97,13 @@ def test_packed_bytes_match_jax(name):
     assert got.numpy().tobytes() == ref.tobytes()
 
 
-def test_box_scene_bytes_match_jax():
+@pytest.mark.parametrize("d", [4, 10])
+def test_box_scene_bytes_match_jax(d):
     """BoxScene needs no walk: ray order, unswizzle and packing alone.
-    Each renderer gets the box scene of its own package."""
+    Each renderer gets the box scene of its own package; at d = 10 the
+    generic (any-dimension) modules of both."""
     scenes = []
-    for nt in (api(JAX).NTracer(4), NTracer(4)):
+    for nt in (api(JAX).NTracer(d), NTracer(d)):
         scene = nt.BoxScene()
         cam = nt.Camera()
         cam.translate(nt.Vector.axis(2, -3))
@@ -209,7 +211,8 @@ def test_powf_matches_jax():
 
 def _scene_with(feature):
     if feature == "d9":
-        return random_scene(9, n=4, seed=1)
+        return random_scene(9, n=4, seed=1,
+                            material=Material((1, 1, 1), opacity=0.5))
     if feature == "transparency":
         return random_scene(3, n=20, seed=1,
                             material=Material((1, 1, 1), opacity=0.5))
@@ -236,9 +239,10 @@ def _scene_with(feature):
                                           ("transparency", None),
                                           ("solid", 8), ("d9", 10)])
 def test_unsupported_scenes_raise(feature, item):
-    """Solids and d > 8 name the ROADMAP item that brings them; the
-    transparent scenes (item None) render: the glass changes the frame and
-    the scene is unlocked afterwards."""
+    """Solids and a transparent scene with d > 8 ("d9") name the ROADMAP
+    item that brings them; the transparent scenes of d <= 8 (item None)
+    render: the glass changes the frame and the scene is unlocked
+    afterwards."""
     scene = _scene_with(feature)
     fmt = rgb8(32, 32)
     buf = bytearray(fmt.pitch * 32)

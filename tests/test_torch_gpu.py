@@ -12,11 +12,12 @@ import torch
 
 from ntracer_tpu_torch import BlockingRenderer
 from ntracer_tpu_torch.engine import wavefront as pwf
+from ntracer_tpu_torch.engine import grid_kernels as gk
 from ntracer_tpu_torch.engine import resident_kernels as prk
 
 from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
                             lit_scene, lit_scene_3d, glass_scene, rgb8,
-                            mirror_scene_1500, api)
+                            mirror_scene_1500, api, orthoplex_scene, _smoke)
 
 pytestmark = pytest.mark.gpu
 W = H = 64
@@ -443,3 +444,111 @@ def test_card_frame_over_the_line_takes_the_streaming_kernels(cuda, make,
     assert all(moved[n] > 0 for n in walks), moved
     ref = pwf.frame_colors(scene, W, H, "cpu")
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+
+
+def _random16():
+    """A 16-D pool of 200 random simplices (chip_smoke.random_pool), with
+    the simplices for rays aimed at them."""
+    a = api()
+    return _smoke().random_pool(a.NTracer(16), a.Material((0.8, 0.5, 0.9)),
+                                200)
+
+
+GRID = {
+    "orthoplex9": lambda: (orthoplex_scene(9), None),
+    "orthoplex10_shade": lambda: (orthoplex_scene(10, companion="shade"),
+                                  None),
+    "random16": _random16,
+}
+
+
+def _grid_equal(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        else:
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("name", sorted(GRID))
+def test_grid_kernels_match_twins(cuda, name):
+    """Kernels 2.9 and 2.10 (d > 8; here d = 9, 10 and 16) equal their twins
+    bit for bit, tiles run included: primary rays with the shared rows (for
+    the 16-D pool aimed at its simplices from the camera), the bounce
+    wavefront of the reflections off the primary hits (every ray, the
+    misses' infinite origins too, each skipping the surface it leaves), and
+    shadow rays from the primary hits towards the point light, along the
+    global light (REAL_MAX), from a light at the camera (the engine casts
+    a shadow ray from the point away from the light: these cross the body)
+    and with every ray inactive."""
+    scene, simplices = GRID[name]()
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    assert "kern_gt" in arrs and cfg.d > 8
+    if simplices is not None:
+        dT = torch.as_tensor(_smoke().aimed(cam_o.cpu().numpy(), simplices,
+                                            N), device=cuda)
+    kern = pwf._kern_dict(arrs)
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    skip = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    n0 = gk.nearest_hit.launches
+    hit = pwf.trace_pool(arrs, cfg, oT, dT, skip, shared_origin=cam_o,
+                         pctx=pctx)
+    assert gk.nearest_hit.launches == n0 + 1
+    assert int(hit["hit"].sum()) > 200
+    sine = -pwf._dotT(dT, hit["normalT"])
+    b_dT = pwf._unitT(dT - hit["normalT"] * (-2 * sine)[None, :])
+    for args, kw in (((oT, dT, skip), dict(sh=pctx["sh_kern"])),
+                     ((hit["pointT"], b_dT, hit["pid"]), {})):
+        got = gk.nearest_hit(kern, *args, cfg.d, **kw)
+        torch.cuda.synchronize()
+        _grid_equal(got, gk.nearest_hit_ref(kern, *args, cfg.d, **kw))
+    point = torch.where(hit["hit"][None, :], hit["pointT"], 0.0)
+    blocked_any = 0
+    for light in (arrs["pl_pos"][0], None, cam_o, "dead"):
+        if light is None:
+            dirs = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous()
+            ldist = torch.where(hit["hit"], pwf.REAL_MAX, 0.0)
+        else:
+            pos = cam_o if isinstance(light, str) else light
+            lv = point - pos[:, None]
+            dist = prk._sqrt(pwf._dotT(lv, lv))
+            dirs = (lv / dist[None, :]).contiguous()
+            ldist = torch.where(hit["hit"], dist, 0.0)
+            if isinstance(light, str):
+                ldist = torch.zeros_like(ldist)
+        o0 = gk.occluded.launches
+        got = gk.occluded(kern, point, dirs, ldist, hit["pid"], cfg.d)
+        assert gk.occluded.launches == o0 + 1
+        torch.cuda.synchronize()
+        _grid_equal(got, gk.occluded_ref(kern, point, dirs, ldist,
+                                         hit["pid"], cfg.d))
+        assert not got[0][ldist <= 0].any()
+        blocked_any += int(got[0].sum())
+    if simplices is None:           # the orthoplex: rays cross the body
+        assert blocked_any > 100
+
+
+def test_card_grid_frame_matches_cpu_frame(cuda):
+    """A 10-D mirror frame (the orthoplex over a mirror floor, reflection
+    depth 2, shadows on) on the card equals the CPU's, and went through the
+    grid kernels only: one nearest-hit walk a trace, one occlusion walk a
+    light and a trace."""
+    scene = orthoplex_scene(10, reflectivity=0.5, companion="floor")
+    names = ("nearest_hit", "occluded", "nearest_hit_hbm", "occluded_hbm")
+    before = {n: getattr(prk, n).launches for n in names}
+    g0, o0 = gk.nearest_hit.launches, gk.occluded.launches
+    got = pwf.frame_colors(scene, W, H, cuda)
+    assert (gk.nearest_hit.launches - g0, gk.occluded.launches - o0) \
+        == (3, 6)
+    assert all(getattr(prk, n).launches == before[n] for n in names)
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+    fmt = rgb8(W, H)
+    a = bytearray(fmt.pitch * H)
+    b = bytearray(fmt.pitch * H)
+    assert BlockingRenderer().render(a, fmt, scene)
+    assert BlockingRenderer(device="cpu").render(b, fmt, scene)
+    diff = np.abs(np.frombuffer(bytes(a), np.uint8).astype(int)
+                  - np.frombuffer(bytes(b), np.uint8).astype(int))
+    assert diff.max() <= 1

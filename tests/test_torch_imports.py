@@ -13,9 +13,9 @@ FORBIDDEN = ("jax", "ntracer", "ntracer_tpu")
 
 def test_port_runs_without_the_jax_package():
     """A fresh process imports the port, builds a small lit scene, a lit
-    scene of glass and a mesh from an OBJ file, renders them on the CPU
-    and unpickles one of its objects; no forbidden module was loaded on
-    the way."""
+    scene of glass, a mesh from an OBJ file and a lit 9-D scene (the grid
+    walks), renders them on the CPU and unpickles one of its objects; no
+    forbidden module was loaded on the way."""
     code = (
         "import pickle, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -23,9 +23,11 @@ def test_port_runs_without_the_jax_package():
         "import ntracer_tpu_torch\n"
         "from ntracer_tpu_torch import BlockingRenderer, NTracer, Material\n"
         "import ntracer_tpu_torch.tracer4, ntracer_tpu_torch.tracern\n"
-        "from ntracer_tpu_torch.engine import _build, wavefront\n"
+        "from ntracer_tpu_torch.engine import (_build, grid_kernels,\n"
+        "                                      wavefront)\n"
         "from ntracer_tpu_torch.wavefront_obj import load_obj\n"
-        "from _torch_helpers import glass_scene, lit_scene_3d, rgb8\n"
+        "from _torch_helpers import (glass_scene, lit_scene_3d, rgb8,\n"
+        "                            orthoplex_scene)\n"
         "import os, tempfile\n"
         "obj = os.path.join(tempfile.mkdtemp(), 'tet.obj')\n"
         "open(obj, 'w').write('v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nv 0 0 1\\n'\n"
@@ -36,7 +38,8 @@ def test_port_runs_without_the_jax_package():
         "cam.translate(nt3.Vector(0.2, 0.2, -3))\n"
         "mesh.set_camera(cam)\n"
         "fmt = rgb8(32, 32)\n"
-        "for scene in (lit_scene_3d(), glass_scene(100, lit=True), mesh):\n"
+        "for scene in (lit_scene_3d(), glass_scene(100, lit=True), mesh,\n"
+        "              orthoplex_scene(9)):\n"
         "    buf = bytearray(fmt.pitch * 32)\n"
         "    assert BlockingRenderer(device='cpu').render(buf, fmt, scene)\n"
         "    assert any(buf)\n"
