@@ -73,6 +73,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,10 +96,29 @@ MESH_DISTANCE = -3.0       # scripts/bench_mesh.py's camera
 # processes that compute the oracle's pixels (the card's host has 8 cores)
 ORACLE_WORKERS = min(8, len(os.sched_getaffinity(0)))
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
-# the tensor cores, and device memory.
-PEAK_FP32 = 67e12          # FLOP/s
+# The card's rates.  The kernels are built with --fmad=false, so a lane
+# starts one float32 add or one multiply a clock, never a fused pair: the
+# float32 rate is 132 SMs x 128 lanes x the maximum SM clock
+# (nvidia-smi --query-gpu=clocks.max.sm: 1,980 MHz on the H100 SXM), half
+# the data sheet's 67 TFLOP/s, which counts an FMA as two operations.
+# Device memory: the data sheet's 3.35 TB/s.
+SMS, LANES, MAX_SM_CLOCK = 132, 128, 1.98e9
+PEAK_FP32 = SMS * LANES * MAX_SM_CLOCK      # float32 instructions/s
 PEAK_BYTES = 3.35e12       # bytes/s
+# Instructions an IEEE division (div.rn.f32) executes on its fast path in the
+# card's SASS, counted by div_sass_ops() from the same nvcc flags.
+DIV_OPS = 10
+# The two streaming occlusion walks run the loop of occl_stream.cuh
+# (compacted rays, the straight-line pair test, dynamic tasks).
+REDESIGNED = "ntracer_tpu_torch/csrc/occl_stream.cuh"
+DIV_PROBE = r"""
+extern "C" __global__ void ntr_div_probe(float* a, const float* b) {
+  a[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
+}
+extern "C" __global__ void ntr_mul_probe(float* a, const float* b) {
+  a[threadIdx.x] = a[threadIdx.x] * b[threadIdx.x];
+}
+"""
 
 
 def phase(name):
@@ -395,8 +415,64 @@ def timed(fn):
     return out, 1000 * (time.perf_counter() - t1)
 
 
-def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
-               mask_bytes, out_bytes, early=None, lanes=128):
+def div_sass_ops(build_dir, nvcc, flags):
+    """Instructions that div.rn.f32 executes on its fast path: the SASS
+    instructions a kernel ``a[i] = a[i] / b[i]`` executes from its entry to its
+    first EXIT, taking each predicated branch (the range check's branch
+    around the slow-path call), less those of ``a[i] = a[i] * b[i]``, plus
+    the multiply it replaces.  Returns the count and the division kernel's
+    executed instructions."""
+    src = os.path.join(build_dir, "div_probe.cu")
+    cubin = os.path.join(build_dir, "div_probe.cubin")
+    with open(src, "w") as f:
+        f.write(DIV_PROBE)
+    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src], check=True,
+                   capture_output=True)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    executed = {}
+    for part in sass.split("Function : ")[1:]:
+        code = {}
+        for line in part.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4})\*/\s+(.*?)\s*;", line)
+            if m:
+                code[int(m.group(1), 16)] = m.group(2)
+        addrs = sorted(code)
+        run, i = [], 0
+        while i < len(addrs):
+            text = code[addrs[i]]
+            run.append(text)
+            if text.startswith("EXIT"):
+                break
+            jump = re.match(r"@!?U?P\d+ BRA (0x[0-9a-f]+)", text)
+            i = addrs.index(int(jump.group(1), 16)) if jump else i + 1
+        executed[part.split()[0]] = run
+    div, mul = executed["ntr_div_probe"], executed["ntr_mul_probe"]
+    return len(div) - len(mul) + 1, div
+
+
+def pair_ops(d, shared):
+    """Float32 instructions each stage of a pair test costs, as a list:
+    [the plane-0 dots and numerator, the division, edge 1, ..., edge d-1].
+
+    A dot of d products is d multiplies and d - 1 adds (the sum starts at
+    its first product).  Every pair pays the dots of plane 0 -- the
+    direction's, and unless the origin dots are shared (primary rays) the
+    origin's -- and the numerator's subtraction.  A pair whose numerator and
+    denominator are not both nonzero and of one sign cannot have t > 0, so
+    only the others pay the division, at ``DIV_OPS``.  A pair with t in
+    range pays edge 1: its dots, ``(c - o.n) - t * (d.n)`` (shared: ``c - t
+    * (d.n)``); later edges add the running total's add, and only a pair
+    that passed every edge before pays an edge."""
+    dot = 2 * d - 1
+    base = dot if shared else 2 * dot + 1
+    edge = dot + 2 if shared else 2 * dot + 3
+    return [base, DIV_OPS] + [edge + (i > 1) for i in range(1, d)]
+
+
+def walk_bound(d, shared, need, read, stages, chunks, pool_bytes,
+               mask_bytes, out_bytes, early=None):
     """The least time (ms) the card could take for one walk on this run's
     data, and which bound it is: the larger of bytes over the memory rate
     and operations over the float32 rate.
@@ -404,12 +480,14 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     ``need`` (R,) bool marks the rays that can still be decided by a pair
     test (active, and for the nearest-hit walk inside the pool's box);
     ``read`` (R,) bool the rays whose origin and direction the function
-    must look at to know that; ``visits`` (R/512,) is the run's chunk
-    visits per block; ``early`` (R,) bool marks needed rays that one pair
-    test decides (a shadow ray that ends blocked: its first hit ends its
-    walk), which count one test each.  The transparent walks count the
-    same way: the K-slot walk's needed rays are the active rays inside the
-    box (a ray can collect glass hits as long as its block walks), its
+    must look at to know that; ``stages`` (d + 1 counts, ``walk_stages``)
+    the pair tests of the needed rays in their blocks' visits that reach
+    each stage of ``pair_ops`` (a decided ray needs none); ``early`` (R,)
+    bool marks needed rays that one pair test decides (a shadow ray that
+    ends blocked: its first hit ends its walk), which count one whole pair
+    test each and are left out of ``stages``.  The transparent walks count
+    the same way: the K-slot walk's needed rays are the active rays inside
+    the box (a ray can collect glass hits as long as its block walks), its
     ``pool_bytes`` include the opacity row and its ``out_bytes`` the K
     slots; in the filtered occlusion walk a ray is decided only when it
     ends blocked, and the filter adds no operation worth counting (a
@@ -419,32 +497,244 @@ def walk_bound(d, shared, need, read, visits, chunks, pool_bytes,
     Bytes: origin, direction and skip id of every 512-ray block that has a
     ray to read, ``mask_bytes`` per ray of the whole wavefront (the mask or
     distance that says which rays are active), the pool's rows and boxes
-    once, every output once.  Operations, with multiply and add counted
-    apart (the kernels contract no FMA): the slab entries of the needed
-    rays into every chunk box (4 per axis), and the pair tests of the
-    needed rays of each block in that block's visits (a decided ray needs
-    none), x 128 slots: d*d multiply-adds per plane-dot set (two sets when
-    the origin dots are not shared), the division, and 3 (shared: 2) + 1
-    per edge plane.  The grid walks (kernels 2.9 and 2.10) count the same
-    way with ``lanes`` = 512 triangles a tile for the 128 slots a chunk:
-    ``visits`` are then the tiles each block ran and ``chunks`` the pool's
-    tiles (the slab entries of the needed rays into every tile's box)."""
+    once, every output once.  Operations are float32 instructions, over
+    ``PEAK_FP32``, the card's rate without contraction (the kernels are
+    built with --fmad=false: a multiply and an add are two instructions):
+    the slab entries of the needed rays into every chunk box (4 per axis),
+    and each stage of the pair tests at its ``pair_ops`` cost.  The division
+    counts ``DIV_OPS`` = 10 instructions, what its fast path executes in
+    the H100's SASS from nvcc 12.8 (``div_sass_ops``: MUFU.RCP, FCHK, five
+    FFMA, the branch around the slow-path call and its BSSY/BSYNC).  The
+    grid walks (kernels 2.9 and 2.10) count the same way, a tile of 512
+    triangles for a chunk of 128 slots: ``chunks`` is then the pool's tiles
+    (the slab entries of the needed rays into every tile's box)."""
     rays = need.numel()
-    full = need if early is None else need & ~early
-    need_blk = full.reshape(-1, 512).sum(dim=1)
     read_blocks = int(read.reshape(-1, 512).any(dim=1).sum())
     in_bytes = read_blocks * 512 * (2 * d * 4 + 4) + rays * mask_bytes \
         + pool_bytes
     bytes_ms = 1e3 * (in_bytes + out_bytes) / PEAK_BYTES
-    pair_ops = ((2 * d * d + 1 + 3 * (d - 1)) if shared
-                else (4 * d * d + 2 + 4 * (d - 1)))
-    pairs = int((need_blk * visits.long()).sum()) * lanes
+    costs = pair_ops(d, shared)
+    ops = sum(int(n) * c for n, c in zip(stages, costs, strict=True))
     if early is not None:
-        pairs += int((need & early).sum())
-    ops = pairs * pair_ops + int(need.sum()) * chunks * 4 * d
+        ops += int((need & early).sum()) * sum(costs)
+    ops += int(need.sum()) * chunks * 4 * d
     ops_ms = 1e3 * ops / PEAK_FP32
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
         else (ops_ms, "operations")
+
+
+def staged_pairs(d, shared, g, ci, idrow, o, dv, skip, charged, cut):
+    """The pair test of ``n`` ray blocks, each against its own chunk (or
+    one tile), with the twins' float operations: (t, valid), (n, 512, L),
+    bit for bit ``resident_kernels._chunk_hits_vals``'s.  Also the counts
+    (d + 1,) of the ``charged`` (n, 512) rays' pairs that reach each stage of
+    ``pair_ops``: all but the ray's own skip id; those whose numerator and
+    denominator are nonzero and of one sign (the division); those with
+    0 < t < ``cut`` (n, 512, 1 or L) (edge 1); those that passed edges
+    1 .. i - 1 (edge i).  ``g`` (n or 1, pr, L), ``ci`` (n or 1, rows, L),
+    ``idrow`` (n or 1, L), ``o``/``dv`` (d, n, 512, 1), ``skip`` (n, 512, 1).
+    """
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    zeros = torch.zeros((1,), dtype=torch.float32, device=g.device)
+
+    def dots(p):
+        acc_o = None if shared else zeros
+        acc_d = zeros
+        for c in range(d):
+            row = g[:, None, p * d + c, :]
+            if not shared:
+                acc_o = acc_o + o[c] * row
+            acc_d = acc_d + dv[c] * row
+        return acc_o, acc_d
+
+    o0, dn = dots(0)
+    num = ci[:, None, 0, :] if shared else ci[:, None, 0, :] - o0
+    t = num / dn
+    own = idrow[:, None, :] != skip
+    valid = (dn != 0) & (t > 0) & own
+    base = charged[:, :, None] & own
+    pre = base & (((num > 0) & (dn > 0)) | ((num < 0) & (dn < 0)))
+    reach = pre & (t > 0) & (t < cut)
+    counts = [base.sum(), pre.sum(), reach.sum()]
+    tot = zeros
+    for i in range(1, d):
+        oi, di = dots(i)
+        a = ci[:, None, i, :] - t * di if shared \
+            else ci[:, None, i, :] - oi - t * di
+        ok = (a >= -rk.ROUNDING_FUZZ) & (a <= rk.ONE_FUZZ)
+        valid &= ok
+        tot = tot + a
+        if i < d - 1:
+            reach &= ok
+            counts.append(reach.sum())
+    valid &= tot <= rk.ONE_FUZZ
+    return t, valid, torch.stack(counts)
+
+
+def walk_stages(w, charged, cut, visits):
+    """Replay a walk's visits with the twins' rule and count, over the
+    pairs of the ``charged`` (R,) rays in their blocks' visits, the pair
+    tests that reach each stage (``staged_pairs``, ``cut`` (R,) the t a
+    pair must stay below to matter).  ``w`` is a walk's inputs:
+    ``resident_kernels._occlusion_inputs`` (an occlusion walk; with an
+    opacity row the filtered one), ``_walk_inputs`` (a nearest-hit walk; in
+    the K-slot walk a glass slot's pair matters at any t, since the slots
+    are not trimmed by the nearest hit) or ``grid_kernels._grid_inputs``
+    (the grid walks).  Raises SystemExit unless the replay's visits equal
+    ``visits``, the kernel's.  Returns (stages (d + 1,) list, the pair
+    tests an occlusion walk deals out: the undecided rays at each group's
+    start x 128 slots, for each visit of the group)."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    grid = "k_any" in w
+    occl = "ldist" in w
+    d = w["d"]
+    dev = w["oT"].device
+    RB = rk.RAY_BLOCK
+    width = 512 if grid else rk.CK
+    nb_all = w["oT"].shape[1] // RB
+    stages = torch.zeros((d + 1,), dtype=torch.int64, device=dev)
+    dealt = torch.zeros((), dtype=torch.int64, device=dev)
+    got = []
+    step = rk._twin_step(width, dev.type)
+    inf = float(rk.INF)
+    for b0 in range(0, nb_all, step):
+        b1 = min(nb_all, b0 + step)
+        nb, sl = b1 - b0, slice(b0 * RB, b1 * RB)
+        o = w["oT"][:, sl].reshape(d, nb, RB, 1)
+        dv = w["dT"][:, sl].reshape(d, nb, RB, 1)
+        skip = w["skip"][sl].reshape(nb, RB, 1)
+        chg = charged[sl].reshape(nb, RB)
+        ct = cut[sl].reshape(nb, RB, 1)
+        vis = torch.zeros((nb,), dtype=torch.int32, device=dev)
+        if occl:
+            ldist = w["ldist"][sl].reshape(nb, RB)
+            blocked = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
+        else:
+            best = w["init_t"][sl].reshape(nb, RB).clone()
+
+        def visit(sel, g, ci, idrow, opa):
+            slot_cut = ct[sel]
+            if opa is not None and not occl:
+                slot_cut = torch.where(opa >= 1.0, slot_cut, inf)
+            t, valid, cnt = staged_pairs(
+                d, w.get("shared", False), g, ci, idrow, o[:, sel],
+                dv[:, sel], skip[sel], chg[sel], slot_cut)
+            stages.add_(cnt)
+            if opa is not None:
+                valid &= opa >= 1.0
+            if occl:
+                valid &= t < ldist[sel][:, :, None]
+                blocked[sel] |= torch.any(valid, dim=2)
+            else:
+                c_t = torch.amin(torch.where(valid, t, inf), dim=2)
+                best[sel] = torch.where(c_t < best[sel], c_t, best[sel])
+            vis[sel] += 1
+
+        if grid:
+            k_lo_t = w["k_lo"][:, 0, :].T
+            k_hi_t = w["k_hi"][:, 0, :].T
+            entries = rk._entry_all(d, o, dv, k_lo_t, k_hi_t,
+                                    k_lo_t.shape[1])
+            for j, any_j in enumerate(w["k_any"].reshape(-1).tolist()):
+                if any_j == 0:
+                    continue
+                entry = entries[:, :, j]
+                run = torch.any((entry < ldist) & ~blocked, dim=1) if occl \
+                    else torch.any(entry < best, dim=1)
+                sel = torch.nonzero(run).squeeze(1)
+                if sel.numel():
+                    cols = slice(j * 512, (j + 1) * 512)
+                    ids = j * 512 + torch.arange(512, device=dev)
+                    visit(sel, w["gt"][None, :, cols], w["ci"][None, :, cols],
+                          ids[None], None)
+            got.append(vis)
+            continue
+        n = w["n_eff"]
+        if n == 0:
+            got.append(vis)
+            continue
+
+        def bound():
+            if occl:
+                return torch.amax(torch.where(blocked, 0.0, ldist), dim=1)
+            return torch.amax(best, dim=1)
+
+        p = 1 if w.get("K") and not w.get("grouped") else rk.P_CAND
+        emin = rk._entry_minima(w, o, dv)
+        order = w["order"].long()
+        none = torch.full((nb,), n, dtype=torch.int64, device=dev)
+        cur = rk._find_cands(emin, bound(), torch.zeros_like(none), n, p)
+        cur[w["blive"][b0:b1] == 0] = rk.SENT
+        while bool((cur[:, 0] < rk.SENT).any()):
+            k0 = torch.where(cur[:, -1] < rk.SENT, cur[:, -1] + 1, none)
+            nxt = rk._find_cands(emin, bound(), k0, n, p)
+            if occl:
+                und = (~blocked & (ldist > 0)).sum(dim=1)
+                dealt += (und * (cur < rk.SENT).sum(dim=1)).sum() * rk.CK
+            for j in range(p):
+                sel = torch.nonzero(cur[:, j] < rk.SENT).squeeze(1)
+                if sel.numel() == 0:
+                    continue
+                idx = order[cur[sel, j]]
+                opa = None if w.get("opa") is None \
+                    else w["opa"][idx, 0][:, None, :]
+                visit(sel, w["gt"][idx], w["ci"][idx], w["ids"][idx, 0], opa)
+            cur = nxt
+        got.append(vis)
+    got = torch.cat(got)
+    if not torch.equal(got, visits.to(got.dtype)):
+        raise SystemExit(f"the bound's replay visits differently from the "
+                         f"kernel in {int((got != visits).sum())} blocks")
+    return stages.tolist(), int(dealt)
+
+
+def next_up(t):
+    """The next float above each of ``t``: a pair at the nearest hit's t
+    or nearer matters."""
+    return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+
+def stage_note(stages):
+    """The pair tests the bound counts, and the share of them that reaches
+    each later stage of ``pair_ops``."""
+    n = max(stages[0], 1)
+    rest = ", ".join(f"edge {i} {100 * c / n:.2f}%"
+                     for i, c in enumerate(stages[2:], 1))
+    return (f"bound's pair tests {stages[0]}: division "
+            f"{100 * stages[1] / n:.2f}%, {rest}")
+
+
+def nearest_stages(res, o, dv, skip, d, kw, t, visits, K=0, grouped=False):
+    """``walk_stages`` of a nearest-hit walk over a chunked pool (``kw`` its
+    call's keywords, ``t`` and ``visits`` its outputs): the needed rays, a
+    pair mattering up to the ray's nearest hit."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    w = rk._walk_inputs(res, o, dv, skip, d, kw.get("order"),
+                        kw.get("active"), kw.get("sh"), K=K)
+    w["grouped"] = grouped
+    return walk_stages(w, w["init_t"] > 0, next_up(t), visits)[0]
+
+
+def occlusion_stages(res, o, dv, ldist, skip, d, blocked, visits,
+                     filtered=False):
+    """``walk_stages`` of an occlusion walk over a chunked pool: the active
+    rays that end unblocked, a pair mattering below ``ldist``.  Returns
+    (stages, pair tests dealt out)."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    w = rk._occlusion_inputs(res, o, dv, ldist, skip, d, None,
+                             filtered=filtered)
+    return walk_stages(w, (ldist > 0) & ~blocked, ldist, visits)
+
+
+def grid_walk_stages(kern, o, dv, skip, d, visits, sh=None, t=None,
+                     ldist=None, blocked=None):
+    """``walk_stages`` of a grid walk: the nearest-hit walk's (``t``) or,
+    with ``ldist`` and ``blocked``, the occlusion walk's."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    w = gk._grid_inputs(kern, o, dv, skip, d, sh=sh, ldist=ldist)
+    if ldist is None:
+        return walk_stages(w, w["init_t"] > 0, next_up(t), visits)[0]
+    return walk_stages(w, (ldist > 0) & ~blocked, ldist, visits)[0]
 
 
 def pool_bytes(arrs, opacity=False):
@@ -634,6 +924,11 @@ def main():
         for line in f:
             if "registers" in line or "spill" in line:
                 print("   " + line.strip())
+    div_ops, div_body = div_sass_ops(
+        _build.BUILD_DIR, _build.find_nvcc(),
+        [a for a in _build.NVCC_FLAGS if a not in ("-Xptxas", "-v")])
+    print(f"   div.rn.f32 executes {div_ops} instructions on its fast path "
+          f"(walk_bound counts DIV_OPS = {DIV_OPS}): {'; '.join(div_body)}")
     done(t0)
 
     t0 = phase("scene")
@@ -828,7 +1123,8 @@ def main():
         need = read & (rk._scene_exit_T(o_, d_, res_["b_lo"],
                                         res_["b_hi"]) > 0)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, "sh" in kw, need, read, kv, arrs_["res_neff"],
+            cfg_.d, "sh" in kw, need, read,
+            nearest_stages(*args, kw, kt, kv), arrs_["res_neff"],
             pool_bytes(arrs_), int("active" in kw), R * 8 + kv.numel() * 4)
         near[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                            bound_by=bound_by, err=err)
@@ -885,7 +1181,8 @@ def main():
         ms = time_cuda(lambda: rk.occluded(*args), 20)
         twin_ms = time_cuda(lambda: rk.occluded_ref(*args), 2)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, False, ldist > 0, ldist > 0, kv, arrs_["res_neff"],
+            cfg_.d, False, ldist > 0, ldist > 0,
+            occlusion_stages(*args, kb, kv)[0], arrs_["res_neff"],
             pool_bytes(arrs_), 4, R + kv.numel() * 4, early=kb)
         occ[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                           bound_by=bound_by, err=float(ray_diff))
@@ -908,8 +1205,9 @@ def main():
         raise SystemExit("a dead wavefront was walked")
     dead_ms = time_cuda(lambda: rk.occluded(lres, point, dirs, dead,
                                             lhit["pid"], lcfg.d), 20)
-    dead_bound, _by = walk_bound(lcfg.d, False, dead > 0, dead > 0, kv,
-                                 larrs["res_neff"], 0, 4, R + kv.numel() * 4)
+    dead_bound, _by = walk_bound(lcfg.d, False, dead > 0, dead > 0,
+                                 [0] * (lcfg.d + 1), larrs["res_neff"], 0, 4,
+                                 R + kv.numel() * 4)
     print(f"   dead wavefront: {R} inactive rays, kernel {dead_ms:.4f} ms "
           f"(wrapper included), bound {dead_bound:.4f} ms (bytes) "
           f"[{name_limit}]")
@@ -955,7 +1253,8 @@ def main():
         need = read & (rk._scene_exit_T(o_, d_, res_["b_lo"],
                                         res_["b_hi"]) > 0)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, "sh" in kw, need, read, kv, arrs_["res_neff"],
+            cfg_.d, "sh" in kw, need, read,
+            nearest_stages(*args[:5], kw, kt, kv, K=K), arrs_["res_neff"],
             pool_bytes(arrs_, opacity=True), int("active" in kw),
             R * 8 + K * R * 8 + kv.numel() * 4)
         filled = kts >= 0
@@ -1008,9 +1307,10 @@ def main():
         ms = time_cuda(lambda: rk.occluded_transparent(*args), 20)
         twin_ms = time_cuda(lambda: rk.occluded_transparent_ref(*args), 2)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, False, ldist > 0, ldist > 0, kv, arrs_["res_neff"],
-            pool_bytes(arrs_, opacity=True), 4, R * 5 + kv.numel() * 4,
-            early=kb)
+            cfg_.d, False, ldist > 0, ldist > 0,
+            occlusion_stages(*args, kb, kv, filtered=True)[0],
+            arrs_["res_neff"], pool_bytes(arrs_, opacity=True), 4,
+            R * 5 + kv.numel() * 4, early=kb)
         n_filtered = int(((kf < 1) & ~kb).sum())
         occ_t[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                             bound_by=bound_by,
@@ -1038,9 +1338,9 @@ def main():
         raise SystemExit("a dead wavefront was walked")
     dead_t_ms = time_cuda(lambda: rk.occluded_transparent(
         gres, point, dirs, dead, ghit["pid"], gcfg.d), 20)
-    dead_t_bound, _by = walk_bound(gcfg.d, False, dead > 0, dead > 0, kv,
-                                   garrs["res_neff"], 0, 4,
-                                   R * 5 + kv.numel() * 4)
+    dead_t_bound, _by = walk_bound(gcfg.d, False, dead > 0, dead > 0,
+                                   [0] * (gcfg.d + 1), garrs["res_neff"], 0,
+                                   4, R * 5 + kv.numel() * 4)
     print(f"   dead wavefront: {R} inactive rays, kernel {dead_t_ms:.4f} ms "
           f"(wrapper included), bound {dead_t_bound:.4f} ms (bytes) "
           f"[{name_limit}]")
@@ -1094,8 +1394,9 @@ def main():
         read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
         need = read & (rk._scene_exit_T(o_, d_, mres["b_lo"],
                                         mres["b_hi"]) > 0)
+        stages = nearest_stages(*args, kw, kt, kv)
         bound_ms, bound_by = walk_bound(
-            3, "sh" in kw, need, read, kv, n_chunks, mbytes,
+            3, "sh" in kw, need, read, stages, n_chunks, mbytes,
             int("active" in kw), R * 8 + kv.numel() * 4)
         near_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                              bound_by=bound_by, err=err, resident_ms=res_ms,
@@ -1106,14 +1407,24 @@ def main():
               f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.5 {ms:.4f} ms, "
               f"kernel 2.1 on the same inputs {res_ms:.4f} ms, twin "
               f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached "
-              f"[{name_limit}]")
+              f"{100 * bound_ms / ms:.1f}% of the bound reached; "
+              f"{stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"nearest_hit_hbm != twin or kernel 2.1: "
                              f"{label}")
     done(t0)
 
+    # the redesigned streaming occlusion walks (kernels 2.6 and 2.8) as
+    # they launch at each d: registers, spills, blocks an SM, ring slots
     t0 = phase("occluded_hbm kernel vs twin")
+    occl_info = {}
+    for kname, filtered in (("occluded_hbm", False),
+                            ("occluded_transparent_hbm", True)):
+        for d_ in range(3, 9):
+            occl_info[kname, d_] = rk.occlusion_stream_info(d_, filtered)
+            print(f"   {kname} at d = {d_}: {occl_info[kname, d_]}")
+        if occl_info[kname, 3]["blocks_per_sm"] < 2:
+            raise SystemExit(f"{kname}: fewer than two blocks an SM at d = 3")
     hcases = {
         "mesh point light": shadow_rays(marrs, mhit,
                                         light_pos=marrs["pl_pos"][0]),
@@ -1131,22 +1442,30 @@ def main():
                      visits=int((kv != pv).sum()),
                      blocked_vs_2_2=int((kb != rb).sum()),
                      visits_vs_2_2=int((kv != rv).sum()))
-        ms = time_cuda(lambda: rk.occluded_hbm(*args), 3)
+        # in turns: 2.2, 2.6, 2.6, 2.2
         res_ms = time_cuda(lambda: rk.occluded(*args), 3)
+        ms = time_cuda(lambda: rk.occluded_hbm(*args), 3)
+        ms = (ms + time_cuda(lambda: rk.occluded_hbm(*args), 3)) / 2
+        res_ms = (res_ms + time_cuda(lambda: rk.occluded(*args), 3)) / 2
+        stages, dealt = occlusion_stages(*args, kb, kv)
         bound_ms, bound_by = walk_bound(
-            3, False, ldist > 0, ldist > 0, kv, n_chunks, mbytes, 4,
+            3, False, ldist > 0, ldist > 0, stages, n_chunks, mbytes, 4,
             R + kv.numel() * 4, early=kb)
         occ_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                             bound_by=bound_by, err=float(diffs["blocked"]),
-                            resident_ms=res_ms,
-                            live_blocks=int((kv > 0).sum()))
+                            resident_ms=res_ms, ratio_to_2_2=ms / res_ms,
+                            live_blocks=int((kv > 0).sum()),
+                            work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, live blocks {int((kv > 0).sum())}, "
               f"visits/block {float(kv.float().mean()):.4f}; diffs "
               f"{json.dumps(diffs)}; kernel 2.6 {ms:.4f} ms, kernel 2.2 on "
-              f"the same inputs {res_ms:.4f} ms, twin {twin_ms:.4f} ms, bound "
+              f"the same inputs {res_ms:.4f} ms, ratio 2.6/2.2 "
+              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-              f"the bound reached [{name_limit}]")
+              f"the bound reached; pair tests dealt out "
+              f"{occ_h[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
+              f"65536; {stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"occluded_hbm != twin or kernel 2.2: {label}")
         if not 0 < int(kb.sum()) < int((ldist > 0).sum()):
@@ -1220,8 +1539,9 @@ def main():
         read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
         need = read & (rk._scene_exit_T(o_, d_, gmres["b_lo"],
                                         gmres["b_hi"]) > 0)
+        stages = nearest_stages(*args[:5], kw, kt, kv, K=K, grouped=True)
         bound_ms, bound_by = walk_bound(
-            3, "sh" in kw, need, read, kv, n_chunks, gmbytes,
+            3, "sh" in kw, need, read, stages, n_chunks, gmbytes,
             int("active" in kw), R * 8 + K * R * 8 + kv.numel() * 4)
         filled = kts >= 0
         near_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
@@ -1236,8 +1556,8 @@ def main():
               f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.7 {ms:.4f} ms, "
               f"kernel 2.3 on the same inputs {res_ms:.4f} ms, twin "
               f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached "
-              f"[{name_limit}]")
+              f"{100 * bound_ms / ms:.1f}% of the bound reached; "
+              f"{stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"nearest_hit_transparent_hbm != twin, or t "
                              f"and opaque slot != kernel 2.3's: {label}")
@@ -1266,25 +1586,35 @@ def main():
                      blocked_vs_2_4=int((kb != rb).sum()),
                      filt_bits_vs_2_4=bit_diffs(kf, rf),
                      visits_vs_2_4=int((kv != rv).sum()))
-        ms = time_cuda(lambda: rk.occluded_transparent_hbm(*args), 3)
+        # in turns: 2.4, 2.8, 2.8, 2.4
         res_ms = time_cuda(lambda: rk.occluded_transparent(*args), 3)
+        ms = time_cuda(lambda: rk.occluded_transparent_hbm(*args), 3)
+        ms = (ms + time_cuda(lambda: rk.occluded_transparent_hbm(*args),
+                             3)) / 2
+        res_ms = (res_ms + time_cuda(lambda: rk.occluded_transparent(*args),
+                                     3)) / 2
+        stages, dealt = occlusion_stages(*args, kb, kv, filtered=True)
         bound_ms, bound_by = walk_bound(
-            3, False, ldist > 0, ldist > 0, kv, n_chunks, gmbytes, 4,
+            3, False, ldist > 0, ldist > 0, stages, n_chunks, gmbytes, 4,
             R * 5 + kv.numel() * 4, early=kb)
         n_filtered = int(((kf < 1) & ~kb).sum())
         occ_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                              bound_by=bound_by,
                              err=float(torch.abs(kf - pf).max()),
-                             resident_ms=res_ms)
+                             resident_ms=res_ms, ratio_to_2_4=ms / res_ms,
+                             live_blocks=int((kv > 0).sum()),
+                             work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
               f"glass; diffs {json.dumps(diffs)}, live blocks "
               f"{int((kv > 0).sum())}, visits/block "
               f"{float(kv.float().mean()):.4f}; kernel 2.8 {ms:.4f} ms, "
-              f"kernel 2.4 on the same inputs {res_ms:.4f} ms, twin "
-              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached "
-              f"[{name_limit}]")
+              f"kernel 2.4 on the same inputs {res_ms:.4f} ms, ratio 2.8/2.4 "
+              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+              f"the bound reached; pair tests dealt out "
+              f"{occ_th[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
+              f"65536; {stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"occluded_transparent_hbm != twin or kernel "
                              f"2.4: {label}")
@@ -1352,8 +1682,9 @@ def main():
         read = torch.ones_like(kid, dtype=torch.bool)
         need = rk._scene_exit_T(o_, d_, kern_["b_lo"], kern_["b_hi"]) > 0
         bound_ms, bound_by = walk_bound(
-            cfg_.d, "sh" in kw, need, read, ktl, nj, grid_pool_bytes(arrs_),
-            0, R * 8 + ktl.numel() * 4, lanes=512)
+            cfg_.d, "sh" in kw, need, read,
+            grid_walk_stages(*args, ktl, sh=kw.get("sh"), t=kt), nj,
+            grid_pool_bytes(arrs_), 0, R * 8 + ktl.numel() * 4)
         near_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                              bound_by=bound_by, err=err,
                              tiles_per_block=float(ktl.float().mean()))
@@ -1415,9 +1746,10 @@ def main():
         ms = time_cuda(lambda: gk.occluded(*args), 5)
         nj = arrs_["kern_gt"].shape[1] // 512
         bound_ms, bound_by = walk_bound(
-            cfg_.d, False, ldist > 0, ldist > 0, ktl, nj,
-            grid_pool_bytes(arrs_), 4, R + ktl.numel() * 4, early=kb,
-            lanes=512)
+            cfg_.d, False, ldist > 0, ldist > 0,
+            grid_walk_stages(kern_, point, dirs, hit_["pid"], cfg_.d, ktl,
+                             ldist=ldist, blocked=kb), nj,
+            grid_pool_bytes(arrs_), 4, R + ktl.numel() * 4, early=kb)
         occ_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                             bound_by=bound_by, err=float(diffs["blocked"]),
                             tiles_per_block=float(ktl.float().mean()))
@@ -1854,6 +2186,9 @@ def main():
            if m.split(".")[0] in ("jax", "ntracer", "ntracer_tpu")]
     if bad:
         raise SystemExit(f"imported {bad}")
+    if div_ops != DIV_OPS:
+        raise SystemExit(f"the bound counts DIV_OPS = {DIV_OPS}, the card's "
+                         f"division executes {div_ops}")
 
     def kernel_entry(name, source, replaces, path, cases, main_case, **more):
         c = cases[main_case]
@@ -1886,14 +2221,16 @@ def main():
                      "mesh", near_h, "mesh primary"),
         kernel_entry("occluded_hbm", csrc + "occluded.cu", tpu + "1963",
                      "mesh", occ_h, "mesh point light", dead_ms=dead_h_ms,
-                     entry_ms=entry_ms),
+                     entry_ms=entry_ms, redesigned=REDESIGNED,
+                     launch=occl_info["occluded_hbm", 3]),
         kernel_entry("nearest_hit_transparent_hbm",
                      csrc + "nearest_hit_transparent.cu", tpu + "2174",
                      "glass mesh", near_th, "glass mesh primary"),
         kernel_entry("occluded_transparent_hbm",
                      csrc + "occluded_transparent.cu", tpu + "2383",
                      "glass mesh", occ_th, "glass mesh point light",
-                     dead_ms=dead_th_ms),
+                     dead_ms=dead_th_ms, redesigned=REDESIGNED,
+                     launch=occl_info["occluded_transparent_hbm", 3]),
     ]
     pallas = "ntracer_tpu/engine/pallas_kernels.py:"
     kernels += [

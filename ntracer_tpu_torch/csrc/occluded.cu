@@ -33,17 +33,27 @@
 // STREAM: kernel 2.6, which replaces `occluded_hbm` (pallas_call body
 // `_occl_hbm_kernel` -> `_occl_hbm_live`) for pools over the line: the same
 // walk, `blocked` and visits, with each visited chunk copied into a ring of
-// shared-memory slots while the previous group is tested (chunk_ring.cuh).
+// shared-memory slots while the previous group is tested.  Its body is
+// `occluded_stream_kernel`, on occl_stream.cuh's loop: the undecided rays
+// of a group are compacted, each ray's 128 slots are split into four
+// ranges of 32 on neighbouring lanes (any-hit is order-free: the ranges'
+// hits are ORed with two shuffles), a lane holds rays_a_lane<D>() rays so
+// one shared load serves several tests, the pair test is one straight line
+// with warp-uniform skips (pair_test_warp), a visit's tasks are drawn by
+// whichever warp is free, slots are released per warp through mbarriers,
+// two blocks share an SM, and the entry pass stages the chunk boxes in
+// shared memory.  What bounds it is the same pair-test arithmetic, on the
+// undecided rays only.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "chunk_ring.cuh"
+#include "occl_stream.cuh"
 
 namespace {
 
 using namespace ntr;
 
-template <int D, bool STREAM>
+template <int D>
 __global__ void __launch_bounds__(RB) occluded_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
@@ -52,7 +62,7 @@ __global__ void __launch_bounds__(RB) occluded_kernel(
     int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, int pr, int R,
     unsigned char* __restrict__ out_blocked, int* __restrict__ visits,
-    float* __restrict__ emin_all, int n_slots) {
+    float* __restrict__ emin_all) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -95,19 +105,114 @@ __global__ void __launch_bounds__(RB) occluded_kernel(
   };
 
   // 2. the walk
-  int nvis;
-  if constexpr (STREAM)
-    nvis = stream_walk<D, false>(gt, ci, ids, nullptr, pr, order, n_eff, emin,
-                                 n_slots, s_cand, lmax, test);
-  else
-    nvis = resident_walk<D, NCAND, false>(gt, ci, ids, nullptr, pr, order,
-                                          n_eff, emin, s_cand, lmax, test);
+  const int nvis = resident_walk<D, NCAND, false>(
+      gt, ci, ids, nullptr, pr, order, n_eff, emin, s_cand, lmax, test);
 
   out_blocked[r] = blocked ? 1 : 0;
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <bool STREAM>
+// Rays a lane (PERF.md section 6): two while a ray's rows fit 64
+// registers a thread beside the second's.
+template <int D>
+__host__ __device__ constexpr int rays_a_lane() {
+  return D <= 4 ? 2 : 1;
+}
+
+// Kernel 2.6: the streaming occlusion walk (occl_stream.cuh).
+template <int D>
+__global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_stream_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ ldist,
+    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
+    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
+    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
+    const int* __restrict__ ids, int pr, int R,
+    unsigned char* __restrict__ out_blocked, int* __restrict__ visits,
+    float* __restrict__ emin_all, int n_slots) {
+  constexpr int RPT = rays_a_lane<D>();
+  constexpr int PER_TASK = GW * RPT;
+  __shared__ int s_blk[RB];            // blocked flag of each ray
+  __shared__ int s_list[RB];           // the group's undecided rays
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x;
+  const int r = blk * RB + tid;
+  if (!blive[blk]) {                   // no ray of the block is active
+    out_blocked[r] = 0;
+    if (tid == 0) visits[blk] = 0;
+    return;
+  }
+
+  float o[D], dv[D], inv[D];
+  load_ray<D>(oT, dT, R, r, o, dv, inv);
+  const float ld = ldist[r];
+  float* emin = emin_all + (size_t)blk * n_eff;
+  s_blk[tid] = 0;
+  const int g = lane / SQ, q = lane % SQ;
+  const int r0 = blk * RB;
+
+  // one visit, one warp: tasks of PER_TASK listed rays, range q each,
+  // drawn from the visit's counter (any-hit: a ray's visits are
+  // order-free)
+  auto test = [&](const Chunk& ch, int n_live, int* next, int) {
+    const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
+    for (;;) {
+      int task = 0;
+      if (lane == 0) task = atomicAdd(next, 1);
+      task = __shfl_sync(0xffffffffu, task, 0);
+      if (task >= n_task) break;
+      float ro[RPT][D], rd[RPT][D], rl[RPT];
+      int rr[RPT], rsk[RPT];
+      bool live[RPT], hit[RPT];
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int li = task * PER_TASK + c * GW + g;
+        rr[c] = li < n_live ? s_list[li] : 0;
+        live[c] = li < n_live && !s_blk[rr[c]];
+        hit[c] = false;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          ro[c][k] = oT[(size_t)k * R + r0 + rr[c]];
+          rd[c][k] = dT[(size_t)k * R + r0 + rr[c]];
+        }
+        rl[c] = ldist[r0 + rr[c]];
+        rsk[c] = skip[r0 + rr[c]];
+      }
+      for (int j = 0; j < SR; ++j) {
+        bool want = false;
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) want = want || (live[c] && !hit[c]);
+        if (!__any_sync(0xffffffffu, want)) break;
+        const int l = SQ * j + q;      // any-hit: order-free
+        const int id = ch.id[l];
+        bool go[RPT];
+#pragma unroll
+        for (int c = 0; c < RPT; ++c)
+          go[c] = live[c] && !hit[c] && id != rsk[c];
+        pair_test_warp<D, RPT>(ch, l, ro, rd, rl, go);
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) hit[c] = hit[c] || go[c];
+      }
+      // a ray blocked in any of its four ranges is blocked
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        int h = hit[c];
+        h |= __shfl_xor_sync(0xffffffffu, h, 1);
+        h |= __shfl_xor_sync(0xffffffffu, h, 2);
+        if (q == 0 && live[c] && h) s_blk[rr[c]] = 1;
+      }
+    }
+  };
+
+  const int nvis = occl_stream_walk<D, false>(
+      o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, nullptr, pr, order, n_eff,
+      emin, n_slots, ld, s_blk, s_list, test, [] {});
+  __syncthreads();
+  out_blocked[r] = s_blk[tid] ? 1 : 0;
+  if (tid == 0) visits[blk] = nvis;
+}
+
 int launch_d(const float* oT, const float* dT, const int* skip,
              const float* ldist, const int* order, int n_eff,
              const int* blive, const float* klo_t, const float* khi_t,
@@ -117,14 +222,42 @@ int launch_d(const float* oT, const float* dT, const int* skip,
   const int grid = R / RB;
   if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    occluded_kernel<DD><<<grid, RB, 0, s>>>(                                 \
+        oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci, \
+        ids, pr, R, blocked, visits, emin);                                  \
+    break;
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
+  return (int)cudaGetLastError();
+}
+
+int launch_stream_d(const float* oT, const float* dT, const int* skip,
+                    const float* ldist, const int* order, int n_eff,
+                    const int* blive, const float* klo_t, const float* khi_t,
+                    int ncp, const float* gt, const float* ci, const int* ids,
+                    int pr, int R, int d, unsigned char* blocked, int* visits,
+                    float* emin, void* stream) {
+  const int grid = R / RB;
+  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   int n_slots = 0, smem = 0;
 #define NTR_CASE(DD)                                                         \
   case DD: {                                                                 \
-    auto kernel = occluded_kernel<DD, STREAM>;                               \
-    if (STREAM) {                                                            \
-      const cudaError_t err = ring_config<DD, false>(kernel, &n_slots, &smem);\
-      if (err != cudaSuccess) return (int)err;                               \
-    }                                                                        \
+    auto kernel = occluded_stream_kernel<DD>;                                \
+    const cudaError_t err =                                                  \
+        occl_ring_config<DD, false>(kernel, &n_slots, &smem);                \
+    if (err != cudaSuccess) return (int)err;                                 \
     kernel<<<grid, RB, smem, s>>>(oT, dT, skip, ldist, order, n_eff, blive,  \
                                   klo_t, khi_t, ncp, gt, ci, ids, pr, R,     \
                                   blocked, visits, emin, n_slots);           \
@@ -159,9 +292,8 @@ int ntr_occluded(const float* oT, const float* dT, const int* skip,
                  int ncp, const float* gt, const float* ci, const int* ids,
                  int pr, int R, int d, unsigned char* blocked, int* visits,
                  float* emin, void* stream) {
-  return launch_d<false>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, pr, R, d, blocked, visits,
-                         emin, stream);
+  return launch_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t,
+                  ncp, gt, ci, ids, pr, R, d, blocked, visits, emin, stream);
 }
 
 // The streaming walk (kernel 2.6): arguments and outputs as ntr_occluded;
@@ -173,9 +305,30 @@ int ntr_occluded_hbm(const float* oT, const float* dT, const int* skip,
                      const int* ids, int pr, int R, int d,
                      unsigned char* blocked, int* visits, float* emin,
                      void* stream) {
-  return launch_d<true>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                        khi_t, ncp, gt, ci, ids, pr, R, d, blocked, visits,
-                        emin, stream);
+  return launch_stream_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, pr, R, d, blocked, visits,
+                         emin, stream);
+}
+
+// Kernel 2.6 at dimension d as it launches: info[0..4] = registers a
+// thread, local (spill) bytes a thread, blocks per SM, ring slots, shared
+// bytes a block.
+int ntr_occluded_hbm_info(int d, int* info) {
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return (int)occl_kernel_info<DD, false>(occluded_stream_kernel<DD>,     \
+                                            info);
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // extern "C"

@@ -37,11 +37,26 @@
 // (pallas_call body `_occl_t_hbm_kernel` -> `_occl_t_hbm_live`) for pools
 // over the line: the same walk, `blocked`, `filt` and visits, bit for bit,
 // with each visited chunk (opacity row included) copied into a ring of
-// shared-memory slots while the previous group is tested (chunk_ring.cuh).
+// shared-memory slots while the previous group is tested.  Its body is
+// `occluded_t_stream_kernel`, on occl_stream.cuh's loop (compacted
+// undecided rays, four slot ranges a ray on neighbouring lanes, the
+// straight-line pair test, a visit's tasks drawn by whichever warp is free,
+// per-warp slot release, two blocks an SM; see there).  A visit's product
+// of a ray waits in shared memory until the group's boundary, where the
+// group's products join the ray's filter in walk order.  Range q of a ray
+// is the positions 32q .. 32q + 31 of the bit-reversed lane order: one
+// level-5 subtree T_q of the halving tree, whose root joins them as
+// (T_0 * T_1) * (T_2 * T_3) -- two shuffles.  Inside a range the lane keeps
+// the tree only over the factors other than 1: since 1 * y = y exactly,
+// the tree with its all-ones subtrees dropped has the same bits.  A short
+// stack in registers does it (`tree_push`): between consecutive non-1
+// factors at positions a < b the tree joins at level h = msb(a ^ b), so a
+// new factor first folds the stack's entries below h (left * right), then
+// waits at level h.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "chunk_ring.cuh"
+#include "occl_stream.cuh"
 
 namespace {
 
@@ -49,8 +64,54 @@ using namespace ntr;
 
 constexpr int LEVELS = 7;        // log2(CK): depth of the lane tree
 static_assert((1 << LEVELS) == CK, "the lane tree spans one chunk");
+constexpr int RLEVELS = 5;       // log2(SR): depth of a range's subtree
+static_assert((1 << RLEVELS) == SR, "a range is one subtree");
 
-template <int D, bool STREAM>
+// A range's halving tree over its non-1 factors, in position order: `st`
+// holds the left operands waiting at each level (bit g of `mask` set where
+// one waits), `cur` the rightmost open product, `prev` the last non-1
+// position (-1 before the first).
+struct RangeTree {
+  float st[RLEVELS];
+  float cur;
+  unsigned mask;
+  int prev;
+};
+
+__device__ __forceinline__ void tree_init(RangeTree& tr) {
+  tr.mask = 0u;
+  tr.prev = -1;
+  tr.cur = 1.f;
+#pragma unroll
+  for (int g = 0; g < RLEVELS; ++g) tr.st[g] = 1.f;
+}
+
+// Factor x at position j (ascending, 0..SR-1).
+__device__ __forceinline__ void tree_push(RangeTree& tr, int j, float x) {
+  if (tr.prev >= 0) {
+    const int h = 31 - __clz(tr.prev ^ j);
+#pragma unroll
+    for (int g = 0; g < RLEVELS; ++g)
+      if (g < h && ((tr.mask >> g) & 1u)) tr.cur = tr.st[g] * tr.cur;
+#pragma unroll
+    for (int g = 0; g < RLEVELS; ++g)
+      if (g == h) tr.st[g] = tr.cur;
+    tr.mask = (tr.mask & ~((1u << h) - 1u)) | (1u << h);
+  }
+  tr.cur = x;
+  tr.prev = j;
+}
+
+// The range's product (1 without a non-1 factor).
+__device__ __forceinline__ float tree_close(const RangeTree& tr) {
+  float p = tr.cur;
+#pragma unroll
+  for (int g = 0; g < RLEVELS; ++g)
+    if ((tr.mask >> g) & 1u) p = tr.st[g] * p;
+  return p;
+}
+
+template <int D>
 __global__ void __launch_bounds__(RB) occluded_t_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
@@ -59,7 +120,7 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
     int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
     unsigned char* __restrict__ out_blocked, float* __restrict__ out_filt,
-    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
+    int* __restrict__ visits, float* __restrict__ emin_all) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -127,20 +188,148 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
   };
 
   // 2. the walk
-  int nvis;
-  if constexpr (STREAM)
-    nvis = stream_walk<D, true>(gt, ci, ids, opa, pr, order, n_eff, emin,
-                                n_slots, s_cand, lmax, test);
-  else
-    nvis = resident_walk<D, NCAND, true>(gt, ci, ids, opa, pr, order, n_eff,
-                                         emin, s_cand, lmax, test);
+  const int nvis = resident_walk<D, NCAND, true>(
+      gt, ci, ids, opa, pr, order, n_eff, emin, s_cand, lmax, test);
 
   out_blocked[r] = blocked ? 1 : 0;
   out_filt[r] = blocked ? 1.f : filt;
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <bool STREAM>
+// One ray a lane (PERF.md section 6): the range tree takes the
+// second ray's registers.
+// Kernel 2.8: the streaming filtered occlusion walk (occl_stream.cuh).
+template <int D>
+__global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_t_stream_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ ldist,
+    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
+    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
+    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
+    const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
+    unsigned char* __restrict__ out_blocked, float* __restrict__ out_filt,
+    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
+  constexpr int RPT = 1;
+  constexpr int PER_TASK = GW * RPT;
+  __shared__ int s_blk[RB];            // blocked flag of each ray
+  __shared__ float s_filt[RB];         // light let through so far
+  __shared__ float s_prod[NCAND][RB];  // each visit's product this group
+  __shared__ int s_list[RB];           // the group's undecided rays
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x;
+  const int r = blk * RB + tid;
+  if (!blive[blk]) {                   // no ray of the block is active
+    out_blocked[r] = 0;
+    out_filt[r] = 1.f;
+    if (tid == 0) visits[blk] = 0;
+    return;
+  }
+
+  float o[D], dv[D], inv[D];
+  load_ray<D>(oT, dT, R, r, o, dv, inv);
+  const float ld = ldist[r];
+  float* emin = emin_all + (size_t)blk * n_eff;
+  s_blk[tid] = 0;
+  s_filt[tid] = 1.f;
+  for (int v = 0; v < NCAND; ++v) s_prod[v][tid] = 1.f;
+  const int g = lane / SQ, q = lane % SQ;
+  const int r0 = blk * RB;
+
+  // one visit, one warp: tasks of PER_TASK listed rays, range q each,
+  // drawn from the visit's counter; the visit's product of a ray goes to
+  // s_prod[vis] and joins its filter at the group's boundary (fold), in
+  // walk order
+  auto test = [&](const Chunk& ch, int n_live, int* next, int vis) {
+    const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
+    for (;;) {
+      int task = 0;
+      if (lane == 0) task = atomicAdd(next, 1);
+      task = __shfl_sync(0xffffffffu, task, 0);
+      if (task >= n_task) break;
+      float ro[RPT][D], rd[RPT][D], rl[RPT];
+      int rr[RPT], rsk[RPT];
+      bool live[RPT], hit[RPT];
+      RangeTree tr[RPT];
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int li = task * PER_TASK + c * GW + g;
+        rr[c] = li < n_live ? s_list[li] : 0;
+        live[c] = li < n_live && !s_blk[rr[c]];
+        hit[c] = false;
+        tree_init(tr[c]);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          ro[c][k] = oT[(size_t)k * R + r0 + rr[c]];
+          rd[c][k] = dT[(size_t)k * R + r0 + rr[c]];
+        }
+        rl[c] = ldist[r0 + rr[c]];
+        rsk[c] = skip[r0 + rr[c]];
+      }
+      for (int j = 0; j < SR; ++j) {
+        bool want = false;
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) want = want || (live[c] && !hit[c]);
+        if (!__any_sync(0xffffffffu, want)) break;
+        const int l = range_lane(q, j);
+        const int id = ch.id[l];
+        bool go[RPT];
+#pragma unroll
+        for (int c = 0; c < RPT; ++c)
+          go[c] = live[c] && !hit[c] && id != rsk[c];
+        pair_test_warp<D, RPT>(ch, l, ro, rd, rl, go);
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          if (go[c]) {
+            const float op = ch.opa[l];
+            if (op >= 1.f)
+              hit[c] = true;           // an opaque slot blocks the ray
+            else
+              tree_push(tr[c], j, 1.f - op);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        // a ray blocked in any of its four ranges is blocked
+        int h = hit[c];
+        h |= __shfl_xor_sync(0xffffffffu, h, 1);
+        h |= __shfl_xor_sync(0xffffffffu, h, 2);
+        // the root of the visit's tree: (T_0 * T_1) * (T_2 * T_3)
+        const float t_q = tree_close(tr[c]);
+        const float pair = t_q * __shfl_xor_sync(0xffffffffu, t_q, 1);
+        const float prod = pair * __shfl_xor_sync(0xffffffffu, pair, 2);
+        if (q == 0 && live[c]) {
+          if (h)
+            s_blk[rr[c]] = 1;
+          else
+            s_prod[vis][rr[c]] = prod;
+        }
+      }
+    }
+  };
+
+  // the group's visit products into the ray's filter, in walk order (a
+  // visit that did not test the ray left 1: 1 * y = y)
+  auto fold = [&] {
+    float f = s_filt[tid];
+    for (int v = 0; v < NCAND; ++v) {
+      f = f * s_prod[v][tid];
+      s_prod[v][tid] = 1.f;
+    }
+    s_filt[tid] = f;
+  };
+  const int nvis = occl_stream_walk<D, true>(
+      o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, opa, pr, order, n_eff,
+      emin, n_slots, ld, s_blk, s_list, test, fold);
+  __syncthreads();
+  fold();
+  const bool blocked = s_blk[tid] != 0;
+  out_blocked[r] = blocked ? 1 : 0;
+  out_filt[r] = blocked ? 1.f : s_filt[tid];
+  if (tid == 0) visits[blk] = nvis;
+}
+
 int launch_d(const float* oT, const float* dT, const int* skip,
              const float* ldist, const int* order, int n_eff,
              const int* blive, const float* klo_t, const float* khi_t,
@@ -150,14 +339,43 @@ int launch_d(const float* oT, const float* dT, const int* skip,
   const int grid = R / RB;
   if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    occluded_t_kernel<DD><<<grid, RB, 0, s>>>(                               \
+        oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci, \
+        ids, opa, pr, R, blocked, filt, visits, emin);                       \
+    break;
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
+  return (int)cudaGetLastError();
+}
+
+int launch_stream_d(const float* oT, const float* dT, const int* skip,
+                    const float* ldist, const int* order, int n_eff,
+                    const int* blive, const float* klo_t, const float* khi_t,
+                    int ncp, const float* gt, const float* ci, const int* ids,
+                    const float* opa, int pr, int R, int d,
+                    unsigned char* blocked, float* filt, int* visits,
+                    float* emin, void* stream) {
+  const int grid = R / RB;
+  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   int n_slots = 0, smem = 0;
 #define NTR_CASE(DD)                                                         \
   case DD: {                                                                 \
-    auto kernel = occluded_t_kernel<DD, STREAM>;                             \
-    if (STREAM) {                                                            \
-      const cudaError_t err = ring_config<DD, true>(kernel, &n_slots, &smem); \
-      if (err != cudaSuccess) return (int)err;                               \
-    }                                                                        \
+    auto kernel = occluded_t_stream_kernel<DD>;                              \
+    const cudaError_t err =                                                  \
+        occl_ring_config<DD, true>(kernel, &n_slots, &smem);                 \
+    if (err != cudaSuccess) return (int)err;                                 \
     kernel<<<grid, RB, smem, s>>>(oT, dT, skip, ldist, order, n_eff, blive,  \
                                   klo_t, khi_t, ncp, gt, ci, ids, opa, pr,   \
                                   R, blocked, filt, visits, emin, n_slots);  \
@@ -191,23 +409,43 @@ int ntr_occluded_t(const float* oT, const float* dT, const int* skip,
                    const float* opa, int pr, int R, int d,
                    unsigned char* blocked, float* filt, int* visits,
                    float* emin, void* stream) {
-  return launch_d<false>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked, filt,
-                         visits, emin, stream);
+  return launch_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t,
+                  ncp, gt, ci, ids, opa, pr, R, d, blocked, filt, visits,
+                  emin, stream);
 }
 
-// The streaming walk (kernel 2.8): arguments and outputs as ntr_occluded_t;
-// gt, ci, ids and opa must be 16-byte aligned.
+// The streaming walk (kernel 2.8): arguments and outputs as
+// ntr_occluded_t; gt, ci, ids and opa must be 16-byte aligned.
 int ntr_occluded_t_hbm(const float* oT, const float* dT, const int* skip,
                        const float* ldist, const int* order, int n_eff,
                        const int* blive, const float* klo_t,
                        const float* khi_t, int ncp, const float* gt,
                        const float* ci, const int* ids, const float* opa,
                        int pr, int R, int d, unsigned char* blocked,
-                       float* filt, int* visits, float* emin, void* stream) {
-  return launch_d<true>(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                        khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked, filt,
-                        visits, emin, stream);
+                       float* filt, int* visits, float* emin,
+                       void* stream) {
+  return launch_stream_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked,
+                         filt, visits, emin, stream);
+}
+
+// Kernel 2.8 at dimension d as it launches: info as ntr_occluded_hbm_info.
+int ntr_occluded_t_hbm_info(int d, int* info) {
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return (int)occl_kernel_info<DD, true>(occluded_t_stream_kernel<DD>,    \
+                                           info);
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // extern "C"

@@ -1040,3 +1040,22 @@ def occluded_transparent_hbm(res, oT, dT, ldist, skip, d, order=None):
 
 
 occluded_transparent_hbm.launches = 0
+
+
+STREAM_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
+               "shared_bytes")
+
+
+def occlusion_stream_info(d, filtered=False):
+    """Kernel 2.6 (``filtered``: 2.8) at dimension ``d`` as it launches on
+    the current card: registers and local (spill) bytes a thread, blocks
+    per SM, ring slots and shared bytes a block (``STREAM_INFO``)."""
+    from . import _build
+    lib = _build.load()
+    info = torch.zeros((len(STREAM_INFO),), dtype=torch.int32)
+    fn = lib.ntr_occluded_t_hbm_info if filtered else lib.ntr_occluded_hbm_info
+    err = fn(d, info.data_ptr())
+    if err:
+        raise RuntimeError(f"kernel query failed: {_build.error_string(err)} "
+                           f"({err})")
+    return dict(zip(STREAM_INFO, info.tolist()))

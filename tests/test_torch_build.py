@@ -28,7 +28,7 @@ def test_sources_and_build_dir():
         "grid_walk.cu", "nearest_hit.cu", "nearest_hit_transparent.cu",
         "occluded.cu", "occluded_transparent.cu"]
     assert [os.path.basename(s) for s in _build.headers()] == [
-        "chunk_ring.cuh", "pair_test.cuh"]
+        "chunk_ring.cuh", "occl_stream.cuh", "pair_test.cuh"]
     pkg = os.path.dirname(os.path.dirname(_build.__file__))
     assert all(os.path.dirname(s) == os.path.join(pkg, "csrc")
                for s in srcs + _build.headers())
@@ -45,7 +45,8 @@ def test_sources_and_build_dir():
 @pytest.mark.parametrize("name", ["nearest_hit.cu", "occluded.cu",
                                   "nearest_hit_transparent.cu",
                                   "occluded_transparent.cu", "pair_test.cuh",
-                                  "chunk_ring.cuh", "grid_walk.cu"])
+                                  "chunk_ring.cuh", "occl_stream.cuh",
+                                  "grid_walk.cu"])
 def test_library_name_follows_every_build_input(name, tmp_path, monkeypatch):
     """An edit to any source or header the build reads changes the
     library's name, so a stale library is never loaded."""
@@ -99,11 +100,14 @@ def test_transparent_ctypes_signatures_match_the_c_entry_points(
     ("ntr_nearest_hit_hbm", "_NEAREST_ARGS", "nearest_hit.cu"),
     ("ntr_occluded_hbm", "_OCCLUDED_ARGS", "occluded.cu"),
     ("ntr_nearest_t_hbm", "_NEAREST_T_ARGS", "nearest_hit_transparent.cu"),
-    ("ntr_occluded_t_hbm", "_OCCLUDED_T_ARGS", "occluded_transparent.cu")])
+    ("ntr_occluded_t_hbm", "_OCCLUDED_T_ARGS", "occluded_transparent.cu"),
+    ("ntr_occluded_hbm_info", "_INFO_ARGS", "occluded.cu"),
+    ("ntr_occluded_t_hbm_info", "_INFO_ARGS", "occluded_transparent.cu")])
 def test_streaming_ctypes_signatures_match_the_c_entry_points(
         fn, argtypes, source):
     """The streaming walks (kernels 2.5-2.8) take their resident sibling's
-    arguments, and load() binds them so."""
+    arguments, the launch queries of 2.6 and 2.8 a d and five ints, and
+    load() binds them so."""
     _check_signature(fn, getattr(_build, argtypes), source)
     src = open(_build.__file__).read()
     assert f'("{fn}", {argtypes})' in src

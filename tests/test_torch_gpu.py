@@ -17,7 +17,8 @@ from ntracer_tpu_torch.engine import resident_kernels as prk
 
 from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
                             lit_scene, lit_scene_3d, glass_scene, rgb8,
-                            mirror_scene_1500, api, orthoplex_scene, _smoke)
+                            mirror_scene_1500, api, orthoplex_scene, _smoke,
+                            two_lights)
 
 pytestmark = pytest.mark.gpu
 W = H = 64
@@ -444,6 +445,361 @@ def test_card_frame_over_the_line_takes_the_streaming_kernels(cuda, make,
     assert all(moved[n] > 0 for n in walks), moved
     ref = pwf.frame_colors(scene, W, H, "cpu")
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+
+
+def _stack_scene(d, n=300, layers=256, seed=13):
+    """``n`` random d-D simplices placed as ``_glass_high_d`` places them,
+    glass and opaque by turns, and beside them a stack of ``layers`` glass
+    simplices across axis 2 (each in the plane x_2 = z, spanning
+    ``STACK_SIDE`` along the other axes from ``STACK_BASE``), of opacities
+    0.01-0.1.  The layers are wide for the scene, so
+    ``centroid_bins`` packs them 128 a chunk, and a ray along axis 2
+    through the stack crosses every layer: such a chunk's visit has 128
+    factors below 1."""
+    a = api()
+    nt = a.NTracer(d)
+    solid = a.Material((0.3, 0.8, 0.5))
+    glass = a.Material((1, 0.7, 0.7), opacity=0.4)
+    rng = np.random.RandomState(seed)
+    protos = []
+    for i in range(n):
+        base = rng.uniform(-2, 2, d)
+        base[3:] = 0
+        pts = [nt.Vector(*(base + rng.uniform(-0.7, 0.7, d)))
+               for _ in range(d)]
+        protos.append(nt.TrianglePrototype(pts, glass if i % 2 else solid))
+    for k in range(layers):
+        base = np.full(d, STACK_BASE, np.float64)
+        base[2] = 0.01 * k
+        pts = [base.copy()]
+        for ax in [0, 1] + list(range(3, d)):
+            v = base.copy()
+            v[ax] += STACK_SIDE
+            pts.append(v)
+        mat = a.Material((0.9, 0.9, 1.0), opacity=float(rng.uniform(0.01,
+                                                                     0.1)))
+        protos.append(nt.TrianglePrototype([nt.Vector(*p) for p in pts],
+                                           mat))
+    scene = nt.build_composite_scene(protos)
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(cam)
+    return two_lights(scene, nt)
+
+
+STACK_BASE, STACK_SIDE = 4.0, 8.0
+
+
+def _chunk_t(res, d, o, dv, chunk):
+    """t and validity (skip ids aside) of rays ``o``/``dv`` (d, n) against
+    the 128 slots of pool chunk ``chunk``: (n, 128) each, rounded as the
+    walks round."""
+    n = o.shape[1]
+    skip = torch.full((1, n, 1), -1, dtype=torch.int32, device=o.device)
+    t, valid = prk._chunk_hits_vals(
+        d, False, res["gt"][chunk][None], res["ci"][chunk][None],
+        res["ids"][chunk, 0][None], o[:, None, :, None], dv[:, None, :, None],
+        skip)
+    return t[0], valid[0]
+
+
+def _occlusion_cases(d, dev):
+    """One wavefront of seven 512-ray blocks over ``_stack_scene(d)`` (its
+    pool forced over the line by the caller) that holds the streaming
+    occlusion walks' corner cases, block by block:
+      0. one ray stays undecided to the end (an unblocked shadow ray among
+         511 that block at once);
+      1. every ray blocks in the block's first visited chunk (origins just
+         before an opaque triangle seen from the camera, distance past
+         it);
+      2. half the origins NaN (the bounce wavefront's misses), ldist kept;
+      3. ldist exactly the t of the triangle ahead (even rays: t < ldist
+         fails) or the next float (odd rays: it holds);
+      4. the triangle ahead is the ray's own skip id (even rays), or not;
+      5. rays along the glass stack, past its end;
+      6. one ray of ldist NaN (the bound is NaN: no chunk is visited).
+    Returns (res, (oT, dT, ldist, skip), facts) with facts the twin's view
+    of what each case is."""
+    scene = _stack_scene(d)
+    cfg, arrs, cam_o, oT, dT = _primary(scene, dev)
+    assert "res_is_hbm" in arrs and cfg.has_transparency
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    res = pwf._res_dict(arrs)
+    n_all = oT.shape[1]
+    skip_all = torch.full((n_all,), -1, dtype=torch.int32, device=dev)
+    kw = dict(order=pctx["order"], sh=pctx["sh_res"])
+    t, slot, tt, ts, _v = prk.nearest_hit_transparent_hbm_ref(
+        res, oT, dT, skip_all, d, 8, **kw)
+    all_t = torch.cat([torch.where(slot >= 0, t, float("inf"))[None], tt])
+    k = all_t.argmin(dim=0, keepdim=True)
+    first = torch.gather(all_t, 0, k)[0]
+    fslot = torch.gather(torch.cat([slot[None], ts]), 0, k)[0]
+    found = torch.isfinite(first)
+    ids = res["ids"][:, 0].reshape(-1)
+    pid = torch.where(found, ids[fslot.clamp(min=0).long()], -1) \
+        .to(torch.int32)
+    point = oT + torch.where(found, first, 0.0)[None, :] * dT
+    gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous()
+    exit_t = prk._scene_exit_T(point, gl, res["b_lo"], res["b_hi"])
+    sl = torch.where(found, exit_t, 0.0)
+    sb, _sf, _sv = prk.occluded_transparent_hbm_ref(res, point, gl, sl, pid,
+                                                    d)
+    free = torch.nonzero(found & ~sb & (sl > 0)).flatten()
+    assert free.numel()
+    # origins 1e-2 .. 2e-2 before an opaque triangle seen from the camera,
+    # the first chunk its block visits holding it
+    opa = res["opa"][:, 0].reshape(-1)
+    eps = 1e-2 * (1 + torch.arange(512, device=dev) / 512.0)
+    near = None
+    tried = set()
+    for r in torch.nonzero(found & (opa[fslot.clamp(min=0).long()] >= 1)) \
+            .flatten().tolist():
+        chunk, lane = divmod(int(fslot[r]), prk.CK)
+        if (chunk, lane) in tried:
+            continue
+        tried.add((chunk, lane))
+        o = point[:, r:r + 1] - eps[None, :] * dT[:, r:r + 1]
+        dv = dT[:, r:r + 1].expand(-1, 512).contiguous()
+        ld = 2 * eps
+        w = prk._occlusion_inputs(res, o, dv, ld, skip_all[:512], d, None)
+        emin = prk._entry_minima(w, o.reshape(d, 1, 512, 1),
+                                 dv.reshape(d, 1, 512, 1))[0]
+        cands = torch.nonzero(emin < ld.max()).flatten()
+        tc, vc = _chunk_t(res, d, o, dv, chunk)
+        if cands.numel() and int(w["order"][cands[0]]) == chunk and \
+                bool((vc[:, lane] & (tc[:, lane] < ld)).all()):
+            near = (o, dv, tc[:, lane], ids[chunk * prk.CK + lane])
+            break
+    assert near is not None, "no opaque triangle heads a block's visits"
+    o1, dv1, t_ahead, id_ahead = near
+    none = skip_all[:512]
+    blocks = []
+    # 0. one undecided ray among 511 that block at once
+    blocks.append((torch.cat([point[:, free[:1]], o1[:, 1:]], dim=1),
+                   torch.cat([gl[:, free[:1]], dv1[:, 1:]], dim=1),
+                   torch.cat([sl[free[:1]], 2 * eps[1:]]),
+                   torch.cat([pid[free[:1]], none[1:]])))
+    # 1. every ray blocks in the block's first visited chunk
+    blocks.append((o1, dv1, 2 * eps, none))
+    # 2. NaN origins (every other ray)
+    nan_o = o1.clone()
+    nan_o[:, ::2] = float("nan")
+    blocks.append((nan_o, dv1, 2 * eps, none))
+    # 3. ldist = t of the triangle ahead, or the next float
+    ld_t = torch.where(torch.arange(512, device=dev) % 2 == 0, t_ahead,
+                       torch.nextafter(t_ahead, torch.tensor(
+                           float("inf"), device=dev)))
+    blocks.append((o1, dv1, ld_t, none))
+    # 4. the triangle ahead is the ray's own skip id (even rays)
+    own = torch.where(torch.arange(512, device=dev) % 2 == 0, id_ahead,
+                      -1).to(torch.int32)
+    blocks.append((o1, dv1, 2 * eps, own))
+    # 5. along the stack (axis 2), from before it to past its end
+    g = np.random.RandomState(d)
+    o5 = np.full((d, 512), STACK_BASE, np.float32)
+    for ax in [0, 1] + list(range(3, d)):
+        o5[ax] += g.uniform(0.1, 0.8 * STACK_SIDE / (d - 1), 512) \
+            .astype(np.float32)
+    o5[2] = -1.0
+    dv5 = np.zeros((d, 512), np.float32)
+    dv5[2] = 1.0
+    blocks.append((torch.as_tensor(o5, device=dev),
+                   torch.as_tensor(dv5, device=dev),
+                   torch.full((512,), 10.0, device=dev), none))
+    # 6. one ray of NaN ldist
+    nan_ld = 2 * eps
+    nan_ld[7] = float("nan")
+    blocks.append((o1, dv1, nan_ld, none))
+    oT_c, dT_c, ld_c, sk_c = (torch.cat(x, dim=-1).contiguous()
+                              for x in zip(*blocks))
+    # the twin's view of each case
+    b, f, v = prk.occluded_transparent_hbm_ref(res, oT_c, dT_c, ld_c, sk_c,
+                                               d)
+    b = b.reshape(7, 512)
+    facts = dict(
+        one_undecided=not bool(b[0, 0]) and bool(b[0, 1:].all()),
+        first_visit=bool(b[1].all()),
+        nan_block_walked=int(v[2]) > 0,
+        nan_bound_visits=int(v[6]),
+        at_t_unblocked=int((~b[3, ::2]).sum()),
+        at_next_blocked=int(b[3, 1::2].sum()),
+        own_skip_unblocked=int((~b[4, ::2]).sum()),
+        other_blocked=int(b[4, 1::2].sum()))
+    # a chunk of the stack whose 128 slots all filter some ray of block 5
+    full = 0
+    o5t, dv5t = oT_c[:, 2560:2561], dT_c[:, 2560:2561]
+    for c in range(res["gt"].shape[0]):
+        tc, vc = _chunk_t(res, d, o5t, dv5t, c)
+        ok = vc[0] & (tc[0] < 10.0) & (res["opa"][c, 0] < 1)
+        full += int(ok.all())
+    facts["glass_only_chunks"] = full
+    facts["stack_filt"] = float(f[2560])
+    return res, (oT_c, dT_c, ld_c, sk_c), facts
+
+
+@pytest.mark.parametrize("d", [3, 6, 8])
+def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
+    """The redesigned kernels 2.6 and 2.8 on the corner cases of
+    ``_occlusion_cases`` (a pool over the line at d = 3, 6 and 8: the ring
+    holds 8, then fewer slots): each equals its twin bit for bit (blocked,
+    filt, visits) and the resident kernel 2.2 / 2.4 on the same inputs."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, (oT, dT, ld, sk), facts = _occlusion_cases(d, cuda)
+    print(f"d = {d}: {facts}")
+    assert facts["one_undecided"] and facts["first_visit"]
+    assert facts["nan_block_walked"] and facts["nan_bound_visits"] == 0
+    assert facts["at_t_unblocked"] and facts["at_next_blocked"]
+    assert facts["own_skip_unblocked"] and facts["other_blocked"]
+    assert facts["glass_only_chunks"] >= 1 and facts["stack_filt"] < 1
+    args = (res, oT, dT, ld, sk, d)
+    for hbm, ref, resident in (
+            (prk.occluded_hbm, prk.occluded_hbm_ref, prk.occluded),
+            (prk.occluded_transparent_hbm, prk.occluded_transparent_hbm_ref,
+             prk.occluded_transparent)):
+        before = hbm.launches
+        got = hbm(*args)
+        assert hbm.launches == before + 1
+        torch.cuda.synchronize()
+        _equal(got, ref(*args))
+        _equal(got, resident(*args))
+
+
+# pair_test_warp (occl_stream.cuh, kernels 2.6 and 2.8) and pair_test
+# (pair_test.cuh, the other walks) side by side: every ray x slot of a chunk
+# from global memory, a lane's slot rotated by its lane, some pairs not
+# wanted on the way in (as a decided ray or the skip id leaves them)
+_PAIR_PROBE = r"""
+#include "occl_stream.cuh"
+
+namespace {
+using namespace ntr;
+
+template <int D, int RPT>
+__global__ void pair_probe(const float* gt, const float* ci, const int* ids,
+                           const float* oT, const float* dT, const float* ld,
+                           int R, unsigned char* got, unsigned char* want) {
+  const int base = (blockIdx.x * blockDim.x + threadIdx.x) * RPT;
+  const int lane = threadIdx.x & 31;
+  float o[RPT][D], dv[RPT][D], rl[RPT];
+  for (int c = 0; c < RPT; ++c) {
+    const int r = base + c < R ? base + c : R - 1;
+    for (int k = 0; k < D; ++k) {
+      o[c][k] = oT[(size_t)k * R + r];
+      dv[c][k] = dT[(size_t)k * R + r];
+    }
+    rl[c] = ld[r];
+  }
+  const Chunk ch{gt, ci, ids, nullptr};
+  for (int j = 0; j < CK; ++j) {
+    const int l = (j + lane) % CK;
+    bool go[RPT], in[RPT];
+    for (int c = 0; c < RPT; ++c)
+      go[c] = in[c] = base + c < R && (base + c + l) % 5 != 0;
+    pair_test_warp<D, RPT>(ch, l, o, dv, rl, go);
+    for (int c = 0; c < RPT; ++c) {
+      if (base + c >= R) continue;
+      float t;
+      const bool v = pair_test<D, false>(gt, ci, l, o[c], dv[c], t);
+      got[(size_t)(base + c) * CK + l] = go[c];
+      want[(size_t)(base + c) * CK + l] = in[c] && v && t < rl[c];
+    }
+  }
+}
+
+template <int D, int RPT>
+int launch(const float* gt, const float* ci, const int* ids, const float* oT,
+           const float* dT, const float* ld, int R, unsigned char* got,
+           unsigned char* want) {
+  const int per = 128 * RPT;
+  pair_probe<D, RPT><<<(R + per - 1) / per, 128>>>(gt, ci, ids, oT, dT, ld,
+                                                    R, got, want);
+  return (int)cudaDeviceSynchronize();
+}
+}  // namespace
+
+extern "C" int ntr_pair_probe(int d, int rpt, const float* gt,
+                              const float* ci, const int* ids,
+                              const float* oT, const float* dT,
+                              const float* ld, int R, unsigned char* got,
+                              unsigned char* want) {
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return rpt == 2 ? launch<DD, 2>(gt, ci, ids, oT, dT, ld, R, got, want)  \
+                    : launch<DD, 1>(gt, ci, ids, oT, dT, ld, R, got, want);
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(6)
+    NTR_CASE(8)
+  }
+#undef NTR_CASE
+  return -1;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def pair_probe(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+    import subprocess
+    from ntracer_tpu_torch.engine import _build
+    out = tmp_path_factory.mktemp("pair_probe")
+    src, obj, lib = (str(out / n) for n in ("probe.cu", "probe.o",
+                                             "probe.so"))
+    with open(src, "w") as f:
+        f.write(_PAIR_PROBE)
+    nvcc = _build.find_nvcc()
+    compile_ = _build.nvcc_command(src, obj, nvcc)
+    subprocess.run(compile_[:1] + ["-I", _build.CSRC_DIR] + compile_[1:],
+                   check=True, capture_output=True)
+    subprocess.run(_build.link_command([obj], lib, nvcc), check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib).ntr_pair_probe
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + \
+        [ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("d", [3, 6, 8])
+def test_pair_test_warp_equals_pair_test(cuda, pair_probe, d, monkeypatch):
+    """The redesigned walks' pair test (pre-test before the division, edges
+    only while a lane can pass, sums from the first product) decides every
+    pair as pair_test && t < ldist does, for one and two rays a lane, on
+    every chunk of ``_occlusion_cases(d)`` (NaN origins, ldist equal to a
+    hit's t, glass stacks) with its shadow rays."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, rays, _facts = _occlusion_cases(d, cuda)
+    oT, dT, ld = (x.contiguous() for x in rays[:3])
+    R = oT.shape[1]
+    gt, ci, ids = (res[k].contiguous() for k in ("gt", "ci", "ids"))
+    assert gt.shape[1] >= d * d
+    hits = 0
+    for rpt in (1, 2):
+        for k in range(gt.shape[0]):
+            got = torch.zeros((R, prk.CK), dtype=torch.uint8, device=cuda)
+            want = torch.ones_like(got)
+            err = pair_probe(d, rpt, gt[k].data_ptr(), ci[k].data_ptr(),
+                             ids[k].data_ptr(), oT.data_ptr(),
+                             dT.data_ptr(), ld.data_ptr(), R,
+                             got.data_ptr(), want.data_ptr())
+            assert err == 0
+            assert torch.equal(got, want), (rpt, k, int((got != want).sum()))
+            hits += int(got.sum())
+    assert hits > 0
+
+
+def test_streaming_occlusion_kernels_two_blocks_an_sm(cuda):
+    """The redesigned kernels fit two 512-thread blocks on an SM at every
+    d (64 registers a thread at most), with a ring of at least two
+    slots."""
+    for filtered in (False, True):
+        for d in range(3, 9):
+            info = prk.occlusion_stream_info(d, filtered)
+            print(f"{'2.8' if filtered else '2.6'} d = {d}: {info}")
+            assert info["blocks_per_sm"] >= 2 and info["registers"] <= 64
+            assert info["ring_slots"] >= 2
 
 
 def _random16():
