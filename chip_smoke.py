@@ -108,9 +108,9 @@ PEAK_BYTES = 3.35e12       # bytes/s
 # Instructions an IEEE division (div.rn.f32) executes on its fast path in the
 # card's SASS, counted by div_sass_ops() from the same nvcc flags.
 DIV_OPS = 10
-# The two streaming occlusion walks run the loop of occl_stream.cuh
-# (compacted rays, the straight-line pair test, dynamic tasks).
-REDESIGNED = "ntracer_tpu_torch/csrc/occl_stream.cuh"
+# The four streaming walks run the loop of stream_walk.cuh (compacted rays,
+# the straight-line pair test, per-warp slot release).
+REDESIGNED = "ntracer_tpu_torch/csrc/stream_walk.cuh"
 DIV_PROBE = r"""
 extern "C" __global__ void ntr_div_probe(float* a, const float* b) {
   a[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
@@ -1363,6 +1363,13 @@ def main():
               f"share an SM")
 
     t0 = phase("nearest_hit_hbm kernel vs twin")
+    # the redesigned streaming walks as they launch at each d (primary
+    # rays' shared variant): registers, spills, blocks an SM, ring slots
+    stream_info = {}
+    for kname in STREAMING:
+        for d_ in range(3, 9):
+            stream_info[kname, d_] = rk.stream_info(kname, d_, shared=True)
+            print(f"   {kname} at d = {d_}: {stream_info[kname, d_]}")
     _f, _o, _t, moT, mdT, mpctx, mskip, mhit = primary(mesh, mcfg, marrs)
     mres = wf._res_dict(marrs)
     mbytes = pool_bytes(marrs)
@@ -1389,8 +1396,12 @@ def main():
                      visits_vs_2_1=int((kv != rv).sum()))
         err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
                     .max())
-        ms = time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)
+        # in turns: 2.1, 2.5, 2.5, 2.1
         res_ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 3)
+        ms = time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)
+        ms = (ms + time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)) / 2
+        res_ms = (res_ms + time_cuda(lambda: rk.nearest_hit(*args, **kw),
+                                     3)) / 2
         read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
         need = read & (rk._scene_exit_T(o_, d_, mres["b_lo"],
                                         mres["b_hi"]) > 0)
@@ -1400,30 +1411,49 @@ def main():
             int("active" in kw), R * 8 + kv.numel() * 4)
         near_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                              bound_by=bound_by, err=err, resident_ms=res_ms,
+                             ratio_to_2_1=ms / res_ms,
                              live_blocks=int((kv > 0).sum()))
         print(f"   {label}: {R} rays, {int(need.sum())} to test, "
               f"{int((ks >= 0).sum())} hits, {int((kv > 0).sum())} live "
               f"blocks, visits/block {float(kv.float().mean()):.4f}; diffs "
               f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.5 {ms:.4f} ms, "
-              f"kernel 2.1 on the same inputs {res_ms:.4f} ms, twin "
-              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"kernel 2.1 on the same inputs {res_ms:.4f} ms, ratio 2.5/2.1 "
+              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound reached; "
               f"{stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"nearest_hit_hbm != twin or kernel 2.1: "
                              f"{label}")
+    # the all-chunks entry pass alone: every block live, every origin far
+    # outside the pool's box and a start distance (init_t) no chunk is
+    # within, so no block visits a chunk (the wrapper would start each ray
+    # at its scene exit, and the mesh's chunk boxes fill the scene's box)
+    far = torch.full((3, R), 10.0, device=dev)
+    out = torch.full((3, R), 3 ** -0.5, device=dev)
+    none = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    pw = rk._walk_inputs(mres, far, out, none, 3, None, None, None)
+    pw["init_t"] = torch.full((R,), 1e-30, device=dev)
+    pw["blive"] = torch.ones_like(pw["blive"])
+
+    def entry_probe():
+        err, got = rk._nearest_kernel("ntr_nearest_hit_hbm", pw, far.device)
+        if err:
+            raise SystemExit(f"the 2.5 entry-pass probe failed: {err}")
+        return got
+
+    kt, ks, kv = entry_probe()
+    if bool(kv.any()) or bool((ks >= 0).any()):
+        raise SystemExit("the 2.5 entry-pass probe visited a chunk")
+    entry_n_ms = time_cuda(entry_probe, 5)
+    print(f"   2.5 entry pass alone ({R // 512} live blocks x {n_chunks} "
+          f"chunks): {entry_n_ms:.4f} ms, "
+          f"{entry_n_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
     done(t0)
 
-    # the redesigned streaming occlusion walks (kernels 2.6 and 2.8) as
-    # they launch at each d: registers, spills, blocks an SM, ring slots
     t0 = phase("occluded_hbm kernel vs twin")
-    occl_info = {}
-    for kname, filtered in (("occluded_hbm", False),
-                            ("occluded_transparent_hbm", True)):
-        for d_ in range(3, 9):
-            occl_info[kname, d_] = rk.occlusion_stream_info(d_, filtered)
-            print(f"   {kname} at d = {d_}: {occl_info[kname, d_]}")
-        if occl_info[kname, 3]["blocks_per_sm"] < 2:
+    for kname in STREAMING:
+        if stream_info[kname, 3]["blocks_per_sm"] < 2:
             raise SystemExit(f"{kname}: fewer than two blocks an SM at d = 3")
     hcases = {
         "mesh point light": shadow_rays(marrs, mhit,
@@ -1492,8 +1522,9 @@ def main():
           f"(wrapper included); the entry pass alone ({R // 512} live "
           f"blocks x {n_chunks} chunks): {entry_ms:.4f} ms, "
           f"{entry_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
-    for label, c in list(near_h.items()) + list(occ_h.items()):
-        share = entry_ms * c["live_blocks"] / (R // 512) / c["ms"]
+    for label, c, e_ms in [(k, c, entry_n_ms) for k, c in near_h.items()] \
+            + [(k, c, entry_ms) for k, c in occ_h.items()]:
+        share = e_ms * c["live_blocks"] / (R // 512) / c["ms"]
         print(f"   {label}: entry pass of its {c['live_blocks']} live blocks "
               f"~{100 * share:.1f}% of the kernel's {c['ms']:.4f} ms")
     done(t0)
@@ -1532,10 +1563,12 @@ def main():
             torch.where(a.view(torch.int32) == b.view(torch.int32), 0.0,
                         torch.abs(a - b)), nan=float("inf")).max())
             for a, b in ((kt, pt), (ktt, ptt)))
-        ms = time_cuda(lambda: rk.nearest_hit_transparent_hbm(*args, **kw),
-                       3)
-        res_ms = time_cuda(lambda: rk.nearest_hit_transparent(*args, **kw),
-                           3)
+        # in turns: 2.3, 2.7, 2.7, 2.3
+        hbm = lambda: rk.nearest_hit_transparent_hbm(*args, **kw)
+        one = lambda: rk.nearest_hit_transparent(*args, **kw)
+        res_ms = time_cuda(one, 3)
+        ms = (time_cuda(hbm, 3) + time_cuda(hbm, 3)) / 2
+        res_ms = (res_ms + time_cuda(one, 3)) / 2
         read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
         need = read & (rk._scene_exit_T(o_, d_, gmres["b_lo"],
                                         gmres["b_hi"]) > 0)
@@ -1546,7 +1579,8 @@ def main():
         filled = kts >= 0
         near_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                               bound_by=bound_by, err=err, resident_ms=res_ms,
-                              replaced=replaced, slots_moved=moved)
+                              ratio_to_2_3=ms / res_ms, replaced=replaced,
+                              slots_moved=moved)
         print(f"   {label}: {R} rays, {int(need.sum())} to test, "
               f"{int((ks >= 0).sum())} opaque hits, {int(filled.sum())} "
               f"slots filled, {replaced} slots replaced, visits/block "
@@ -1554,8 +1588,9 @@ def main():
               f"{float(rv.float().mean()):.4f}); {moved} rays' slot "
               f"positions differ from kernel 2.3's; diffs "
               f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.7 {ms:.4f} ms, "
-              f"kernel 2.3 on the same inputs {res_ms:.4f} ms, twin "
-              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"kernel 2.3 on the same inputs {res_ms:.4f} ms, ratio 2.7/2.3 "
+              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound reached; "
               f"{stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
@@ -2215,22 +2250,26 @@ def main():
                      csrc + "occluded_transparent.cu", tpu + "1452",
                      "glass 120-cell", occ_t, "glass point light",
                      dead_ms=dead_t_ms),
-        # the streaming variants of the same sources (STREAM), with
-        # chunk_ring.cuh
+        # the streaming variants of the same sources (STREAM), on
+        # stream_walk.cuh's loop
         kernel_entry("nearest_hit_hbm", csrc + "nearest_hit.cu", tpu + "1754",
-                     "mesh", near_h, "mesh primary"),
+                     "mesh", near_h, "mesh primary", entry_ms=entry_n_ms,
+                     redesigned=REDESIGNED,
+                     launch=stream_info["nearest_hit_hbm", 3]),
         kernel_entry("occluded_hbm", csrc + "occluded.cu", tpu + "1963",
                      "mesh", occ_h, "mesh point light", dead_ms=dead_h_ms,
                      entry_ms=entry_ms, redesigned=REDESIGNED,
-                     launch=occl_info["occluded_hbm", 3]),
+                     launch=stream_info["occluded_hbm", 3]),
         kernel_entry("nearest_hit_transparent_hbm",
                      csrc + "nearest_hit_transparent.cu", tpu + "2174",
-                     "glass mesh", near_th, "glass mesh primary"),
+                     "glass mesh", near_th, "glass mesh primary",
+                     redesigned=REDESIGNED,
+                     launch=stream_info["nearest_hit_transparent_hbm", 3]),
         kernel_entry("occluded_transparent_hbm",
                      csrc + "occluded_transparent.cu", tpu + "2383",
                      "glass mesh", occ_th, "glass mesh point light",
                      dead_ms=dead_th_ms, redesigned=REDESIGNED,
-                     launch=occl_info["occluded_transparent_hbm", 3]),
+                     launch=stream_info["occluded_transparent_hbm", 3]),
     ]
     pallas = "ntracer_tpu/engine/pallas_kernels.py:"
     kernels += [

@@ -1,29 +1,17 @@
-// The streaming walk's loop, for pools too large to keep near the cores:
-// the Hopper counterpart of the TPU kernels' `_hbm_fetch`/`_hbm_wait`
-// (ntracer_tpu/engine/resident_kernels.py), shared by the STREAM variants
-// of the four walks (kernels 2.5-2.8).
+// The TMA and mbarrier primitives of the streaming walks (kernels 2.5-2.8,
+// the STREAM variants of the four walk sources), the Hopper counterpart of
+// the TPU kernels' `_hbm_fetch`/`_hbm_wait`
+// (ntracer_tpu/engine/resident_kernels.py).  The loop that drives them is
+// stream_walk.cuh's.
 //
 // A ring of chunk slots lives in dynamic shared memory.  Each piece of a
 // chunk is one contiguous, 16-byte aligned range in global memory --
 // gt[idx, :D*D, :], ci[idx, :D, :] (or the shared rows), ids[idx, 0, :]
 // and opa[idx, 0, :] -- so one elected thread fills a slot with one TMA
 // bulk copy per piece (cp.async.bulk ... mbarrier::complete_tx::bytes),
-// counted against one mbarrier per slot (arrive.expect_tx), and every
+// counted against the slot's "full" mbarrier (arrive.expect_tx), and every
 // thread waits on that barrier's phase (try_wait.parity) before it tests
-// the slot.  One step of the walk:
-//   1. warp 0 picks group g + 1 with the bound from before group g's tests
-//      (find_cands, as the resident walk does);
-//   2. the elected thread issues that group's copies into the free slots;
-//   3. every thread waits for the slot of group g's next chunk;
-//   4. the block tests it, and a block sync frees the slot for a refill.
-// Chunks are numbered in visit order; chunk q lands in slot q % S and is
-// the (q / S)-th fill of that slot, so its barrier phase has parity
-// (q / S) & 1.  A copy is issued only into a slot whose previous chunk was
-// tested and followed by a block sync.  With S = 8 slots (d <= 6) the whole
-// next group is in flight while the current one is tested; at d = 7 and 8
-// a slot is larger and S is 6 or 7, so the next group's first chunks are.
-// The visit set and every output are the resident walk's: they do not
-// depend on S or on when a copy lands.
+// the slot.
 
 #pragma once
 
@@ -51,6 +39,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar,
+                                                unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
 // Make the barriers' initialization visible to the async (TMA) proxy.
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -66,6 +62,12 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
       : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   unsigned done = 0;
   do {
@@ -77,6 +79,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy's (TMA) writes that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
@@ -113,102 +121,6 @@ __device__ __forceinline__ void ring_fill(
   if (OPA)
     bulk_copy(b + (D * D + D + 1) * CK, opa + (size_t)idx * CP * CK, CK * 4u,
               bar);
-}
-
-// The streaming walk's loop: the resident walk's visits (groups of NCAND
-// candidate positions, the next group picked with the bound from before
-// this group's tests), each chunk tested from its ring slot by
-// `test(idx, chunk)`, a block sync after each test.  `n_slots` (2..8)
-// slots of slot_floats<D, OPA>() floats each are the dynamic shared
-// memory.  Returns the number of visits.
-template <int D, bool OPA, class Bound, class Test>
-__device__ __forceinline__ int stream_walk(
-    const float* __restrict__ gt, const float* __restrict__ ci,
-    const int* __restrict__ ids, const float* __restrict__ opa, int pr,
-    const int* __restrict__ order, int n_eff, const float* __restrict__ emin,
-    int n_slots, int* s_cand, Bound bound, Test test) {
-  extern __shared__ __align__(128) float s_ring[];
-  __shared__ uint64_t s_bar[RING_MAX];
-  const int tid = threadIdx.x;
-  if (tid < n_slots) mbar_init(&s_bar[tid]);
-  mbar_fence_init();
-  __syncthreads();
-
-  int q_test = 0;    // chunks tested so far (visit order)
-  int q_issue = 0;   // chunks whose copies are issued
-  // issue the chunks of `list` (visit numbers base, base + 1, ...) that are
-  // not issued yet and whose slot is free
-  auto issue = [&](const int (&list)[NCAND], int base, int n_list) {
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) {
-      if (j < n_list && base + j == q_issue && q_issue < q_test + n_slots) {
-        if (tid == 0) {
-          const int s = q_issue % n_slots;
-          ring_fill<D, OPA>(s_ring, &s_bar[s], s, order[list[j]], gt, ci,
-                            ids, opa, pr);
-        }
-        ++q_issue;
-      }
-    }
-  };
-  auto count = [](const int (&list)[NCAND]) {
-    int n = 0;
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) n += list[j] != SENT;
-    return n;
-  };
-
-  int cur[NCAND], nxt[NCAND];
-  find_cands<NCAND>(0, bound(), n_eff, emin, s_cand, cur);
-  int n_cur = count(cur);
-  int base = 0;      // visit number of cur[0]
-  issue(cur, base, n_cur);
-  while (n_cur) {
-    // 1. the next group, with the bound from before this group's tests
-    const int kn = cur[NCAND - 1] == SENT ? n_eff : cur[NCAND - 1] + 1;
-    find_cands<NCAND>(kn, bound(), n_eff, emin, s_cand, nxt);
-    const int n_nxt = count(nxt);
-    for (int j = 0; j < n_cur; ++j) {
-      // 2. copies into the slots freed so far
-      issue(cur, base, n_cur);
-      issue(nxt, base + n_cur, n_nxt);
-      // 3. wait for this chunk's slot, 4. test it
-      const int s = q_test % n_slots;
-      mbar_wait(&s_bar[s], (unsigned)(q_test / n_slots) & 1u);
-      test(order[cur[j]], ring_chunk<D, OPA>(s_ring, s));
-      __syncthreads();               // slot s may be refilled after this
-      ++q_test;
-    }
-    base += n_cur;
-#pragma unroll
-    for (int j = 0; j < NCAND; ++j) cur[j] = nxt[j];
-    n_cur = n_nxt;
-  }
-  return base;
-}
-
-// Ring depth and dynamic shared memory of a streaming kernel: as many
-// slots as the card lets one block hold beside the kernel's static shared
-// memory, at most RING_MAX; sets the kernel's dynamic shared memory limit.
-template <int D, bool OPA, class Kernel>
-cudaError_t ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return err;
-  const int slot = slot_floats<D, OPA>() * 4;
-  int s = (optin - (int)fa.sharedSizeBytes) / slot;
-  if (s > RING_MAX) s = RING_MAX;
-  if (s < 2) return cudaErrorInvalidConfiguration;
-  *n_slots = s;
-  *smem_bytes = s * slot;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              *smem_bytes);
 }
 
 }  // namespace ntr

@@ -34,21 +34,40 @@
 // STREAM: kernel 2.5, which replaces `nearest_hit_hbm` (pallas_call body
 // `_nearest_hbm_kernel` -> `_nearest_hbm_live`) for pools over the line
 // (resident_kernels.STREAM_POOL_BYTES, 48 MiB: more than the H100's 50 MB L2
-// holds beside the rest).  The same walk, visits and outputs, bit for bit;
-// each visited chunk is copied into a ring of slots in shared memory by
-// TMA bulk copies while the previous group is tested (chunk_ring.cuh), not
-// staged by the block's own loads after the previous visit.
+// holds beside the rest).  The same walk, visits and outputs, bit for bit.
+// Its body is `nearest_stream_kernel`, on stream_walk.cuh's loop: each
+// visited chunk is copied into a ring of shared-memory slots by TMA bulk
+// copies, the rays whose nearest hit can still fall (best > 0) are
+// compacted at each group boundary, each ray's 128 slots are split into
+// four ranges of 32 on neighbouring lanes, a lane holds rays_a_lane<D>()
+// rays so one shared load serves several tests, the pair test is one
+// straight line with warp-uniform skips and a cut at the ray's best
+// (pair_test_warp), a visit's tasks are drawn by whichever warp is free,
+// slots are released per warp, two blocks share an SM and the entry pass
+// stages the chunk boxes in shared memory.  What keeps it exact:
+//   * the cut.  best only falls and the update is strict <, so a pair with
+//     t >= the ray's best at the group boundary never wins; a range also
+//     cuts at its own nearest hit so far (a later lane wins no tie);
+//   * the merge.  The sequential rule -- per visit the lowest lane of the
+//     chunk's minimum, taken when strictly below best -- ends at the
+//     lexicographic minimum of (t, visit, lane) over the group's pairs
+//     below the boundary's best.  The four ranges' minima of (t, lane) are
+//     merged by two shuffles, and each visit's is folded into one 64-bit
+//     key a ray (t's bits, then the visit, then the lane: t > 0, so its
+//     bits order as the floats) by a shared-memory atomicMin, whatever
+//     order the visits' tasks run in; the group boundary turns the key into
+//     best and the slot.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).  No a*b+c
 // is contracted, so every operation rounds as in the twin.
 
-#include "chunk_ring.cuh"
+#include "stream_walk.cuh"
 
 namespace {
 
 using namespace ntr;
 
-template <int D, bool SHARED, bool STREAM>
+template <int D, bool SHARED>
 __global__ void __launch_bounds__(RB) nearest_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ init_t,
@@ -57,7 +76,7 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
     int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, int pr, int R, float* __restrict__ out_t,
     int* __restrict__ out_slot, int* __restrict__ visits,
-    float* __restrict__ emin_all, int n_slots) {
+    float* __restrict__ emin_all) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -104,31 +123,161 @@ __global__ void __launch_bounds__(RB) nearest_kernel(
   };
 
   // 2. the walk
-  int nvis;
-  if constexpr (STREAM)
-    nvis = stream_walk<D, false>(gt, ci, ids, nullptr, pr, order, n_eff, emin,
-                                 n_slots, s_cand, bound, test);
-  else
-    nvis = resident_walk<D, NCAND, false>(gt, ci, ids, nullptr, pr, order,
-                                          n_eff, emin, s_cand, bound, test);
+  const int nvis = resident_walk<D, NCAND, false>(
+      gt, ci, ids, nullptr, pr, order, n_eff, emin, s_cand, bound, test);
 
   out_t[r] = best;
   out_slot[r] = best_id;
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <int D, bool SHARED, bool STREAM>
+constexpr unsigned long long NO_KEY = ~0ull;
+
+// Kernel 2.5: the streaming nearest-hit walk (stream_walk.cuh).
+template <int D, bool SHARED>
+__global__ void __launch_bounds__(RB, STREAM_BLOCKS) nearest_stream_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ init_t,
+    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
+    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
+    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
+    const int* __restrict__ ids, int pr, int R, float* __restrict__ out_t,
+    int* __restrict__ out_slot, int* __restrict__ visits,
+    float* __restrict__ emin_all, int n_slots) {
+  constexpr int RPT = rays_a_lane<D>();
+  constexpr int PER_TASK = GW * RPT;
+  __shared__ float s_best[RB];         // each ray's nearest hit so far
+  __shared__ int s_bid[RB];            // and its slot id
+  __shared__ unsigned long long s_key[RB];   // the group's best (t, visit,
+                                             // lane), NO_KEY if none
+  __shared__ int s_list[RB];           // the group's live rays
+  __shared__ int s_vidx[NCAND];        // pool chunk of each visit
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int blk = blockIdx.x;
+  const int r = blk * RB + tid;
+  const float it = init_t[r];
+  if (!blive[blk]) {                   // every ray of the block is dead
+    out_t[r] = it;
+    out_slot[r] = -1;
+    if (tid == 0) visits[blk] = 0;
+    return;
+  }
+
+  float o[D], dv[D], inv[D];
+  load_ray<D>(oT, dT, R, r, o, dv, inv);
+  float* emin = emin_all + (size_t)blk * n_eff;
+  s_best[tid] = it;
+  s_bid[tid] = -1;
+  s_key[tid] = NO_KEY;
+  const int g = lane / SQ, q = lane % SQ;
+  const int r0 = blk * RB;
+
+  // one visit, one warp: tasks of PER_TASK listed rays, range q each
+  // (lanes q, q + 4, ...), drawn from the visit's counter
+  auto test = [&](const Chunk& ch, int idx, int n_live, int* next, int vis) {
+    if (tid == 0) s_vidx[vis] = idx;
+    const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
+    for (;;) {
+      int task = 0;
+      if (lane == 0) task = atomicAdd(next, 1);
+      task = __shfl_sync(FULL, task, 0);
+      if (task >= n_task) break;
+      // cut: best at the group boundary, then the range's nearest hit so
+      // far (held in cut once bl names its lane)
+      float ro[RPT][D], rd[RPT][D], cut[RPT];
+      int rr[RPT], rsk[RPT], bl[RPT];
+      bool live[RPT];
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int li = task * PER_TASK + c * GW + g;
+        live[c] = li < n_live;
+        rr[c] = live[c] ? s_list[li] : 0;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          if (!SHARED) ro[c][k] = oT[(size_t)k * R + r0 + rr[c]];
+          rd[c][k] = dT[(size_t)k * R + r0 + rr[c]];
+        }
+        rsk[c] = skip[r0 + rr[c]];
+        cut[c] = s_best[rr[c]];
+        bl[c] = CK;
+      }
+      for (int j = 0; j < SR; ++j) {
+        const int l = SQ * j + q;
+        const int id = ch.id[l];
+        bool go[RPT];
+        float t[RPT];
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) go[c] = live[c] && id != rsk[c];
+        pair_test_warp<D, RPT, SHARED, !SHARED>(ch, l, ro, rd, cut, go, t);
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          if (go[c]) {                 // t < the range's nearest so far
+            cut[c] = t[c];
+            bl[c] = l;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        float bt = bl[c] < CK ? cut[c] : INFINITY;
+        ray_min(bt, bl[c]);
+        if (q == 0 && bl[c] < CK)
+          atomicMin(&s_key[rr[c]],
+                    ((unsigned long long)__float_as_uint(bt) << 32) |
+                        (unsigned)(vis << 8 | bl[c]));
+      }
+    }
+  };
+
+  // the group's nearest hit below best, if any, becomes the ray's best
+  auto fold = [&] {
+    const unsigned long long key = s_key[tid];
+    if (key != NO_KEY) {
+      s_best[tid] = __uint_as_float((unsigned)(key >> 32));
+      s_bid[tid] = s_vidx[(key >> 8) & 0xff] * CK + (int)(key & 0xff);
+      s_key[tid] = NO_KEY;
+    }
+  };
+  // the bound is the block's largest best; a ray is live while a hit can
+  // still lower its best (best > 0, so not NaN)
+  auto state = [&] {
+    const float b = s_best[tid];
+    return RayState{b, b > 0.f};
+  };
+
+  const int nvis = stream_walk<D, false>(
+      o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, nullptr, pr, order, n_eff,
+      emin, n_slots, s_list, state, test, fold);
+  out_t[r] = s_best[tid];
+  out_slot[r] = s_bid[tid];
+  if (tid == 0) visits[blk] = nvis;
+}
+
+template <int D, bool SHARED>
 int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
            const int* skip, const float* init_t, const int* order, int n_eff,
            const int* blive, const float* klo_t, const float* khi_t, int ncp,
            const float* gt, const float* ci, const int* ids, int pr, int R,
            float* out_t, int* out_slot, int* visits, float* emin) {
-  auto kernel = nearest_kernel<D, SHARED, STREAM>;
+  nearest_kernel<D, SHARED><<<grid, RB, 0, s>>>(
+      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
+      ids, pr, R, out_t, out_slot, visits, emin);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool SHARED>
+int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
+                  const int* skip, const float* init_t, const int* order,
+                  int n_eff, const int* blive, const float* klo_t,
+                  const float* khi_t, int ncp, const float* gt,
+                  const float* ci, const int* ids, int pr, int R,
+                  float* out_t, int* out_slot, int* visits, float* emin) {
+  auto kernel = nearest_stream_kernel<D, SHARED>;
   int n_slots = 0, smem = 0;
-  if (STREAM) {
-    const cudaError_t err = ring_config<D, false>(kernel, &n_slots, &smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err =
+      stream_ring_config<D, false>(kernel, &n_slots, &smem);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid, RB, smem, s>>>(oT, dT, skip, init_t, order, n_eff, blive,
                                 klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,
                                 out_slot, visits, emin, n_slots);
@@ -145,16 +294,16 @@ int launch_d(const float* oT, const float* dT, const int* skip,
   const int grid = R / RB;
   if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define NTR_LAUNCH(FN, DD, SH)                                               \
+  FN<DD, SH>(grid, s, oT, dT, skip, init_t, order, n_eff, blive, klo_t,      \
+             khi_t, ncp, gt, ci, ids, pr, R, out_t, out_slot, visits, emin)
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return shared ? launch<DD, true, STREAM>(                                \
-                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
-                        out_slot, visits, emin)                              \
-                  : launch<DD, false, STREAM>(                               \
-                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
-                        out_slot, visits, emin);
+    if (STREAM)                                                              \
+      return shared ? NTR_LAUNCH(launch_stream, DD, true)                    \
+                    : NTR_LAUNCH(launch_stream, DD, false);                  \
+    return shared ? NTR_LAUNCH(launch, DD, true)                             \
+                  : NTR_LAUNCH(launch, DD, false);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(4)
@@ -166,6 +315,7 @@ int launch_d(const float* oT, const float* dT, const int* skip,
       return (int)cudaErrorInvalidValue;
   }
 #undef NTR_CASE
+#undef NTR_LAUNCH
 }
 
 }  // namespace
@@ -199,6 +349,29 @@ int ntr_nearest_hit_hbm(const float* oT, const float* dT, const int* skip,
   return launch_d<true>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
                         khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
                         out_slot, visits, emin, stream);
+}
+
+// Kernel 2.5 at dimension d (shared: the primary rays' variant) as it
+// launches: info[0..4] = registers a thread, local (spill) bytes a thread,
+// blocks per SM, ring slots, shared bytes a block.
+int ntr_nearest_hit_hbm_info(int d, int shared, int* info) {
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return (int)(shared ? stream_kernel_info<DD, false>(                     \
+                              nearest_stream_kernel<DD, true>, info)         \
+                        : stream_kernel_info<DD, false>(                     \
+                              nearest_stream_kernel<DD, false>, info));
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 const char* ntr_error_string(int err) {

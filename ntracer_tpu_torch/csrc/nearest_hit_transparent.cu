@@ -42,16 +42,38 @@
 // (pallas_call body `_nearest_t_hbm_kernel` -> `_nearest_t_hbm_live`) for
 // pools over the line.  The TPU kernel walks there in groups of four, the
 // next group picked with the bound from before the current one, and so
-// does this variant (chunk_ring.cuh streams the visited chunks into
-// shared-memory slots).  Its test of a chunk is the one above, so against
-// `nearest_hit_transparent_hbm_ref` it agrees bit for bit as the resident
-// variant does against its twin; against the resident variant it agrees on
-// t and the opaque slot, while a stale bound may visit more chunks, whose
-// far glass hits take slots and move later hits' slot positions.
+// does this variant; against `nearest_hit_transparent_hbm_ref` it agrees
+// bit for bit as the resident variant does against its twin, and against
+// the resident variant on t and the opaque slot (a stale bound may visit
+// more chunks, whose far glass hits take slots and move later hits' slot
+// positions).  Its body is `nearest_t_stream_kernel`, on stream_walk.cuh's
+// loop (TMA ring, compacted live rays, four slot ranges a ray, the
+// straight-line pair test with a cut, per-warp slot release, the staged
+// entry pass).  A ray's state -- best, its slot, the K slots and their
+// largest -- lives in shared memory, and a visit's tasks are dealt
+// statically (warp w takes tasks w, w + 16, ...), so a ray's visits run in
+// walk order in one lane group, which updates that state in place: the K
+// slots' rule depends on the order of the offers, and the chunk lists of
+// four visits would not fit beside the ring (512 x 4 x 8 x 8 B = 128 KiB).
+// A nearest walk never decides a ray, so the live set is fixed for the
+// whole walk and the static deal stays even.  What keeps it exact:
+//   * the cuts.  An opaque pair matters only below the ray's best, a glass
+//     pair only below the largest of its K slots: both only fall, every
+//     update is strict <, and the chunk's glass list is offered nearest
+//     first, so an entry at or beyond the largest slot is never taken, nor
+//     is anything behind it;
+//   * the order.  A range marks its slots that hold below their cut in one
+//     bit mask; only where a warp holds one (rare: a ray meets a surface
+//     a few times in hundreds of visits) do the ray's first lane gather
+//     its four masks and the warp retest the held slots in lane order
+//     (pair_test_warp again, so t is the same): opaque ones for the first
+//     lane of the minimum (strict <), glass ones inserted behind every
+//     entry <= t (a later lane sorts behind an equal t), and the chunk's
+//     nearest K are offered to the slots.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "chunk_ring.cuh"
+#include "stream_walk.cuh"
 
 namespace {
 
@@ -59,7 +81,7 @@ using namespace ntr;
 
 constexpr int KMAX = 8;          // transparent slots a ray can hold
 
-template <int D, bool SHARED, bool STREAM>
+template <int D, bool SHARED>
 __global__ void __launch_bounds__(RB) nearest_t_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ init_t,
@@ -69,7 +91,7 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
     const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
     int K, float* __restrict__ out_t, int* __restrict__ out_slot,
     float* __restrict__ out_tt, int* __restrict__ out_tslot,
-    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
+    int* __restrict__ visits, float* __restrict__ emin_all) {
   __shared__ float s_wmin[NW * 32];    // per-warp entry minima
   __shared__ float s_red[NW];
   __shared__ int s_cand[NCAND];
@@ -177,15 +199,10 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
     }
   };
 
-  // 2. the walk: resident, one candidate a step, the next one picked with
-  // the bound from before this visit; streaming, the TPU kernel's groups
-  int nvis;
-  if constexpr (STREAM)
-    nvis = stream_walk<D, true>(gt, ci, ids, opa, pr, order, n_eff, emin,
-                                n_slots, s_cand, bound, test);
-  else
-    nvis = resident_walk<D, 1, true>(gt, ci, ids, opa, pr, order, n_eff,
-                                     emin, s_cand, bound, test);
+  // 2. the walk: one candidate a step, the next one picked with the bound
+  // from before this visit
+  const int nvis = resident_walk<D, 1, true>(gt, ci, ids, opa, pr, order,
+                                             n_eff, emin, s_cand, bound, test);
 
   out_t[r] = best;
   out_slot[r] = best_id;
@@ -199,19 +216,268 @@ __global__ void __launch_bounds__(RB) nearest_t_kernel(
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <int D, bool SHARED, bool STREAM>
+// Blocks an SM of kernel 2.7: two (64 registers a thread) while the ring's
+// two slots fit beside the K slots' 32 KiB; at d = 8 they do not, so one
+// block holds its ring and the registers that two blocks would share.
+template <int D>
+__host__ __device__ constexpr int t_stream_blocks() {
+  return D <= 7 ? STREAM_BLOCKS : 1;
+}
+
+// Kernel 2.7: the streaming K-slot walk (stream_walk.cuh).
+template <int D, bool SHARED>
+__global__ void __launch_bounds__(RB, t_stream_blocks<D>())
+    nearest_t_stream_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ init_t,
+    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
+    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
+    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
+    const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
+    int K, float* __restrict__ out_t, int* __restrict__ out_slot,
+    float* __restrict__ out_tt, int* __restrict__ out_tslot,
+    int* __restrict__ visits, float* __restrict__ emin_all, int n_slots) {
+  constexpr int RPT = rays_a_lane<D>();
+  constexpr int PER_TASK = GW * RPT;
+  __shared__ float s_best[RB];         // each ray's nearest opaque hit
+  __shared__ int s_bid[RB];            // and its slot id
+  __shared__ float s_tt[KMAX][RB];     // the K slots; -inf beyond K
+  __shared__ int s_ts[KMAX][RB];
+  __shared__ float s_tmax[RB];         // the largest of the K slots
+  __shared__ int s_list[RB];           // the walk's live rays
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x;
+  const int r = blk * RB + tid;
+  const float it = init_t[r];
+  if (!blive[blk]) {                   // every ray of the block is dead
+    out_t[r] = it;
+    out_slot[r] = -1;
+    for (int k = 0; k < K; ++k) {
+      out_tt[(size_t)k * R + r] = INFINITY;
+      out_tslot[(size_t)k * R + r] = -1;
+    }
+    if (tid == 0) visits[blk] = 0;
+    return;
+  }
+
+  float o[D], dv[D], inv[D];
+  load_ray<D>(oT, dT, R, r, o, dv, inv);
+  float* emin = emin_all + (size_t)blk * n_eff;
+  s_best[tid] = it;
+  s_bid[tid] = -1;
+  for (int i = 0; i < KMAX; ++i) {
+    s_tt[i][tid] = i < K ? INFINITY : -INFINITY;
+    s_ts[i][tid] = -1;
+  }
+  s_tmax[tid] = INFINITY;
+  // a ray with a coordinate that is not finite hits nothing (the shared
+  // rows stand for the origin of primary rays): every other ray of a live
+  // block collects glass hits, whatever its best
+  const bool can_hit = finite_ray<D>(dv) && (SHARED || finite_ray<D>(o));
+  const int g = lane / SQ, q = lane % SQ;
+  const int r0 = blk * RB;
+
+  // one visit, one warp: tasks of PER_TASK listed rays, range q each
+  // (lanes q, q + 4, ...), the tasks warp, warp + NW, ...
+  auto test = [&](const Chunk& ch, int idx, int n_live, int*, int) {
+    const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
+    for (int task = warp; task < n_task; task += NW) {
+      // cb: best, cg: the largest K slot, both as the visit starts
+      float ro[RPT][D], rd[RPT][D], cb[RPT], cg[RPT];
+      int rr[RPT], rsk[RPT];
+      unsigned hm[RPT];                // bit j: slot 4j + q holds below its
+      bool live[RPT];                  // cut (opaque: cb, glass: cg)
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int li = task * PER_TASK + c * GW + g;
+        live[c] = li < n_live;
+        rr[c] = live[c] ? s_list[li] : 0;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          if (!SHARED) ro[c][k] = oT[(size_t)k * R + r0 + rr[c]];
+          rd[c][k] = dT[(size_t)k * R + r0 + rr[c]];
+        }
+        rsk[c] = skip[r0 + rr[c]];
+        cb[c] = s_best[rr[c]];
+        cg[c] = s_tmax[rr[c]];
+        hm[c] = 0u;
+      }
+      for (int j = 0; j < SR; ++j) {
+        const int l = SQ * j + q;
+        const int id = ch.id[l];
+        const bool opq = ch.opa[l] >= 1.f;
+        bool go[RPT];
+        float t[RPT], cut[RPT];
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          go[c] = live[c] && id != rsk[c];
+          cut[c] = opq ? cb[c] : cg[c];
+        }
+        pair_test_warp<D, RPT, SHARED, !SHARED>(ch, l, ro, rd, cut, go, t);
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) hm[c] |= go[c] ? 1u << j : 0u;
+      }
+      bool held = false;
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) held = held || hm[c];
+      if (!__any_sync(FULL, held)) continue;
+      // A pair held (rare: a ray meets a surface a few times in hundreds
+      // of visits).  The ray's first lane gathers its four ranges' masks
+      // (slot 4j + p is bit j of range p's) and the warp retests the held
+      // slots in lane order, the lowest first (pair_test_warp again, so t
+      // is the same): opaque ones for the first lane of the minimum,
+      // glass ones into the chunk's list, each behind every entry <= t.
+      unsigned m[RPT][SQ];
+#pragma unroll
+      for (int c = 0; c < RPT; ++c)
+#pragma unroll
+        for (int p = 0; p < SQ; ++p) {
+          m[c][p] = __shfl_sync(FULL, hm[c], (lane & ~(SQ - 1)) | p);
+          if (q != 0) m[c][p] = 0u;
+        }
+      float bt[RPT];                   // the chunk's nearest opaque hit
+      int bl[RPT];
+      float ct[RPT][KMAX];             // the chunk's nearest glass hits,
+      int cl[RPT][KMAX];               // ascending, and their lanes
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        bt[c] = INFINITY;
+        bl[c] = CK;
+#pragma unroll
+        for (int i = 0; i < KMAX; ++i) {
+          ct[c][i] = INFINITY;
+          cl[c][i] = 0;
+        }
+      }
+      for (;;) {
+        unsigned mine = CK;
+#pragma unroll
+        for (int c = 0; c < RPT; ++c)
+#pragma unroll
+          for (int p = 0; p < SQ; ++p)
+            if (m[c][p])
+              mine = min(mine, (unsigned)(SQ * (__ffs(m[c][p]) - 1) + p));
+        const int l = (int)__reduce_min_sync(FULL, mine);
+        if (l >= CK) break;
+        const bool opq = ch.opa[l] >= 1.f;
+        bool go[RPT];
+        float t[RPT], cut[RPT];
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          go[c] = false;
+#pragma unroll
+          for (int p = 0; p < SQ; ++p) {
+            if (p == l % SQ) {
+              go[c] = (m[c][p] >> (l / SQ)) & 1u;
+              m[c][p] &= ~(1u << (l / SQ));
+            }
+          }
+          cut[c] = opq ? cb[c] : cg[c];
+        }
+        pair_test_warp<D, RPT, SHARED, !SHARED>(ch, l, ro, rd, cut, go, t);
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          if (go[c] && opq && t[c] < bt[c]) {
+            bt[c] = t[c];
+            bl[c] = l;
+          }
+          if (go[c] && !opq) {
+            // insert behind every entry <= t; the last entry falls off
+            float x = t[c];
+            int xl = l;
+            bool moved = false;
+#pragma unroll
+            for (int i = 0; i < KMAX; ++i) {
+              if (moved || x < ct[c][i]) {
+                const float ft = ct[c][i];
+                const int fl = cl[c][i];
+                ct[c][i] = x;
+                cl[c][i] = xl;
+                x = ft;
+                xl = fl;
+                moved = true;
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        if (q != 0 || !live[c]) continue;
+        const int ray = rr[c];
+        if (bl[c] < CK) {              // below best: the cut saw to it
+          s_best[ray] = bt[c];
+          s_bid[ray] = idx * CK + bl[c];
+        }
+        // offer the chunk's K nearest glass hits to the slots, nearest
+        // first, each replacing the FIRST largest slot when it is nearer
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j < K && ct[c][j] < INFINITY) {
+            float bmax = s_tt[0][ray];
+            int barg = 0;
+            for (int i = 1; i < KMAX; ++i) {
+              const float v = s_tt[i][ray];
+              if (v > bmax) {
+                bmax = v;
+                barg = i;
+              }
+            }
+            if (ct[c][j] < bmax) {
+              s_tt[barg][ray] = ct[c][j];
+              s_ts[barg][ray] = idx * CK + cl[c][j];
+            }
+          }
+        }
+        float mx = s_tt[0][ray];
+        for (int i = 1; i < KMAX; ++i) mx = fmaxf(mx, s_tt[i][ray]);
+        s_tmax[ray] = mx;
+      }
+    }
+  };
+
+  // the bound is the block's largest best; every ray that can hit anything
+  // is live (glass is collected whatever the ray's best)
+  auto state = [&] { return RayState{s_best[tid], can_hit}; };
+
+  const int nvis = stream_walk<D, true>(
+      o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, opa, pr, order, n_eff,
+      emin, n_slots, s_list, state, test, [] {});
+  out_t[r] = s_best[tid];
+  out_slot[r] = s_bid[tid];
+  for (int i = 0; i < K; ++i) {
+    out_tt[(size_t)i * R + r] = s_tt[i][tid];
+    out_tslot[(size_t)i * R + r] = s_ts[i][tid];
+  }
+  if (tid == 0) visits[blk] = nvis;
+}
+
+template <int D, bool SHARED>
 int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
            const int* skip, const float* init_t, const int* order, int n_eff,
            const int* blive, const float* klo_t, const float* khi_t, int ncp,
            const float* gt, const float* ci, const int* ids, const float* opa,
            int pr, int R, int K, float* out_t, int* out_slot, float* out_tt,
            int* out_tslot, int* visits, float* emin) {
-  auto kernel = nearest_t_kernel<D, SHARED, STREAM>;
+  nearest_t_kernel<D, SHARED><<<grid, RB, 0, s>>>(
+      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
+      ids, opa, pr, R, K, out_t, out_slot, out_tt, out_tslot, visits, emin);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool SHARED>
+int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
+                  const int* skip, const float* init_t, const int* order,
+                  int n_eff, const int* blive, const float* klo_t,
+                  const float* khi_t, int ncp, const float* gt,
+                  const float* ci, const int* ids, const float* opa, int pr,
+                  int R, int K, float* out_t, int* out_slot, float* out_tt,
+                  int* out_tslot, int* visits, float* emin) {
+  auto kernel = nearest_t_stream_kernel<D, SHARED>;
   int n_slots = 0, smem = 0;
-  if (STREAM) {
-    const cudaError_t err = ring_config<D, true>(kernel, &n_slots, &smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = stream_ring_config<D, true>(kernel, &n_slots, &smem);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid, RB, smem, s>>>(oT, dT, skip, init_t, order, n_eff, blive,
                                 klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,
                                 out_t, out_slot, out_tt, out_tslot, visits,
@@ -231,16 +497,17 @@ int launch_d(const float* oT, const float* dT, const int* skip,
   if (R % RB || grid == 0 || K < 1 || K > KMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define NTR_LAUNCH(FN, DD, SH)                                               \
+  FN<DD, SH>(grid, s, oT, dT, skip, init_t, order, n_eff, blive, klo_t,      \
+             khi_t, ncp, gt, ci, ids, opa, pr, R, K, out_t, out_slot,        \
+             out_tt, out_tslot, visits, emin)
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return shared ? launch<DD, true, STREAM>(                                \
-                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                        klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,       \
-                        out_t, out_slot, out_tt, out_tslot, visits, emin)    \
-                  : launch<DD, false, STREAM>(                               \
-                        grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
-                        klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,       \
-                        out_t, out_slot, out_tt, out_tslot, visits, emin);
+    if (STREAM)                                                              \
+      return shared ? NTR_LAUNCH(launch_stream, DD, true)                    \
+                    : NTR_LAUNCH(launch_stream, DD, false);                  \
+    return shared ? NTR_LAUNCH(launch, DD, true)                             \
+                  : NTR_LAUNCH(launch, DD, false);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(4)
@@ -252,6 +519,7 @@ int launch_d(const float* oT, const float* dT, const int* skip,
       return (int)cudaErrorInvalidValue;
   }
 #undef NTR_CASE
+#undef NTR_LAUNCH
 }
 
 }  // namespace
@@ -289,6 +557,28 @@ int ntr_nearest_t_hbm(const float* oT, const float* dT, const int* skip,
                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
                         out_t, out_slot, out_tt, out_tslot, visits, emin,
                         stream);
+}
+
+// Kernel 2.7 at dimension d (shared: the primary rays' variant) as it
+// launches: info as ntr_nearest_hit_hbm_info.
+int ntr_nearest_t_hbm_info(int d, int shared, int* info) {
+#define NTR_CASE(DD)                                                         \
+  case DD:                                                                   \
+    return (int)(shared ? stream_kernel_info<DD, true>(                      \
+                              nearest_t_stream_kernel<DD, true>, info)       \
+                        : stream_kernel_info<DD, true>(                      \
+                              nearest_t_stream_kernel<DD, false>, info));
+  switch (d) {
+    NTR_CASE(3)
+    NTR_CASE(4)
+    NTR_CASE(5)
+    NTR_CASE(6)
+    NTR_CASE(7)
+    NTR_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // extern "C"

@@ -34,7 +34,7 @@
 // `_occl_hbm_kernel` -> `_occl_hbm_live`) for pools over the line: the same
 // walk, `blocked` and visits, with each visited chunk copied into a ring of
 // shared-memory slots while the previous group is tested.  Its body is
-// `occluded_stream_kernel`, on occl_stream.cuh's loop: the undecided rays
+// `occluded_stream_kernel`, on stream_walk.cuh's loop: the undecided rays
 // of a group are compacted, each ray's 128 slots are split into four
 // ranges of 32 on neighbouring lanes (any-hit is order-free: the ranges'
 // hits are ORed with two shuffles), a lane holds rays_a_lane<D>() rays so
@@ -47,7 +47,7 @@
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "occl_stream.cuh"
+#include "stream_walk.cuh"
 
 namespace {
 
@@ -112,16 +112,9 @@ __global__ void __launch_bounds__(RB) occluded_kernel(
   if (tid == 0) visits[blk] = nvis;
 }
 
-// Rays a lane (PERF.md section 6): two while a ray's rows fit 64
-// registers a thread beside the second's.
+// Kernel 2.6: the streaming occlusion walk (stream_walk.cuh).
 template <int D>
-__host__ __device__ constexpr int rays_a_lane() {
-  return D <= 4 ? 2 : 1;
-}
-
-// Kernel 2.6: the streaming occlusion walk (occl_stream.cuh).
-template <int D>
-__global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_stream_kernel(
+__global__ void __launch_bounds__(RB, STREAM_BLOCKS) occluded_stream_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
     const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
@@ -155,7 +148,7 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_stream_kernel(
   // one visit, one warp: tasks of PER_TASK listed rays, range q each,
   // drawn from the visit's counter (any-hit: a ray's visits are
   // order-free)
-  auto test = [&](const Chunk& ch, int n_live, int* next, int) {
+  auto test = [&](const Chunk& ch, int, int n_live, int* next, int) {
     const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
     for (;;) {
       int task = 0;
@@ -187,10 +180,11 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_stream_kernel(
         const int l = SQ * j + q;      // any-hit: order-free
         const int id = ch.id[l];
         bool go[RPT];
+        float t[RPT];
 #pragma unroll
         for (int c = 0; c < RPT; ++c)
           go[c] = live[c] && !hit[c] && id != rsk[c];
-        pair_test_warp<D, RPT>(ch, l, ro, rd, rl, go);
+        pair_test_warp<D, RPT, false, true>(ch, l, ro, rd, rl, go, t);
 #pragma unroll
         for (int c = 0; c < RPT; ++c) hit[c] = hit[c] || go[c];
       }
@@ -205,10 +199,15 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_stream_kernel(
     }
   };
 
-  const int nvis = occl_stream_walk<D, false>(
+  // the bound is the largest ldist of the rays not blocked yet; a ray is
+  // live while it is undecided
+  auto state = [&] {
+    const bool b = s_blk[tid] != 0;
+    return RayState{b ? 0.f : ld, !b && ld > 0.f};
+  };
+  const int nvis = stream_walk<D, false>(
       o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, nullptr, pr, order, n_eff,
-      emin, n_slots, ld, s_blk, s_list, test, [] {});
-  __syncthreads();
+      emin, n_slots, s_list, state, test, [] {});
   out_blocked[r] = s_blk[tid] ? 1 : 0;
   if (tid == 0) visits[blk] = nvis;
 }
@@ -256,7 +255,7 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
   case DD: {                                                                 \
     auto kernel = occluded_stream_kernel<DD>;                                \
     const cudaError_t err =                                                  \
-        occl_ring_config<DD, false>(kernel, &n_slots, &smem);                \
+        stream_ring_config<DD, false>(kernel, &n_slots, &smem);              \
     if (err != cudaSuccess) return (int)err;                                 \
     kernel<<<grid, RB, smem, s>>>(oT, dT, skip, ldist, order, n_eff, blive,  \
                                   klo_t, khi_t, ncp, gt, ci, ids, pr, R,     \
@@ -316,7 +315,7 @@ int ntr_occluded_hbm(const float* oT, const float* dT, const int* skip,
 int ntr_occluded_hbm_info(int d, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return (int)occl_kernel_info<DD, false>(occluded_stream_kernel<DD>,     \
+    return (int)stream_kernel_info<DD, false>(occluded_stream_kernel<DD>,     \
                                             info);
   switch (d) {
     NTR_CASE(3)

@@ -38,7 +38,7 @@
 // over the line: the same walk, `blocked`, `filt` and visits, bit for bit,
 // with each visited chunk (opacity row included) copied into a ring of
 // shared-memory slots while the previous group is tested.  Its body is
-// `occluded_t_stream_kernel`, on occl_stream.cuh's loop (compacted
+// `occluded_t_stream_kernel`, on stream_walk.cuh's loop (compacted
 // undecided rays, four slot ranges a ray on neighbouring lanes, the
 // straight-line pair test, a visit's tasks drawn by whichever warp is free,
 // per-warp slot release, two blocks an SM; see there).  A visit's product
@@ -56,7 +56,7 @@
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
-#include "occl_stream.cuh"
+#include "stream_walk.cuh"
 
 namespace {
 
@@ -198,9 +198,9 @@ __global__ void __launch_bounds__(RB) occluded_t_kernel(
 
 // One ray a lane (PERF.md section 6): the range tree takes the
 // second ray's registers.
-// Kernel 2.8: the streaming filtered occlusion walk (occl_stream.cuh).
+// Kernel 2.8: the streaming filtered occlusion walk (stream_walk.cuh).
 template <int D>
-__global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_t_stream_kernel(
+__global__ void __launch_bounds__(RB, STREAM_BLOCKS) occluded_t_stream_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
     const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
@@ -240,7 +240,8 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_t_stream_kernel(
   // drawn from the visit's counter; the visit's product of a ray goes to
   // s_prod[vis] and joins its filter at the group's boundary (fold), in
   // walk order
-  auto test = [&](const Chunk& ch, int n_live, int* next, int vis) {
+  auto test = [&](const Chunk& ch, int, int n_live, int* next,
+                  int vis) {
     const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
     for (;;) {
       int task = 0;
@@ -274,10 +275,11 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_t_stream_kernel(
         const int l = range_lane(q, j);
         const int id = ch.id[l];
         bool go[RPT];
+        float t[RPT];
 #pragma unroll
         for (int c = 0; c < RPT; ++c)
           go[c] = live[c] && !hit[c] && id != rsk[c];
-        pair_test_warp<D, RPT>(ch, l, ro, rd, rl, go);
+        pair_test_warp<D, RPT, false, true>(ch, l, ro, rd, rl, go, t);
 #pragma unroll
         for (int c = 0; c < RPT; ++c) {
           if (go[c]) {
@@ -319,11 +321,13 @@ __global__ void __launch_bounds__(RB, OCCL_BLOCKS) occluded_t_stream_kernel(
     }
     s_filt[tid] = f;
   };
-  const int nvis = occl_stream_walk<D, true>(
+  auto state = [&] {
+    const bool b = s_blk[tid] != 0;
+    return RayState{b ? 0.f : ld, !b && ld > 0.f};
+  };
+  const int nvis = stream_walk<D, true>(
       o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, opa, pr, order, n_eff,
-      emin, n_slots, ld, s_blk, s_list, test, fold);
-  __syncthreads();
-  fold();
+      emin, n_slots, s_list, state, test, fold);
   const bool blocked = s_blk[tid] != 0;
   out_blocked[r] = blocked ? 1 : 0;
   out_filt[r] = blocked ? 1.f : s_filt[tid];
@@ -374,7 +378,7 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
   case DD: {                                                                 \
     auto kernel = occluded_t_stream_kernel<DD>;                              \
     const cudaError_t err =                                                  \
-        occl_ring_config<DD, true>(kernel, &n_slots, &smem);                 \
+        stream_ring_config<DD, true>(kernel, &n_slots, &smem);               \
     if (err != cudaSuccess) return (int)err;                                 \
     kernel<<<grid, RB, smem, s>>>(oT, dT, skip, ldist, order, n_eff, blive,  \
                                   klo_t, khi_t, ncp, gt, ci, ids, opa, pr,   \
@@ -433,7 +437,7 @@ int ntr_occluded_t_hbm(const float* oT, const float* dT, const int* skip,
 int ntr_occluded_t_hbm_info(int d, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return (int)occl_kernel_info<DD, true>(occluded_t_stream_kernel<DD>,    \
+    return (int)stream_kernel_info<DD, true>(occluded_t_stream_kernel<DD>,    \
                                            info);
   switch (d) {
     NTR_CASE(3)

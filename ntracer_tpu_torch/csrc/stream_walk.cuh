@@ -1,41 +1,43 @@
-// The streaming occlusion walks' loop for Hopper (kernels 2.6 and 2.8, the
-// STREAM entries of occluded.cu and occluded_transparent.cu).  The resident
-// walks and the nearest-hit walks keep pair_test.cuh's and chunk_ring.cuh's
-// loops; this one visits exactly what they visit, and spends its work on
-// the rays that are still undecided.
+// The streaming walks' loop for Hopper, shared by the STREAM variants of
+// the four walk sources: kernels 2.5 (nearest_hit.cu), 2.6 (occluded.cu),
+// 2.7 (nearest_hit_transparent.cu) and 2.8 (occluded_transparent.cu).  The
+// resident walks keep pair_test.cuh's loop; this one visits exactly what
+// they visit, and spends its work on the rays that are still live.
 //
 // One CUDA block of 512 threads serves one 512-ray block; thread r owns ray
 // r for the entry pass, the bound and the outputs.  A visit's work is dealt
 // out differently:
 //
 //   * At each group boundary (where the walk needs the block's bound
-//     anyway) the block compacts the indices of its undecided rays -- not
-//     blocked, ldist > 0 -- into `s_list` (a ballot, a warp prefix and one
-//     scan over the warp counts).  The list holds through the group's
-//     visits: a ray blocked in one of them is skipped by its own lanes in
-//     the next.
-//   * A ray's 128 slots are split into SQ = 4 ranges of SR = 32.  In 2.8
-//     range q takes the positions 32q .. 32q + 31 of the bit-reversed lane
-//     order, i.e. the lanes l = 4 * brev5(j) + brev2(q) (range_lane): one
-//     level-5 subtree of the halving tree.  2.6, whose any-hit is
-//     order-free, walks range q as the lanes q, q + 4, ...  Either way the
-//     four ranges read four consecutive slots at each step (no bank
-//     conflict).  Lane 4 * g + q of a warp takes range q of its g-th ray; a
-//     warp task holds GW * RPT rays, RPT a lane, so one shared load of a
-//     plane row serves RPT pair tests.  A warp with no task left only
-//     waits for the slot and releases it.
+//     anyway) the block compacts the indices of its live rays into
+//     `s_list` (a ballot, a warp prefix and one scan over the warp
+//     counts).  The walk says which rays are live: an undecided shadow ray
+//     (not blocked, ldist > 0), a ray whose nearest hit can still fall
+//     (best > 0), a ray that can still collect glass.  The list holds
+//     through the group's visits.
+//   * A ray's 128 slots are split into SQ = 4 ranges of SR = 32.  Lane
+//     4 * g + q of a warp takes range q of its g-th ray; a warp task holds
+//     GW * RPT rays, RPT a lane, so one shared load of a plane row serves
+//     RPT pair tests.  Range q is the lanes q, q + 4, ... (the walks whose
+//     rule is order-free or merges (t, lane) pairs exactly), or in 2.8 the
+//     positions 32q .. 32q + 31 of the bit-reversed lane order (range_lane:
+//     one level-5 subtree of its product tree).  Either way the four
+//     ranges read four consecutive slots at each step (no bank conflict).
 //   * The ring's slots are released per warp, not per block: each slot has
 //     a "full" mbarrier (the TMA copies' bytes) and an "empty" one that
 //     every warp arrives on after its tests.  The elected producer (thread
-//     0) waits on "empty" before it refills a slot.  A visit's work is a
-//     counter of tasks that every warp draws from until they run out.  The
+//     0) waits on "empty" before it refills a slot.  A visit's tasks are a
+//     counter that every warp draws from until they run out (2.5, 2.6,
+//     2.8), or are dealt statically, warp w taking tasks w, w + NW, ...
+//     (2.7: a ray's visits then run in walk order in one lane group).  The
 //     walk's only block-wide syncs are the three of each group boundary.
+//   * Results that need walk order across visits wait for the group
+//     boundary (`fold`) or are kept in visit order by the static deal.
 //
 // The visit set is the resident walk's: the block's entry minima over all
 // 512 rays, groups of NCAND candidates, each next group picked with the
-// bound from before this group's tests (the largest ldist of the
-// not-yet-blocked rays, NaN-propagating), chunk q of the visit order in
-// ring slot q % S.
+// bound from before this group's tests (NaN-propagating), chunk q of the
+// visit order in ring slot q % S.
 
 #pragma once
 
@@ -48,26 +50,7 @@ constexpr int SR = CK / SQ;         // slots a range: a level-5 subtree
 constexpr int GW = 32 / SQ;         // rays of a warp task per lane row
 constexpr int EB = 128;             // chunk positions per entry-pass batch
 constexpr int EW = 16;              // positions a lane takes per round
-
-__device__ __forceinline__ void mbar_init_count(uint64_t* bar,
-                                                unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Order this thread's generic-proxy writes to shared memory before the
-// async proxy's (TMA) writes that follow.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
+constexpr unsigned FULL = 0xffffffffu;
 
 // Lane of position j (0..31) of range q in the bit-reversed order.
 __device__ __forceinline__ int range_lane(int q, int j) {
@@ -194,16 +177,18 @@ __device__ __forceinline__ void warp_cands(int k0, float bound, int n_eff,
   }
 }
 
-// Blocks an SM of the streaming occlusion kernels (__launch_bounds__(RB,
-// OCCL_BLOCKS): 64 registers a thread).  Three blocks would leave 40
+// Blocks an SM of the streaming kernels (__launch_bounds__(RB,
+// STREAM_BLOCKS): 64 registers a thread).  Three blocks would leave 40
 // registers a thread, and the walks spill there.
-constexpr int OCCL_BLOCKS = 2;
+constexpr int STREAM_BLOCKS = 2;
 
-// Ring depth, dynamic shared memory and carveout of a streaming occlusion
-// kernel: as many slots (at most RING_MAX) as let OCCL_BLOCKS blocks share
-// an SM beside the kernel's static shared memory (at d <= 8 at least two).
+// Ring depth, dynamic shared memory and carveout of a streaming kernel: as
+// many slots (at most RING_MAX) as let STREAM_BLOCKS blocks share an SM
+// beside the kernel's static shared memory; where that leaves fewer than
+// two slots (2.7 at d = 8, whose K slots take 32 KiB), one block an SM and
+// its ring.
 template <int D, bool OPA, class Kernel>
-cudaError_t occl_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
+cudaError_t stream_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
   int dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -215,7 +200,12 @@ cudaError_t occl_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
   const int slot = slot_floats<D, OPA>() * 4;
   const int reserved = 1024;          // the card keeps 1 KB per block
   const int fixed = reserved + (int)fa.sharedSizeBytes;
-  int s = (per_sm / OCCL_BLOCKS - fixed) / slot;
+  int blocks = STREAM_BLOCKS;
+  int s = (per_sm / blocks - fixed) / slot;
+  if (s < 2) {
+    blocks = 1;
+    s = (per_sm - fixed) / slot;
+  }
   if (s > RING_MAX) s = RING_MAX;
   if (s < 2) return cudaErrorInvalidConfiguration;
   *n_slots = s;
@@ -225,19 +215,18 @@ cudaError_t occl_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
                              *smem_bytes);
   if (err != cudaSuccess) return err;
   // room for the blocks' shared memory, the rest stays L1
-  int pct =
-      (100 * OCCL_BLOCKS * (*smem_bytes + fixed) + per_sm - 1) / per_sm;
+  int pct = (100 * blocks * (*smem_bytes + fixed) + per_sm - 1) / per_sm;
   if (pct > 100) pct = 100;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
 }
 
-// Registers, local (spill) bytes a thread, blocks per SM and ring slots of
-// a streaming occlusion kernel, as it launches.
+// Registers, local (spill) bytes a thread, blocks per SM, ring slots and
+// shared bytes a block of a streaming kernel, as it launches.
 template <int D, bool OPA, class Kernel>
-cudaError_t occl_kernel_info(Kernel kernel, int* info) {
+cudaError_t stream_kernel_info(Kernel kernel, int* info) {
   int n_slots = 0, smem = 0;
-  cudaError_t err = occl_ring_config<D, OPA>(kernel, &n_slots, &smem);
+  cudaError_t err = stream_ring_config<D, OPA>(kernel, &n_slots, &smem);
   cudaFuncAttributes fa;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
   int blocks = 0;
@@ -253,29 +242,44 @@ cudaError_t occl_kernel_info(Kernel kernel, int* info) {
   return cudaSuccess;
 }
 
-// The streaming occlusion walk.  Every thread calls it with its own ray's
-// ldist `ld`; `s_blk` (RB ints, zeroed and synced by the caller) is the
-// rays' blocked flags, which `test` sets.  `test(chunk, n_live, next, j)`
-// runs in every warp for every visit (the group's j-th), after the slot's
-// copies landed; `s_list[0, n_live)` are the rays undecided at the group's
-// boundary, and `*next` is the visit's task counter (0 when the slot was
-// filled): each warp draws tasks from it until they run out, so a warp
-// that finishes early takes the next task of any visit in flight.
-// `fold()` runs in every thread at each group boundary, once the group's
-// tests are done (where a walk folds per-visit results in visit order).
+// Rays a lane of the streaming walks' warp tasks (2.5, 2.6 and 2.7; 2.8's
+// range tree takes the second ray's registers): two while a ray's rows fit
+// 64 registers a thread beside the second's.
+template <int D>
+__host__ __device__ constexpr int rays_a_lane() {
+  return D <= 4 ? 2 : 1;
+}
+
+// What the loop asks of each ray at a group boundary, once the group's
+// results are folded: its share of the block's bound (the bound is the
+// NaN-propagating maximum over all 512 rays) and whether the next group's
+// visits test it.
+struct RayState {
+  float bound;
+  bool live;
+};
+
+// The streaming walk.  Every thread calls it with its own ray.
+//   * `fold()` runs in every thread at each group boundary, once the
+//     group's tests are done (where a walk folds per-visit results of its
+//     own ray in visit order), and `state()` right after it (RayState of
+//     the thread's own ray).
+//   * `test(chunk, idx, n_live, next, j)` runs in every warp for every
+//     visit (the group's j-th, pool chunk idx), after the slot's copies
+//     landed; `s_list[0, n_live)` are the rays live at the group's
+//     boundary, and `*next` is the visit's task counter (0 when the slot
+//     was filled).
 // The `n_slots` ring slots of slot_floats<D, OPA>() floats each are the
 // dynamic shared memory, and hold the entry pass's scratch before the walk
-// starts.
-// Returns the number of visits.
-template <int D, bool OPA, class Test, class Fold>
-__device__ __forceinline__ int occl_stream_walk(
+// starts.  Returns the number of visits.
+template <int D, bool OPA, class State, class Test, class Fold>
+__device__ __forceinline__ int stream_walk(
     const float (&o)[D], const float (&dv)[D], const float (&inv)[D],
     const float* __restrict__ klo_t, const float* __restrict__ khi_t, int ncp,
     const float* __restrict__ gt, const float* __restrict__ ci,
     const int* __restrict__ ids, const float* __restrict__ opa, int pr,
     const int* __restrict__ order, int n_eff, float* __restrict__ emin,
-    int n_slots, float ld, const int* s_blk, int* s_list, Test test,
-    Fold fold) {
+    int n_slots, int* s_list, State state, Test test, Fold fold) {
   extern __shared__ __align__(128) float s_ring[];
   __shared__ uint64_t s_full[RING_MAX];
   __shared__ uint64_t s_empty[RING_MAX];
@@ -309,13 +313,12 @@ __device__ __forceinline__ int occl_stream_walk(
   auto boundary = [&](bool first) {
     __syncthreads();                   // the group's tests are done
     fold();
-    const bool blk = s_blk[tid] != 0;
-    const bool und = !blk && ld > 0.f;
-    float v = blk ? 0.f : ld;
+    const RayState st = state();
+    float v = st.bound;
 #pragma unroll
     for (int off = 16; off; off >>= 1)
-      v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const unsigned bal = __ballot_sync(0xffffffffu, und);
+      v = nan_max(v, __shfl_xor_sync(FULL, v, off));
+    const unsigned bal = __ballot_sync(FULL, st.live);
     if (lane == 0) {
       s_wmax[warp] = v;
       s_wcnt[warp] = __popc(bal);
@@ -327,7 +330,7 @@ __device__ __forceinline__ int occl_stream_walk(
       before += w < warp ? c : 0;
       total += c;
     }
-    if (und) s_list[before + __popc(bal & ((1u << lane) - 1u))] = tid;
+    if (st.live) s_list[before + __popc(bal & ((1u << lane) - 1u))] = tid;
     n_live = total;
     if (warp == 0) {
       float bound = s_wmax[0];
@@ -379,7 +382,8 @@ __device__ __forceinline__ int occl_stream_walk(
       if (tid == 0) fill_ahead(q + n_slots - lag);
       const int s = q % n_slots;
       mbar_wait(&s_full[s], (unsigned)(q / n_slots) & 1u);
-      test(ring_chunk<D, OPA>(s_ring, s), n_live, &s_next[s], j);
+      test(ring_chunk<D, OPA>(s_ring, s), order[cur[j]], n_live, &s_next[s],
+           j);
       __syncwarp();
       if (lane == 0) mbar_arrive(&s_empty[s]);
     }
@@ -391,39 +395,52 @@ __device__ __forceinline__ int occl_stream_walk(
     if (!n_cur) break;
     boundary(false);
   }
+  __syncthreads();                     // the last group's tests are done
+  fold();
   return base;
 }
 
 // The pair test of RPT rays against slot l of a chunk, for every lane of a
-// warp at once.  `go[c]` comes in true where ray c still wants this slot
-// (undecided, slot id != its skip id) and leaves true where the slot is a
-// valid hit with t < ld[c]: the outcome of pair_test && t < ld, with every
-// value that decides it rounded as pair_test rounds it.
-//   * The numerator and `dn` must be nonzero, of one sign and not NaN for
+// warp at once: the Hopper form of pair_test (pair_test.cuh) that every
+// streaming walk uses.  `go[c]` comes in true where ray c still wants this
+// slot (live, slot id != its skip id) and leaves true where the slot is a
+// valid hit with 0 < t < cut[c], t[c] its distance: the outcome of
+// pair_test && t < cut, and pair_test's t, with every value that decides
+// them rounded as pair_test rounds it.  SHARED: the offset rows carry the
+// origin dots (primary rays), and `o` is not read.
+//   * PRE: the numerator (SHARED: the row value s_c[l] itself; else
+//     c - o.n) and `dn` must be nonzero, of one sign and not NaN for
 //     pair_test's (dn != 0) && (t > 0): a zero dn fails the first, and a
 //     zero numerator, a NaN or opposite signs give t = +-0, NaN or t < 0.
 //     A warp none of whose rays passes that pre-test skips the division
-//     and the edges.
+//     and the edges.  Without PRE only dn != 0 is tested and the warp
+//     always divides: the nearest-hit walks' primary rays, which look
+//     into the scene from one camera, pass the pre-test on nearly every
+//     pair, and there it cost more than the divisions it skipped.
 //   * Each edge plane runs only while some ray of the warp can still pass
 //     it: edge 1 alone rejects nearly every pair whose t is in range.
 //   * Sums start at their first product, not at +0: the two differ only in
-//     the sign of a zero sum, and a zero numerator or `dn` fails the
-//     pre-test either way, while a zero edge value or total compares alike.
+//     the sign of a zero sum.  A zero numerator gives t = +-0 and a zero
+//     `dn` fails either way, so t is pair_test's wherever it can hold
+//     (SHARED sums no numerator at all); a zero edge dot changes only the
+//     sign of a zero `a` or total, which compare alike.
 // The skips are warp-uniform (__any_sync), so the lanes' code stays one
-// straight line; a ray that failed the pre-test divides by 1 (its t is not
-// used), which keeps the division off its slow path.
-template <int D, int RPT>
+// straight line and every lane must call it; a ray that failed the test
+// before the division divides by 1 (its t is not used), which keeps the
+// division off its slow path.
+template <int D, int RPT, bool SHARED, bool PRE>
 __device__ __forceinline__ void pair_test_warp(const Chunk& ch, int l,
                                                const float (&o)[RPT][D],
                                                const float (&dv)[RPT][D],
-                                               const float (&ld)[RPT],
-                                               bool (&go)[RPT]) {
+                                               const float (&cut)[RPT],
+                                               bool (&go)[RPT],
+                                               float (&t)[RPT]) {
   float o0[RPT], dn[RPT];
   {
     const float gv = ch.g[l];
 #pragma unroll
     for (int c = 0; c < RPT; ++c) {
-      o0[c] = o[c][0] * gv;
+      if (!SHARED) o0[c] = o[c][0] * gv;
       dn[c] = dv[c][0] * gv;
     }
   }
@@ -432,21 +449,24 @@ __device__ __forceinline__ void pair_test_warp(const Chunk& ch, int l,
     const float gv = ch.g[k * CK + l];
 #pragma unroll
     for (int c = 0; c < RPT; ++c) {
-      o0[c] = o0[c] + o[c][k] * gv;
+      if (!SHARED) o0[c] = o0[c] + o[c][k] * gv;
       dn[c] = dn[c] + dv[c][k] * gv;
     }
   }
   const float c0 = ch.c[l];
-  float num[RPT], t[RPT], tot[RPT];
+  float num[RPT], tot[RPT];
   bool any = false;
 #pragma unroll
   for (int c = 0; c < RPT; ++c) {
-    num[c] = c0 - o0[c];
-    go[c] = go[c] &&
-            (num[c] > 0.f ? dn[c] > 0.f : (num[c] < 0.f && dn[c] < 0.f));
+    num[c] = SHARED ? c0 : c0 - o0[c];
+    t[c] = 0.f;
+    // bitwise, so the compiler keeps it one line of predicates
+    const bool pos = (num[c] > 0.f) & (dn[c] > 0.f);
+    const bool neg = (num[c] < 0.f) & (dn[c] < 0.f);
+    go[c] = go[c] & (PRE ? pos | neg : dn[c] != 0.f);
     any = any || go[c];
   }
-  if (!__any_sync(0xffffffffu, any)) return;
+  if (PRE && !__any_sync(FULL, any)) return;
 #pragma unroll
   for (int i = 1; i < D; ++i) {
     float oi[RPT], di[RPT];
@@ -454,7 +474,7 @@ __device__ __forceinline__ void pair_test_warp(const Chunk& ch, int l,
       const float gv = ch.g[(i * D) * CK + l];
 #pragma unroll
       for (int c = 0; c < RPT; ++c) {
-        oi[c] = o[c][0] * gv;
+        if (!SHARED) oi[c] = o[c][0] * gv;
         di[c] = dv[c][0] * gv;
       }
     }
@@ -463,7 +483,7 @@ __device__ __forceinline__ void pair_test_warp(const Chunk& ch, int l,
       const float gv = ch.g[(i * D + k) * CK + l];
 #pragma unroll
       for (int c = 0; c < RPT; ++c) {
-        oi[c] = oi[c] + o[c][k] * gv;
+        if (!SHARED) oi[c] = oi[c] + o[c][k] * gv;
         di[c] = di[c] + dv[c][k] * gv;
       }
     }
@@ -473,17 +493,44 @@ __device__ __forceinline__ void pair_test_warp(const Chunk& ch, int l,
     for (int c = 0; c < RPT; ++c) {
       if (i == 1) {
         t[c] = num[c] / (go[c] ? dn[c] : 1.f);
-        go[c] = go[c] && t[c] > 0.f && t[c] < ld[c];
+        go[c] = go[c] && t[c] > 0.f && t[c] < cut[c];
       }
-      const float a = (cv - oi[c]) - t[c] * di[c];
+      const float a = SHARED ? cv - t[c] * di[c] : (cv - oi[c]) - t[c] * di[c];
       go[c] = go[c] && (a >= -FUZZ) && (a <= 1.f + FUZZ);
       tot[c] = i == 1 ? a : tot[c] + a;
       any = any || go[c];
     }
-    if (!__any_sync(0xffffffffu, any)) return;
+    if (!__any_sync(FULL, any)) return;
   }
 #pragma unroll
   for (int c = 0; c < RPT; ++c) go[c] = go[c] && (tot[c] <= 1.f + FUZZ);
+}
+
+// The lexicographic minimum of (t, l) over the four lanes of a ray (lanes
+// 4g .. 4g + 3): every lane ends with it.  Lanes without a hit hold
+// (INFINITY, CK).
+__device__ __forceinline__ void ray_min(float& t, int& l) {
+#pragma unroll
+  for (int off = 1; off < SQ; off <<= 1) {
+    const float ot = __shfl_xor_sync(FULL, t, off);
+    const int ol = __shfl_xor_sync(FULL, l, off);
+    if (ot < t || (ot == t && ol < l)) {
+      t = ot;
+      l = ol;
+    }
+  }
+}
+
+// Whether every coordinate of a ray is finite.  No pair test of another
+// ray is valid, so a walk need not list it: an infinite or NaN origin
+// makes every numerator infinite or NaN, so t is too (t < cut fails); an
+// infinite or NaN direction makes every dn so, and t is +-0 or NaN.
+template <int D>
+__device__ __forceinline__ bool finite_ray(const float (&v)[D]) {
+  bool f = true;
+#pragma unroll
+  for (int k = 0; k < D; ++k) f = f && fabsf(v[k]) < INFINITY;
+  return f;
 }
 
 }  // namespace ntr

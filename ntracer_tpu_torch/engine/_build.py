@@ -54,9 +54,11 @@ _OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
 # (csrc/grid_walk.cu)
 _GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
 _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
-# the streaming occlusion walks' (kernels 2.6 and 2.8) *_info queries take
-# (d, int[5])
+# the streaming walks' launch queries: the occlusion walks' (kernels 2.6
+# and 2.8) take (d, int[5]), the nearest-hit walks' (2.5 and 2.7) (d,
+# shared, int[5])
 _INFO_ARGS = [_I, _P]
+_NEAREST_INFO_ARGS = [_I, _I, _P]
 
 
 def sources():
@@ -162,12 +164,16 @@ def load():
             lib.ntr_grid_occluded.restype = ctypes.c_int
             # the streaming walks (the STREAM variants in the same
             # sources) take their resident sibling's arguments
-            for name, args in (("ntr_nearest_hit_hbm", _NEAREST_ARGS),
-                               ("ntr_occluded_hbm", _OCCLUDED_ARGS),
-                               ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
-                               ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
-                               ("ntr_occluded_hbm_info", _INFO_ARGS),
-                               ("ntr_occluded_t_hbm_info", _INFO_ARGS)):
+            stream = (
+                ("ntr_nearest_hit_hbm", _NEAREST_ARGS),
+                ("ntr_occluded_hbm", _OCCLUDED_ARGS),
+                ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
+                ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
+                ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
+                ("ntr_occluded_hbm_info", _INFO_ARGS),
+                ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
+                ("ntr_occluded_t_hbm_info", _INFO_ARGS))
+            for name, args in stream:
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ctypes.c_int
             lib.ntr_error_string.argtypes = [ctypes.c_int]

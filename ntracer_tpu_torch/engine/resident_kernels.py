@@ -1046,15 +1046,25 @@ STREAM_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
                "shared_bytes")
 
 
-def occlusion_stream_info(d, filtered=False):
-    """Kernel 2.6 (``filtered``: 2.8) at dimension ``d`` as it launches on
-    the current card: registers and local (spill) bytes a thread, blocks
-    per SM, ring slots and shared bytes a block (``STREAM_INFO``)."""
+# the C launch queries of the streaming walks, by wrapper
+_INFO_ENTRIES = {"nearest_hit_hbm": "ntr_nearest_hit_hbm_info",
+                 "occluded_hbm": "ntr_occluded_hbm_info",
+                 "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
+                 "occluded_transparent_hbm": "ntr_occluded_t_hbm_info"}
+
+
+def stream_info(name, d, shared=False):
+    """The streaming walk ``name`` (one of the four ``*_hbm`` wrappers:
+    kernels 2.5-2.8) at dimension ``d`` as it launches on the current card,
+    for the nearest-hit walks in their ``shared`` (primary rays) variant or
+    not: registers and local (spill) bytes a thread, blocks per SM, ring
+    slots and shared bytes a block (``STREAM_INFO``)."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(STREAM_INFO),), dtype=torch.int32)
-    fn = lib.ntr_occluded_t_hbm_info if filtered else lib.ntr_occluded_hbm_info
-    err = fn(d, info.data_ptr())
+    fn = getattr(lib, _INFO_ENTRIES[name])
+    err = fn(d, int(shared), info.data_ptr()) if "nearest" in name \
+        else fn(d, info.data_ptr())
     if err:
         raise RuntimeError(f"kernel query failed: {_build.error_string(err)} "
                            f"({err})")

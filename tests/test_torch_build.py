@@ -28,7 +28,7 @@ def test_sources_and_build_dir():
         "grid_walk.cu", "nearest_hit.cu", "nearest_hit_transparent.cu",
         "occluded.cu", "occluded_transparent.cu"]
     assert [os.path.basename(s) for s in _build.headers()] == [
-        "chunk_ring.cuh", "occl_stream.cuh", "pair_test.cuh"]
+        "chunk_ring.cuh", "pair_test.cuh", "stream_walk.cuh"]
     pkg = os.path.dirname(os.path.dirname(_build.__file__))
     assert all(os.path.dirname(s) == os.path.join(pkg, "csrc")
                for s in srcs + _build.headers())
@@ -45,7 +45,7 @@ def test_sources_and_build_dir():
 @pytest.mark.parametrize("name", ["nearest_hit.cu", "occluded.cu",
                                   "nearest_hit_transparent.cu",
                                   "occluded_transparent.cu", "pair_test.cuh",
-                                  "chunk_ring.cuh", "occl_stream.cuh",
+                                  "chunk_ring.cuh", "stream_walk.cuh",
                                   "grid_walk.cu"])
 def test_library_name_follows_every_build_input(name, tmp_path, monkeypatch):
     """An edit to any source or header the build reads changes the
@@ -102,12 +102,16 @@ def test_transparent_ctypes_signatures_match_the_c_entry_points(
     ("ntr_nearest_t_hbm", "_NEAREST_T_ARGS", "nearest_hit_transparent.cu"),
     ("ntr_occluded_t_hbm", "_OCCLUDED_T_ARGS", "occluded_transparent.cu"),
     ("ntr_occluded_hbm_info", "_INFO_ARGS", "occluded.cu"),
-    ("ntr_occluded_t_hbm_info", "_INFO_ARGS", "occluded_transparent.cu")])
+    ("ntr_occluded_t_hbm_info", "_INFO_ARGS", "occluded_transparent.cu"),
+    ("ntr_nearest_hit_hbm_info", "_NEAREST_INFO_ARGS", "nearest_hit.cu"),
+    ("ntr_nearest_t_hbm_info", "_NEAREST_INFO_ARGS",
+     "nearest_hit_transparent.cu")])
 def test_streaming_ctypes_signatures_match_the_c_entry_points(
         fn, argtypes, source):
     """The streaming walks (kernels 2.5-2.8) take their resident sibling's
-    arguments, the launch queries of 2.6 and 2.8 a d and five ints, and
-    load() binds them so."""
+    arguments, the launch queries of 2.6 and 2.8 a d and five ints, those
+    of 2.5 and 2.7 a d, the shared flag and five ints, and load() binds
+    them so."""
     _check_signature(fn, getattr(_build, argtypes), source)
     src = open(_build.__file__).read()
     assert f'("{fn}", {argtypes})' in src
@@ -133,3 +137,29 @@ def test_grid_kernels_take_d_up_to_16():
     assert re.search(r"constexpr int TB = %d;" % gk.TRI_BLOCK, src)
     assert re.search(r"constexpr int RB = %d;" % gk.RAY_BLOCK, src)
     assert gk.MAX_D >= 16
+
+
+def _defines(name, fn):
+    """Whether csrc/``name`` defines the device function ``fn`` (a
+    template or an inline function, not a call)."""
+    src = open(os.path.join(_build.CSRC_DIR, name)).read()
+    return re.search(r"__device__ __forceinline__ \w+ %s\(" % fn, src) \
+        is not None
+
+
+@pytest.mark.parametrize("fn", ["stream_walk", "pair_test_warp",
+                                "entry_minima_t", "warp_cands"])
+def test_one_streaming_loop_for_the_four_streaming_walks(fn):
+    """The streaming walks' loop and its pieces are defined once, in
+    stream_walk.cuh (chunk_ring.cuh keeps only the TMA and mbarrier
+    primitives), and every streaming kernel (2.5-2.8) runs on it."""
+    names = [os.path.basename(p) for p in _build.sources() +
+             _build.headers()]
+    assert [n for n in names if _defines(n, fn)] == ["stream_walk.cuh"]
+    ring = open(os.path.join(_build.CSRC_DIR, "chunk_ring.cuh")).read()
+    assert "ring_config" not in ring and "stream_walk(" not in ring
+    for src in ("nearest_hit.cu", "occluded.cu", "nearest_hit_transparent.cu",
+                "occluded_transparent.cu"):
+        text = open(os.path.join(_build.CSRC_DIR, src)).read()
+        assert '#include "stream_walk.cuh"' in text
+        assert re.search(r"stream_walk<D, (true|false)>\(", text), src

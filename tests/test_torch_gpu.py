@@ -447,7 +447,7 @@ def test_card_frame_over_the_line_takes_the_streaming_kernels(cuda, make,
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
 
 
-def _stack_scene(d, n=300, layers=256, seed=13):
+def _stack_scene(d, n=300, layers=256, seed=13, ties=0):
     """``n`` random d-D simplices placed as ``_glass_high_d`` places them,
     glass and opaque by turns, and beside them a stack of ``layers`` glass
     simplices across axis 2 (each in the plane x_2 = z, spanning
@@ -455,7 +455,12 @@ def _stack_scene(d, n=300, layers=256, seed=13):
     0.01-0.1.  The layers are wide for the scene, so
     ``centroid_bins`` packs them 128 a chunk, and a ray along axis 2
     through the stack crosses every layer: such a chunk's visit has 128
-    factors below 1."""
+    factors below 1.  With ``ties`` > 0, two stacks of ``ties`` identical
+    simplices in the camera's view, before the rest (``TIE_GLASS`` of
+    glass, opacity 0.05, then ``TIE_OPAQUE``): identical rows give a ray
+    bit-equal t in every copy, and a stack of 300 fills three chunks, so
+    ties fall across the lanes of a chunk and across the visits of a
+    group."""
     a = api()
     nt = a.NTracer(d)
     solid = a.Material((0.3, 0.8, 0.5))
@@ -480,6 +485,11 @@ def _stack_scene(d, n=300, layers=256, seed=13):
                                                                      0.1)))
         protos.append(nt.TrianglePrototype([nt.Vector(*p) for p in pts],
                                            mat))
+    for (base, side), mat in ((TIE_GLASS, a.Material((0.8, 0.8, 1.0),
+                                                     opacity=0.05)),
+                              (TIE_OPAQUE, solid)):
+        pts = [nt.Vector(*p) for p in _tie_vertices(d, base, side)]
+        protos += [nt.TrianglePrototype(pts, mat) for _ in range(ties)]
     scene = nt.build_composite_scene(protos)
     cam = nt.Camera()
     cam.translate(nt.Vector.axis(2, -8))
@@ -488,6 +498,22 @@ def _stack_scene(d, n=300, layers=256, seed=13):
 
 
 STACK_BASE, STACK_SIDE = 4.0, 8.0
+# the tie stacks: (first vertex on axes 0, 1 and 2, side)
+TIE_GLASS, TIE_OPAQUE = ((-0.6, -0.6, -3.5), 1.6), ((-0.8, -0.8, -3.2), 2.0)
+
+
+def _tie_vertices(d, base, side):
+    """A simplex in the plane x_2 = base[2]: ``base`` (-0.05 on the axes
+    past 2, so the view's 3-space crosses it) and ``base`` + ``side`` along
+    each other axis."""
+    b = np.full(d, -0.05)
+    b[:3] = base
+    pts = [b.copy()]
+    for ax in [0, 1] + list(range(3, d)):
+        v = b.copy()
+        v[ax] += side
+        pts.append(v)
+    return pts
 
 
 def _chunk_t(res, d, o, dv, chunk):
@@ -664,20 +690,193 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
         _equal(got, resident(*args))
 
 
-# pair_test_warp (occl_stream.cuh, kernels 2.6 and 2.8) and pair_test
-# (pair_test.cuh, the other walks) side by side: every ray x slot of a chunk
-# from global memory, a lane's slot rotated by its lane, some pairs not
-# wanted on the way in (as a decided ray or the skip id leaves them)
+def _aim(origin, points):
+    """Unit directions (d, n) from ``origin`` (d,) to ``points`` (d, n)."""
+    v = points - origin[:, None]
+    return v / torch.sqrt((v * v).sum(dim=0, keepdim=True))
+
+
+def _nearest_cases(d, dev):
+    """One wavefront of eight 512-ray blocks over ``_stack_scene(d,
+    ties=300)`` (its pool forced over the line by the caller) that holds
+    the streaming nearest-hit walks' corner cases, block by block:
+      0. rays from the camera aimed into both tie stacks: 300 glass copies
+         at one t, then 300 opaque copies at one t, across lanes and
+         visits;
+      1. rays along the glass stack of ``_stack_scene`` (256 layers, 128 a
+         chunk), past its end;
+      2. block 0 with every other origin NaN;
+      3. block 0 with the even rays' skip id the opaque copy that wins
+         there: the next copy at the same t wins;
+      4. rays along axis 0 in the empty plane x_2 = -3 between the tie
+         stacks and the rest, parallel to the stacks: live, no hit;
+      5. rays inactive in every ``active`` set: a dead block;
+      6. the frame's first 512 primary rays;
+      7. rays from block 0's opaque hit points in random directions.
+    Returns (res, (oT, dT, skip), [active, half-live active], facts) with
+    facts the twins' view of what each case is."""
+    scene = _stack_scene(d, ties=300)
+    cfg, arrs, cam_o, oT, dT = _primary(scene, dev)
+    assert "res_is_hbm" in arrs and cfg.has_transparency
+    res = pwf._res_dict(arrs)
+    g = np.random.RandomState(d + 40)
+    none = torch.full((512,), -1, dtype=torch.int32, device=dev)
+
+    def aimed_at(base, side, n):
+        lam = g.uniform(0.15, 0.35, (2, n))
+        pts = np.stack([_tie_vertices(d, base, side)[0]] * n, axis=1)
+        pts[0] += lam[0] * side
+        pts[1] += lam[1] * side
+        pts[3:] = 0.0
+        return torch.as_tensor(pts.astype(np.float32), device=dev)
+
+    o0 = cam_o.float()[:, None].expand(d, 512).contiguous()
+    d0 = _aim(cam_o.float(), aimed_at(*TIE_OPAQUE, 512)).contiguous()
+    # 1. along the layers (axis 2), from before them to past their end
+    o1 = np.full((d, 512), STACK_BASE, np.float32)
+    for ax in [0, 1] + list(range(3, d)):
+        o1[ax] += g.uniform(0.1, 0.8 * STACK_SIDE / (d - 1), 512) \
+            .astype(np.float32)
+    o1[2] = -1.0
+    d1 = np.zeros((d, 512), np.float32)
+    d1[2] = 1.0
+    o1, d1 = (torch.as_tensor(x, device=dev) for x in (o1, d1))
+    # 2. NaN origins
+    o2 = o0.clone()
+    o2[:, ::2] = float("nan")
+    # 3. the winning opaque copy skipped
+    w0 = prk._walk_inputs(res, o0, d0, none, d, None, None, None)
+    t0, s0, _v = prk._walk_ref(w0)
+    assert bool((s0 >= 0).all())
+    win = res["ids"][:, 0].reshape(-1)[s0.long()].to(torch.int32)
+    even = torch.arange(512, device=dev) % 2 == 0
+    sk3 = torch.where(even, win, -1).to(torch.int32)
+    # 4. along axis 0 between the tie stacks and the rest
+    o4 = np.full((d, 512), -0.05, np.float32)
+    o4[0] = -2.5
+    o4[1] = g.uniform(-0.5, 0.5, 512)
+    o4[2] = -3.0
+    d4 = np.zeros((d, 512), np.float32)
+    d4[0] = 1.0
+    o4, d4 = (torch.as_tensor(x, device=dev) for x in (o4, d4))
+    # 7. random directions from block 0's hit points
+    p7 = o0 + t0[None, :] * d0
+    d7 = pwf._unitT(torch.as_tensor(g.normal(size=(d, 512))
+                                    .astype(np.float32), device=dev))
+    blocks = [(o0, d0, none), (o1, d1, none), (o2, d0, none), (o0, d0, sk3),
+              (o4, d4, none), (o0, d0, none), (oT[:, :512], dT[:, :512], none),
+              (p7, d7, win)]
+    oT_c, dT_c, sk_c = (torch.cat(x, dim=-1).contiguous()
+                        for x in zip(*blocks))
+    blk = torch.arange(8 * 512, device=dev) // 512
+    active = blk != 5
+    half = active & (torch.arange(8 * 512, device=dev) % 2 == 0)
+    # the twins' view of each case
+    t, s, v = prk.nearest_hit_hbm_ref(res, oT_c, dT_c, sk_c, d,
+                                      active=active)
+    tt, ts = prk.nearest_hit_transparent_hbm_ref(
+        res, oT_c, dT_c, sk_c, d, 8, active=active)[2:4]
+    # block 0, ray 1: the chunks and lanes whose t equals its nearest hit
+    tc, vc = _chunk_t_all(res, d, oT_c[:, 1:2], dT_c[:, 1:2])
+    at_best = vc & (tc == t[1])
+    facts = dict(
+        tie_lanes=int(at_best.sum()), tie_chunks=int(at_best.any(dim=1).sum()),
+        glass_ties=int((tt[:, 1] == tt[0, 1]).sum()),
+        skip_moves=int((s[1536:2048:2] != s[0:512:2]).sum()),
+        skip_same_t=bool(torch.equal(t[1536:2048:2], t[0:512:2])),
+        nan_hits=int((s[1024:1536:2] >= 0).sum()),
+        miss_hits=int((s[2048:2560] >= 0).sum() + (ts[:, 2048:2560] >= 0)
+                      .sum()),
+        miss_live=bool(prk._walk_inputs(res, oT_c, dT_c, sk_c, d, None,
+                                        active, None)["blive"][4] != 0),
+        dead_visits=int(v[5]),
+        layers_filled=int((ts[:, 512:1024] >= 0).all(dim=0).sum()))
+    tcs, vcs = _chunk_t_all(res, d, oT_c[:, 512:513], dT_c[:, 512:513])
+    glass = res["opa"][:, 0] < 1
+    facts["glass_only_chunks"] = int((vcs & glass).all(dim=1).sum())
+    return res, (oT_c, dT_c, sk_c), [active, half], facts
+
+
+def _chunk_t_all(res, d, o, dv):
+    """``_chunk_t`` of one ray (d, 1) against every chunk of the pool:
+    (chunks, 128) t and validity."""
+    n = res["gt"].shape[0]
+    skip = torch.full((n, 1, 1), -1, dtype=torch.int32, device=o.device)
+    t, valid = prk._chunk_hits_vals(
+        d, False, res["gt"], res["ci"], res["ids"][:, 0],
+        o[:, None, :, None].expand(d, n, 1, 1),
+        dv[:, None, :, None].expand(d, n, 1, 1), skip)
+    return t[:, 0], valid[:, 0]
+
+
+@pytest.mark.parametrize("d", [3, 6, 8])
+def test_streaming_nearest_walks_corner_cases(cuda, d, monkeypatch):
+    """The redesigned kernels 2.5 and 2.7 on the corner cases of
+    ``_nearest_cases`` (a pool over the line at d = 3, 6 and 8), with every
+    live ray active and with every other one: each equals its twin bit for
+    bit (t, slots, the K slots by position for K = 2 and 8, visits), 2.5
+    equals the resident kernel 2.1 and 2.7 has 2.3's t and opaque slot.
+    Then the frame's primary wavefront with the shared rows."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, (oT, dT, sk), actives, facts = _nearest_cases(d, cuda)
+    print(f"d = {d}: {facts}")
+    assert facts["tie_lanes"] >= 2 and facts["tie_chunks"] >= 2
+    assert facts["glass_ties"] >= 2
+    assert facts["skip_moves"] and facts["skip_same_t"]
+    assert facts["nan_hits"] == 0
+    assert facts["miss_live"] and facts["miss_hits"] == 0
+    assert facts["dead_visits"] == 0
+    assert facts["glass_only_chunks"] >= 1 and facts["layers_filled"]
+    for active in actives:
+        kw = dict(active=active)
+        before = prk.nearest_hit_hbm.launches
+        got = prk.nearest_hit_hbm(res, oT, dT, sk, d, **kw)
+        assert prk.nearest_hit_hbm.launches == before + 1
+        torch.cuda.synchronize()
+        _equal(got, prk.nearest_hit_hbm_ref(res, oT, dT, sk, d, **kw))
+        _equal(got, prk.nearest_hit(res, oT, dT, sk, d, **kw))
+        for K in (2, 8):
+            before = prk.nearest_hit_transparent_hbm.launches
+            got = prk.nearest_hit_transparent_hbm(res, oT, dT, sk, d, K, **kw)
+            assert prk.nearest_hit_transparent_hbm.launches == before + 1
+            torch.cuda.synchronize()
+            _equal(got, prk.nearest_hit_transparent_hbm_ref(res, oT, dT, sk,
+                                                            d, K, **kw))
+            _equal(got[:2], prk.nearest_hit_transparent(res, oT, dT, sk, d,
+                                                        K, **kw)[:2])
+    scene = _stack_scene(d, ties=300)
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    res = pwf._res_dict(arrs)
+    skip = torch.full((oT.shape[1],), -1, dtype=torch.int32, device=cuda)
+    kw = dict(order=pctx["order"], sh=pctx["sh_res"])
+    got = prk.nearest_hit_hbm(res, oT, dT, skip, d, **kw)
+    _equal(got, prk.nearest_hit_hbm_ref(res, oT, dT, skip, d, **kw))
+    _equal(got, prk.nearest_hit(res, oT, dT, skip, d, **kw))
+    for K in (2, 8):
+        got = prk.nearest_hit_transparent_hbm(res, oT, dT, skip, d, K, **kw)
+        _equal(got, prk.nearest_hit_transparent_hbm_ref(res, oT, dT, skip, d,
+                                                        K, **kw))
+        _equal(got[:2], prk.nearest_hit_transparent(res, oT, dT, skip, d, K,
+                                                    **kw)[:2])
+
+
+# pair_test_warp (stream_walk.cuh, kernels 2.5-2.8) and pair_test
+# (pair_test.cuh, the resident walks) side by side: every ray x slot of a
+# chunk from global memory, a lane's slot rotated by its lane, some pairs
+# not wanted on the way in (as a decided ray or the skip id leaves them);
+# the verdict, and t where it holds
 _PAIR_PROBE = r"""
-#include "occl_stream.cuh"
+#include "stream_walk.cuh"
 
 namespace {
 using namespace ntr;
 
-template <int D, int RPT>
+template <int D, int RPT, bool SHARED, bool PRE>
 __global__ void pair_probe(const float* gt, const float* ci, const int* ids,
                            const float* oT, const float* dT, const float* ld,
-                           int R, unsigned char* got, unsigned char* want) {
+                           int R, unsigned char* got, unsigned char* want,
+                           float* tgot, float* twant) {
   const int base = (blockIdx.x * blockDim.x + threadIdx.x) * RPT;
   const int lane = threadIdx.x & 31;
   float o[RPT][D], dv[RPT][D], rl[RPT];
@@ -693,39 +892,72 @@ __global__ void pair_probe(const float* gt, const float* ci, const int* ids,
   for (int j = 0; j < CK; ++j) {
     const int l = (j + lane) % CK;
     bool go[RPT], in[RPT];
+    float tw[RPT];
     for (int c = 0; c < RPT; ++c)
       go[c] = in[c] = base + c < R && (base + c + l) % 5 != 0;
-    pair_test_warp<D, RPT>(ch, l, o, dv, rl, go);
+    pair_test_warp<D, RPT, SHARED, PRE>(ch, l, o, dv, rl, go, tw);
     for (int c = 0; c < RPT; ++c) {
       if (base + c >= R) continue;
       float t;
-      const bool v = pair_test<D, false>(gt, ci, l, o[c], dv[c], t);
-      got[(size_t)(base + c) * CK + l] = go[c];
-      want[(size_t)(base + c) * CK + l] = in[c] && v && t < rl[c];
+      const bool v = pair_test<D, SHARED>(gt, ci, l, o[c], dv[c], t);
+      const bool w = in[c] && v && t < rl[c];
+      const size_t at = (size_t)(base + c) * CK + l;
+      got[at] = go[c];
+      want[at] = w;
+      tgot[at] = go[c] ? tw[c] : 0.f;
+      twant[at] = w ? t : 0.f;
     }
   }
 }
 
-template <int D, int RPT>
+template <int D, int RPT, bool SHARED, bool PRE>
 int launch(const float* gt, const float* ci, const int* ids, const float* oT,
            const float* dT, const float* ld, int R, unsigned char* got,
-           unsigned char* want) {
+           unsigned char* want, float* tgot, float* twant) {
   const int per = 128 * RPT;
-  pair_probe<D, RPT><<<(R + per - 1) / per, 128>>>(gt, ci, ids, oT, dT, ld,
-                                                    R, got, want);
+  pair_probe<D, RPT, SHARED, PRE><<<(R + per - 1) / per, 128>>>(
+      gt, ci, ids, oT, dT, ld, R, got, want, tgot, twant);
   return (int)cudaDeviceSynchronize();
+}
+
+template <int D, bool SHARED, bool PRE>
+int launch_rpt(int rpt, const float* gt, const float* ci, const int* ids,
+               const float* oT, const float* dT, const float* ld, int R,
+               unsigned char* got, unsigned char* want, float* tgot,
+               float* twant) {
+  return rpt == 2 ? launch<D, 2, SHARED, PRE>(gt, ci, ids, oT, dT, ld, R,
+                                              got, want, tgot, twant)
+                  : launch<D, 1, SHARED, PRE>(gt, ci, ids, oT, dT, ld, R,
+                                              got, want, tgot, twant);
+}
+
+template <int D>
+int launch_d(int rpt, int shared, int pre, const float* gt, const float* ci,
+             const int* ids, const float* oT, const float* dT,
+             const float* ld, int R, unsigned char* got, unsigned char* want,
+             float* tgot, float* twant) {
+  if (shared)
+    return pre ? launch_rpt<D, true, true>(rpt, gt, ci, ids, oT, dT, ld, R,
+                                           got, want, tgot, twant)
+               : launch_rpt<D, true, false>(rpt, gt, ci, ids, oT, dT, ld, R,
+                                            got, want, tgot, twant);
+  return pre ? launch_rpt<D, false, true>(rpt, gt, ci, ids, oT, dT, ld, R,
+                                          got, want, tgot, twant)
+             : launch_rpt<D, false, false>(rpt, gt, ci, ids, oT, dT, ld, R,
+                                           got, want, tgot, twant);
 }
 }  // namespace
 
-extern "C" int ntr_pair_probe(int d, int rpt, const float* gt,
-                              const float* ci, const int* ids,
-                              const float* oT, const float* dT,
-                              const float* ld, int R, unsigned char* got,
-                              unsigned char* want) {
+extern "C" int ntr_pair_probe(int d, int rpt, int shared, int pre,
+                              const float* gt, const float* ci,
+                              const int* ids, const float* oT,
+                              const float* dT, const float* ld, int R,
+                              unsigned char* got, unsigned char* want,
+                              float* tgot, float* twant) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return rpt == 2 ? launch<DD, 2>(gt, ci, ids, oT, dT, ld, R, got, want)  \
-                    : launch<DD, 1>(gt, ci, ids, oT, dT, ld, R, got, want);
+    return launch_d<DD>(rpt, shared, pre, gt, ci, ids, oT, dT, ld, R, got,   \
+                        want, tgot, twant);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(6)
@@ -756,38 +988,89 @@ def pair_probe(tmp_path_factory):
     subprocess.run(_build.link_command([obj], lib, nvcc), check=True,
                    capture_output=True)
     fn = ctypes.CDLL(lib).ntr_pair_probe
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + \
+        [ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 
 
+def _pair_probe_all(pair_probe, d, shared, gt, ci, ids, oT, dT, ld):
+    """Run the probe on every chunk for one and two rays a lane, with and
+    without the pre-test, and hold pair_test_warp to pair_test: the
+    verdicts equal, and t bit for bit where the pair holds.  Returns the
+    pairs that hold."""
+    R = oT.shape[1]
+    hits = 0
+    for rpt, pre in ((1, 1), (2, 1), (1, 0), (2, 0)):
+        for k in range(gt.shape[0]):
+            got = torch.zeros((R, prk.CK), dtype=torch.uint8,
+                              device=oT.device)
+            want = torch.ones_like(got)
+            tgot = torch.zeros((R, prk.CK), device=oT.device)
+            twant = torch.ones_like(tgot)
+            err = pair_probe(d, rpt, int(shared), pre, gt[k].data_ptr(),
+                             ci[k].data_ptr(), ids[k].data_ptr(),
+                             oT.data_ptr(), dT.data_ptr(), ld.data_ptr(), R,
+                             got.data_ptr(), want.data_ptr(),
+                             tgot.data_ptr(), twant.data_ptr())
+            assert err == 0
+            assert torch.equal(got, want), (rpt, pre, k,
+                                            int((got != want).sum()))
+            assert torch.equal(tgot.view(torch.int32),
+                               twant.view(torch.int32)), (rpt, pre, k)
+            hits += int(got.sum())
+    return hits
+
+
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_pair_test_warp_equals_pair_test(cuda, pair_probe, d, monkeypatch):
-    """The redesigned walks' pair test (pre-test before the division, edges
-    only while a lane can pass, sums from the first product) decides every
-    pair as pair_test && t < ldist does, for one and two rays a lane, on
-    every chunk of ``_occlusion_cases(d)`` (NaN origins, ldist equal to a
-    hit's t, glass stacks) with its shadow rays."""
+    """The streaming walks' pair test (with or without the pre-test before
+    the division, edges only while a lane can pass, sums from the first
+    product, a cut) decides
+    every pair as pair_test && t < cut does and gives pair_test's t, for
+    one and two rays a lane, on every chunk of ``_occlusion_cases(d)`` (NaN
+    origins, ldist equal to a hit's t, glass stacks) with its shadow rays,
+    and in the shared form (offset rows holding the origin dots) on every
+    chunk of ``_stack_scene(d, ties=300)`` with its primary rays, cut at
+    random distances, 0, +inf and NaN."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, rays, _facts = _occlusion_cases(d, cuda)
     oT, dT, ld = (x.contiguous() for x in rays[:3])
-    R = oT.shape[1]
     gt, ci, ids = (res[k].contiguous() for k in ("gt", "ci", "ids"))
     assert gt.shape[1] >= d * d
-    hits = 0
-    for rpt in (1, 2):
-        for k in range(gt.shape[0]):
-            got = torch.zeros((R, prk.CK), dtype=torch.uint8, device=cuda)
-            want = torch.ones_like(got)
-            err = pair_probe(d, rpt, gt[k].data_ptr(), ci[k].data_ptr(),
-                             ids[k].data_ptr(), oT.data_ptr(),
-                             dT.data_ptr(), ld.data_ptr(), R,
-                             got.data_ptr(), want.data_ptr())
-            assert err == 0
-            assert torch.equal(got, want), (rpt, k, int((got != want).sum()))
-            hits += int(got.sum())
-    assert hits > 0
+    assert _pair_probe_all(pair_probe, d, False, gt, ci, ids, oT, dT, ld) > 0
+    scene = _stack_scene(d, ties=300)
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    res = pwf._res_dict(arrs)
+    oT, dT = oT[:, :4096].contiguous(), dT[:, :4096].contiguous()
+    g = np.random.RandomState(d)
+    cut = g.uniform(0, 20, 4096).astype(np.float32)
+    cut[::7] = np.inf
+    cut[3::11] = 0.0
+    cut[5::13] = np.nan
+    cut = torch.as_tensor(cut, device=cuda)
+    sh = pctx["sh_res"].contiguous()
+    gt, ids = res["gt"].contiguous(), res["ids"].contiguous()
+    assert _pair_probe_all(pair_probe, d, True, gt, sh, ids, oT, dT,
+                           cut) > 0
+
+
+def test_streaming_kernels_launch_info(cuda):
+    """Kernels 2.5 and 2.7 (both variants) as they launch at every d: a
+    ring of at least two slots, and two 512-thread blocks an SM of at most
+    64 registers a thread wherever the ring's two slots fit beside the
+    kernel's shared memory; 2.7 at d = 8, whose K slots take 32 KiB, runs
+    one block of at most 128 registers a thread."""
+    for name in ("nearest_hit_hbm", "nearest_hit_transparent_hbm"):
+        for shared in (False, True):
+            for d in range(3, 9):
+                info = prk.stream_info(name, d, shared)
+                print(f"{name} shared={shared} d = {d}: {info}")
+                assert info["ring_slots"] >= 2
+                one = name == "nearest_hit_transparent_hbm" and d == 8
+                assert info["blocks_per_sm"] >= (1 if one else 2)
+                assert info["registers"] <= (128 if one else 64)
 
 
 def test_streaming_occlusion_kernels_two_blocks_an_sm(cuda):
@@ -796,7 +1079,8 @@ def test_streaming_occlusion_kernels_two_blocks_an_sm(cuda):
     slots."""
     for filtered in (False, True):
         for d in range(3, 9):
-            info = prk.occlusion_stream_info(d, filtered)
+            info = prk.stream_info(
+                "occluded_transparent_hbm" if filtered else "occluded_hbm", d)
             print(f"{'2.8' if filtered else '2.6'} d = {d}: {info}")
             assert info["blocks_per_sm"] >= 2 and info["registers"] <= 64
             assert info["ring_slots"] >= 2
