@@ -47,7 +47,8 @@ at 1024x1024, 8-bit RGB:
 
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its resident sibling (kernels 2.1-2.4) on the same
-inputs; the grid kernels against their twins at the orthoplex's full
+inputs (2.4 launches 2.8's body: that check is one of equality, not of
+time); the grid kernels against their twins at the orthoplex's full
 wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
 rays to three lights and a dead wavefront), and at d = 9 (the 9-orthoplex)
 and d = 16 (200 random simplices, rays aimed at them) for a runtime d.  The script checks 64 pixels of each frame against the scalar NumPy
@@ -60,9 +61,12 @@ glass.  Both 120-cell frames are checked from a camera turned 0.6 rad off
 the axis view: that view is a mirror hyperplane of the polytope, its rays
 meet mirrored simplices on their common boundary, and there the last bit
 decides (tests/test_torch_mirror_view.py); so are both mesh frames (the
-axis camera looks through the sphere's polar holes) and the orthoplex.  Each kernel's launch
-count is set
-to 0 before a path is driven and read after it.  Any failed phase exits
+axis camera looks through the sphere's polar holes) and the orthoplex.
+Each kernel's launch count is set to 0 before a path is driven and read
+after it; one more glass 120-cell frame counts kernel 2.4's live launches
+(a block visited a chunk).  The script prints the launch of 2.4
+(stream_walk.cuh's body) and of 2.9 at d = 9, 10 and 16 (registers,
+spills, blocks an SM, ring slots, rays a thread).  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
 kernel's numbers and ``{"ok": true, "device": {...}}``.
 
@@ -108,9 +112,13 @@ PEAK_BYTES = 3.35e12       # bytes/s
 # Instructions an IEEE division (div.rn.f32) executes on its fast path in the
 # card's SASS, counted by div_sass_ops() from the same nvcc flags.
 DIV_OPS = 10
-# The four streaming walks run the loop of stream_walk.cuh (compacted rays,
-# the straight-line pair test, per-warp slot release).
+# The four streaming walks and kernel 2.4 run the loop of stream_walk.cuh
+# (compacted rays, the straight-line pair test, per-warp slot release).
 REDESIGNED = "ntracer_tpu_torch/csrc/stream_walk.cuh"
+# Kernel 2.9 runs grid_nearest_kernel<D, SHARED, RPT> (exact width, RPT rays
+# a thread, warp-uniform skips, a TMA ring of sub-tiles).
+GRID_REDESIGNED = ("ntracer_tpu_torch/csrc/grid_walk.cu: "
+                   "grid_nearest_kernel<D, SHARED, RPT>")
 DIV_PROBE = r"""
 extern "C" __global__ void ntr_div_probe(float* a, const float* b) {
   a[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
@@ -866,6 +874,30 @@ def read_launches():
     return {name: fn.launches for name, fn in walk_wrappers().items()}
 
 
+def live_launches(entry, run):
+    """Run ``run()`` and count the launches of the occlusion walk's C entry
+    ``entry`` (``resident_kernels._occlusion_kernel`` records them): (live,
+    dead), a launch live when a block of it visited a chunk (its visits per
+    block have an entry > 0)."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    launch = rk._occlusion_kernel
+    visits = []
+
+    def recording(name, w, dev):
+        err, out = launch(name, w, dev)
+        if name == entry:
+            visits.append(out[-1])
+        return err, out
+
+    rk._occlusion_kernel = recording
+    try:
+        run()
+    finally:
+        rk._occlusion_kernel = launch
+    live = sum(int(bool((v > 0).any())) for v in visits)
+    return live, len(visits) - live
+
+
 def bit_diffs(a, b):
     """How many float32 entries differ in their bits."""
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
@@ -1282,6 +1314,11 @@ def main():
     # rays, to the point light and along the global light; then a wavefront
     # without any active ray
     t0 = phase("occluded_transparent kernel vs twin")
+    # kernel 2.4 launches 2.8's body (stream_walk.cuh) on any pool
+    t_info = {d_: rk.stream_info("occluded_transparent", d_)
+              for d_ in (gcfg.d, dcfg.d)}
+    for d_, info in t_info.items():
+        print(f"   occluded_transparent at d = {d_}: {info}")
     dfirst = dhit["tidT"][0] >= 0
     dsurf = dict(hit=dfirst, pid=torch.where(dfirst, dhit["tidT"][0], -1),
                  pointT=doT + dhit["ttT"][0][None, :] * ddT)
@@ -1621,13 +1658,9 @@ def main():
                      blocked_vs_2_4=int((kb != rb).sum()),
                      filt_bits_vs_2_4=bit_diffs(kf, rf),
                      visits_vs_2_4=int((kv != rv).sum()))
-        # in turns: 2.4, 2.8, 2.8, 2.4
-        res_ms = time_cuda(lambda: rk.occluded_transparent(*args), 3)
+        # 2.4 launches 2.8's body: the comparison checks equality, and 2.4
+        # is no yardstick of 2.8's time
         ms = time_cuda(lambda: rk.occluded_transparent_hbm(*args), 3)
-        ms = (ms + time_cuda(lambda: rk.occluded_transparent_hbm(*args),
-                             3)) / 2
-        res_ms = (res_ms + time_cuda(lambda: rk.occluded_transparent(*args),
-                                     3)) / 2
         stages, dealt = occlusion_stages(*args, kb, kv, filtered=True)
         bound_ms, bound_by = walk_bound(
             3, False, ldist > 0, ldist > 0, stages, n_chunks, gmbytes, 4,
@@ -1636,16 +1669,15 @@ def main():
         occ_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                              bound_by=bound_by,
                              err=float(torch.abs(kf - pf).max()),
-                             resident_ms=res_ms, ratio_to_2_4=ms / res_ms,
                              live_blocks=int((kv > 0).sum()),
                              work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
               f"glass; diffs {json.dumps(diffs)}, live blocks "
               f"{int((kv > 0).sum())}, visits/block "
-              f"{float(kv.float().mean()):.4f}; kernel 2.8 {ms:.4f} ms, "
-              f"kernel 2.4 on the same inputs {res_ms:.4f} ms, ratio 2.8/2.4 "
-              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
+              f"{float(kv.float().mean()):.4f}; kernel 2.8 {ms:.4f} ms "
+              f"(kernel 2.4, equal on the same inputs, launches the same "
+              f"body: no yardstick); twin {twin_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
               f"the bound reached; pair tests dealt out "
               f"{occ_th[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
@@ -1673,6 +1705,15 @@ def main():
     # 9-orthoplex (one) and a 16-D random pool (one), for a runtime d.  A
     # twin's one call takes seconds: it is timed once.
     t0 = phase("grid nearest_hit kernel vs twin")
+    # kernel 2.9 as it launches: registers, spills, blocks an SM, ring
+    # slots, rays a thread, with the shared rows and without
+    grid_info = {}
+    for d_ in (9, 10, 16):
+        for shared in (True, False):
+            grid_info[d_, shared] = gk.launch_info(d_, shared)
+            print(f"   grid_nearest_hit at d = {d_}"
+                  f"{' (shared rows)' if shared else ''}: "
+                  f"{grid_info[d_, shared]}")
     _f, ocam_o, _t, ooT, odT, opctx, oskip, ohit = primary(orth, ocfg, oarrs)
     _f, o9cam_o, _t, o9oT, o9dT, o9pctx, o9skip, o9hit = primary(
         orth9, o9cfg, o9arrs)
@@ -1957,6 +1998,10 @@ def main():
         raise SystemExit("the glass 120-cell path did not go through both "
                          "transparent kernels")
     report_frames("glass 120-cell", frame_s, buf, name_limit)
+    live_t = live_launches("ntr_occluded_t",
+                           lambda: renderer.render(buf, fmt, glass))
+    print(f"   kernel 2.4 in one glass 120-cell frame: {live_t[0]} live "
+          f"launches (a block visited a chunk), {live_t[1]} dead")
 
     def glass_stages(c):
         shadow = shadow_stage(garrs, gcfg)(c)
@@ -2249,7 +2294,10 @@ def main():
         kernel_entry("occluded_transparent",
                      csrc + "occluded_transparent.cu", tpu + "1452",
                      "glass 120-cell", occ_t, "glass point light",
-                     dead_ms=dead_t_ms),
+                     dead_ms=dead_t_ms, redesigned=REDESIGNED,
+                     launch=t_info[gcfg.d],
+                     live_launches_a_frame=live_t[0],
+                     dead_launches_a_frame=live_t[1]),
         # the streaming variants of the same sources (STREAM), on
         # stream_walk.cuh's loop
         kernel_entry("nearest_hit_hbm", csrc + "nearest_hit.cu", tpu + "1754",
@@ -2275,7 +2323,9 @@ def main():
     kernels += [
         kernel_entry("grid_nearest_hit", csrc + "grid_walk.cu",
                      pallas + "222", "orthoplex d=10", near_g,
-                     "orthoplex primary"),
+                     "orthoplex primary", redesigned=GRID_REDESIGNED,
+                     launch={f"d={d_}{' shared' if sh_ else ''}": v
+                             for (d_, sh_), v in grid_info.items()}),
         kernel_entry("grid_occluded", csrc + "grid_walk.cu", pallas + "346",
                      "orthoplex d=10", occ_g, "orthoplex global light",
                      dead_ms=dead_g_ms),

@@ -1,8 +1,9 @@
 // The TMA and mbarrier primitives of the streaming walks (kernels 2.5-2.8,
-// the STREAM variants of the four walk sources), the Hopper counterpart of
-// the TPU kernels' `_hbm_fetch`/`_hbm_wait`
+// the STREAM variants of the four walk sources, and 2.4), the Hopper
+// counterpart of the TPU kernels' `_hbm_fetch`/`_hbm_wait`
 // (ntracer_tpu/engine/resident_kernels.py).  The loop that drives them is
-// stream_walk.cuh's.
+// stream_walk.cuh's; grid_walk.cu's kernel 2.9 fills its own ring of
+// triangle sub-tiles with them.
 //
 // A ring of chunk slots lives in dynamic shared memory.  Each piece of a
 // chunk is one contiguous, 16-byte aligned range in global memory --

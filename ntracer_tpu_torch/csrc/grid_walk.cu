@@ -3,52 +3,78 @@
 // whether a shadow ray meets an opaque triangle with 0 < t < ldist.
 //
 // Replaces the TPU kernels ntracer_tpu/engine/pallas_kernels.py
-// `nearest_hit` (pallas_call body `_nearest_kernel`) and `occluded`
-// (pallas_call body `_occlusion_kernel`).  Their plain PyTorch twins are
-// `nearest_hit_ref` and `occluded_ref` in
+// `nearest_hit` (pallas_call body `_nearest_kernel`; kernel 2.9) and
+// `occluded` (pallas_call body `_occlusion_kernel`; kernel 2.10).  Their
+// plain PyTorch twins are `nearest_hit_ref` and `occluded_ref` in
 // ntracer_tpu_torch/engine/grid_kernels.py; kernel and twin agree bit for
 // bit on t, ids, `blocked` and the tiles each block ran.
 //
-// What it computes.  The TPU kernel's grid of (512 rays x 512 triangles)
+// What they compute.  The TPU kernel's grid of (512 rays x 512 triangles)
 // tiles: one CUDA block walks one 512-ray block (a 32x16-pixel tile of the
-// frame), one thread per ray, over the pool's 512-triangle tiles in
-// flatten order.  Before a tile, with the carry from before it, the block
-// votes (__syncthreads_or): the tile runs when its flag k_any holds and
-// some ray of the block enters the tile's box before its best t (occluded:
-// before its ldist, on a ray not blocked yet).  In a tile that runs, a
-// thread tests its ray against the 512 triangles in lane order and keeps a
-// hit only on strict <, so it ends with the nearest hit and the lowest lane
-// of a tie, as the TPU kernel's per-tile argmin followed by its strict <
-// update does.  The occlusion walk stops testing a ray at its first hit:
-// `blocked` is a monotone OR.  d is taken at run time, up to MAXD = 16
-// (the ray's coordinates live in registers).
+// frame) over the pool's 512-triangle tiles in flatten order.  Before a
+// tile, with the carry from before it, the block votes (__syncthreads_or):
+// the tile runs when its flag k_any holds and some ray of the block enters
+// the tile's box before its best t (occluded: before its ldist, on a ray
+// not blocked yet).  In a tile that runs, a ray is tested against the 512
+// triangles in lane order and keeps a hit only on strict <, so it ends with
+// the nearest hit and the lowest lane of a tie, as the TPU kernel's
+// per-tile argmin followed by its strict < update does.  The occlusion walk
+// stops testing a ray at its first hit: `blocked` is a monotone OR.
 //
-// What bounds it.  Pair-test arithmetic: each tile that runs is 512 x 512
-// pair tests of d*d multiply-adds for the direction dots (twice that when
-// the origin dots are not shared) and one IEEE division; at d = 10 that is
-// some 250 operations a pair.  The pool is small (1,024 triangles at d = 10
-// is 450 KB) and sits in L2.  The design stages the plane rows of 32
-// triangles at a time in shared memory (a tile's rows are 200 KB at d = 10,
-// 512 KB at d = 16) and every thread reads the same address (broadcast),
-// keeps the ray in registers, and lets a block skip a tile by its vote.
-// It runs every tile of every live block (no front-to-back order, as the
-// TPU kernel); vector loads of the rows, several rays a thread and a
-// chunked pool at large d are later work.
+// What bounds them.  Pair-test arithmetic: a tile that runs is 512 x 512
+// pair tests, each d multiply-adds for the plane's direction dot (twice
+// that when the origin dots are not shared), one IEEE division for the
+// pairs whose t can be positive, and d more multiply-adds for each edge
+// plane the pair reaches.  The pool is small (1,024 triangles at d = 10 is
+// 450 KB) and sits in L2.
+//
+// Kernel 2.9 (`grid_nearest_kernel<D, SHARED, RPT>`) is built for that:
+//   * Templated on d (3..16), so every dot runs at the exact width; a ray's
+//     direction (and, for rays that do not share one origin, its origin)
+//     is all it keeps in registers through the triangle loop: the tile
+//     vote reloads a shared origin and recomputes 1 / dv.
+//   * RPT rays a thread (two for primary rays, one otherwise; a block is
+//     512 / RPT threads): one broadcast float4 load of a plane's values
+//     serves 4 x RPT multiply-adds.  The pool's plane rows are re-laid
+//     triangle by triangle (`grid_kernels.plane_records`: (T, d, pw), each
+//     plane padded to pw = 4 * ceil(d / 4) floats), so a triangle's planes
+//     are consecutive float4s.
+//   * The straight-line pair test with warp-uniform skips (as
+//     stream_walk.cuh's pair_test_warp): after plane 0 (the division, t
+//     against the ray's best) and after each edge, a warp none of whose
+//     rays can still hit the triangle goes on to the next one.  `valid` is
+//     an AND and the edge total matters only where the pair is valid, so
+//     the skips change no bit.  Before the division every pair tests the
+//     signs of the numerator and the denominator, and a warp none of whose
+//     rays can have t > 0 skips the division.
+//   * Sub-tiles of GS = 32 triangles stream through a ring of shared-memory
+//     slots by TMA bulk copies (chunk_ring.cuh): one copy of the sub-tile's
+//     plane records and d copies of its offset rows (`ci`, or the shared
+//     rows), counted on the slot's "full" mbarrier; each warp releases a
+//     slot on its "empty" mbarrier after its tests, and thread 0 refills it.
+//     The block syncs once a tile, in the vote.
+// Kernel 2.10 (`grid_occluded_kernel`) keeps the first port's design: d at
+// run time up to MAXD = 16, one ray a thread, 32 triangles staged by the
+// block with two syncs.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).  No a*b+c
 // is contracted, so every operation rounds as in the twin.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "chunk_ring.cuh"
 
 namespace {
 
 constexpr int RB = 512;           // rays per block
 constexpr int TB = 512;           // triangles per tile
-constexpr int SUB = 32;           // triangles staged in shared memory at once
+constexpr int SUB = 32;           // triangles 2.10 stages at once
 constexpr int MAXD = 16;          // largest d
 constexpr float FUZZ = 1.1920928955078125e-06f;   // float32(eps * 10)
 constexpr float BIG = 3e37f;
+constexpr unsigned FULL = 0xffffffffu;
 
 // min/max that return NaN when either side is NaN (as jnp/torch do)
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -57,6 +83,371 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
+
+// ---------------------------------------------------------------------------
+// Kernel 2.9: the nearest-hit grid walk
+// ---------------------------------------------------------------------------
+
+constexpr int GS = 32;            // triangles a ring slot holds
+constexpr int GNS = TB / GS;      // sub-tiles a tile
+constexpr int GRING_MAX = 4;      // ring slots at most
+
+// Floats of one plane in a triangle's record: d padded to a float4.
+template <int D>
+__host__ __device__ constexpr int plane_width() {
+  return (D + 3) / 4 * 4;
+}
+
+// Floats of one ring slot: GS records of D planes, then D offset rows of
+// GS values.
+template <int D>
+__host__ __device__ constexpr int grid_slot_floats() {
+  return GS * D * plane_width<D>() + D * GS;
+}
+
+// Rays a thread: two for primary rays (the shared rows carry the origin
+// dots, so a ray keeps only its direction), one for rays of their own
+// origin.  Four and two ran slower on the 10-orthoplex's primary and
+// bounce wavefronts on the H100 (PERF.md section 6): more rays a warp
+// leave it fewer triangles to skip.
+template <bool SHARED>
+__host__ __device__ constexpr int grid_rays() {
+  return SHARED ? 2 : 1;
+}
+
+// Entry distance into a tile's box (lo/hi: its d bounds) of a ray whose
+// reciprocals are computed here, as load_ray computes them; INFINITY when
+// the box is missed.  The operations of tile_entry below.
+template <int D>
+__device__ __forceinline__ float tile_entry_d(const float (&o)[D],
+                                              const float (&dv)[D],
+                                              const float* __restrict__ lo,
+                                              const float* __restrict__ hi) {
+  float tn = -BIG, tf = BIG;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const float l = lo[c], h = hi[c];
+    const bool par = dv[c] == 0.f;
+    const float inv = par ? 0.f : 1.f / dv[c];
+    const float a = (l - o[c]) * inv;
+    const float b = (h - o[c]) * inv;
+    const bool ins = (o[c] >= l) && (o[c] <= h);
+    const float t0 = par ? (ins ? -BIG : BIG) : nan_min(a, b);
+    const float t1 = par ? (ins ? BIG : -BIG) : nan_max(a, b);
+    tn = nan_max(tn, t0);
+    tf = nan_min(tf, t1);
+  }
+  const float entry = nan_max(tn, 0.f);
+  return (tf >= entry && tf >= 0.f) ? entry : INFINITY;
+}
+
+// The origin and direction dots of RPT rays with one plane (`g`, its
+// plane_width<D>() floats as float4s), coordinate by coordinate; a sum
+// starts at its first product (0 + x = x but for the sign of a zero, and
+// see grid_pair for why that sign never matters).  SHARED: no origin dot.
+template <int D, bool SHARED, int RPT, int OD>
+__device__ __forceinline__ void plane_dots(const float4* g,
+                                           const float (&o)[RPT][OD],
+                                           const float (&dv)[RPT][D],
+                                           float (&od)[RPT],
+                                           float (&dd)[RPT]) {
+#pragma unroll
+  for (int m = 0; m < plane_width<D>() / 4; ++m) {
+    const float4 g4 = g[m];
+    const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * m + e;
+      if (k < D) {
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          if constexpr (!SHARED)
+            od[c] = k == 0 ? o[c][0] * gv[e] : od[c] + o[c][k] * gv[e];
+          dd[c] = k == 0 ? dv[c][0] * gv[e] : dd[c] + dv[c][k] * gv[e];
+        }
+      }
+    }
+  }
+}
+
+// RPT rays of a thread against triangle l of ring slot `b` (pool id `id`),
+// every lane of the warp at once: grid_walk's pair test (tracer.hpp:411-440)
+// && id != skip && t < best, and the strict < update of (best, bid).
+//   * Sums start at their first product rather than at +0: they differ
+//     only in the sign of a zero sum.  A zero dn fails either way; a zero
+//     numerator gives t = +-0, which fails t > 0 either way (SHARED sums no
+//     numerator at all); a zero edge dot changes only the sign of a zero
+//     `a` or total, which compare alike.  So t is the twin's wherever the
+//     pair can count.
+//   * The pre-test: the numerator and dn must be nonzero, of one sign and
+//     not NaN for (dn != 0) && (t > 0); a warp none of whose rays passes
+//     that skips the division.  Rays that fail before the division divide
+//     by 1 (t unused), off the division's slow path.
+//   * Each later stage runs only while a ray of the warp can still pass it
+//     (__any_sync: every lane calls this with the same l).
+template <int D, bool SHARED, int RPT, int OD>
+__device__ __forceinline__ void grid_pair(const float* __restrict__ b, int l,
+                                          int id, const float (&o)[RPT][OD],
+                                          const float (&dv)[RPT][D],
+                                          const int (&sk)[RPT],
+                                          float (&best)[RPT],
+                                          int (&bid)[RPT]) {
+  constexpr int PW = plane_width<D>();
+  const float4* rec = reinterpret_cast<const float4*>(b + l * D * PW);
+  const float* sc = b + GS * D * PW + l;       // offset row p at sc[p * GS]
+  float od[RPT], dd[RPT];
+  plane_dots<D, SHARED>(rec, o, dv, od, dd);
+  const float c0 = sc[0];
+  float num[RPT], t[RPT], tot[RPT];
+  bool go[RPT];
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    num[c] = SHARED ? c0 : c0 - od[c];
+    // bitwise, so the compiler keeps it one line of predicates
+    const bool pos = (num[c] > 0.f) & (dd[c] > 0.f);
+    const bool neg = (num[c] < 0.f) & (dd[c] < 0.f);
+    go[c] = (id != sk[c]) & (pos | neg);
+    any = any || go[c];
+  }
+  if (!__any_sync(FULL, any)) return;
+  any = false;
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    t[c] = num[c] / (go[c] ? dd[c] : 1.f);
+    go[c] = go[c] && t[c] > 0.f && t[c] < best[c];
+    any = any || go[c];
+  }
+  if (!__any_sync(FULL, any)) return;
+  // edge 1, then the rest in a loop: few pairs get past edge 1
+  {
+    plane_dots<D, SHARED>(rec + PW / 4, o, dv, od, dd);
+    const float cv = sc[GS];
+    any = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      const float a = SHARED ? cv - t[c] * dd[c] : (cv - od[c]) - t[c] * dd[c];
+      go[c] = go[c] && (a >= -FUZZ) && (a <= 1.f + FUZZ);
+      tot[c] = a;
+      any = any || go[c];
+    }
+    if (!__any_sync(FULL, any)) return;
+  }
+#pragma unroll 1
+  for (int i = 2; i < D; ++i) {
+    plane_dots<D, SHARED>(rec + i * (PW / 4), o, dv, od, dd);
+    const float cv = sc[i * GS];
+    any = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      const float a = SHARED ? cv - t[c] * dd[c] : (cv - od[c]) - t[c] * dd[c];
+      go[c] = go[c] && (a >= -FUZZ) && (a <= 1.f + FUZZ);
+      tot[c] = tot[c] + a;
+      any = any || go[c];
+    }
+    if (!__any_sync(FULL, any)) return;
+  }
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    if (go[c] && tot[c] <= 1.f + FUZZ) {
+      best[c] = t[c];
+      bid[c] = id;
+    }
+  }
+}
+
+// Kernel 2.9.  Thread `tid` owns rays tid * RPT .. tid * RPT + RPT - 1 of
+// the block.  `grec` (T, D, plane_width<D>()) are the pool's plane records,
+// `ci` (D, T) its offset rows (SHARED: the shared rows); the dynamic shared
+// memory is `n_slots` ring slots of grid_slot_floats<D>() floats.
+template <int D, bool SHARED, int RPT>
+__global__ void __launch_bounds__(RB / RPT) grid_nearest_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ init_t,
+    const float* __restrict__ grec, const float* __restrict__ ci,
+    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
+    const float* __restrict__ k_any, int T, int R, int n_slots,
+    float* __restrict__ out_t, int* __restrict__ out_id,
+    int* __restrict__ tiles) {
+  constexpr int NWG = RB / RPT / 32;        // warps a block
+  constexpr int PW = plane_width<D>();
+  constexpr int SLOT = grid_slot_floats<D>();
+  constexpr int OD = SHARED ? 1 : D;
+  extern __shared__ __align__(128) float s_ring[];
+  __shared__ uint64_t s_full[GRING_MAX];
+  __shared__ uint64_t s_empty[GRING_MAX];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r0 = blockIdx.x * RB + tid * RPT;
+
+  float o[RPT][OD], dv[RPT][D], best[RPT];
+  int sk[RPT], bid[RPT];
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      dv[c][k] = dT[(size_t)k * R + r0 + c];
+      if constexpr (!SHARED) o[c][k] = oT[(size_t)k * R + r0 + c];
+    }
+    if constexpr (SHARED) o[c][0] = 0.f;
+    sk[c] = skip[r0 + c];
+    best[c] = init_t[r0 + c];
+    bid[c] = -1;
+  }
+  if (tid < n_slots) {
+    ntr::mbar_init(&s_full[tid]);
+    ntr::mbar_init_count(&s_empty[tid], NWG);
+  }
+  ntr::mbar_fence_init();              // the vote's sync orders it first
+  // a slot is refilled `lag` sub-tiles after its last test began
+  const int lag = n_slots > 2 ? 2 : 1;
+  int q = 0;                           // sub-tiles started so far
+  int ntiles = 0;
+  for (int j = 0; j < T / TB; ++j) {
+    // the block's vote, with the carry from before this tile
+    bool want = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      float oo[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        if constexpr (SHARED)
+          oo[k] = oT[(size_t)k * R + r0 + c];
+        else
+          oo[k] = o[c][k];
+      }
+      const float e = tile_entry_d<D>(oo, dv[c], k_lo + (size_t)j * D,
+                                      k_hi + (size_t)j * D);
+      want = want || e < best[c];
+    }
+    if (!__syncthreads_or(want) || !(k_any[j] != 0.f)) continue;
+    ++ntiles;
+    const int q_end = q + GNS;
+    int q_fill = q;
+    // thread 0: start the copies of sub-tiles up to `limit`, each into its
+    // slot once every warp has released the slot's last sub-tile
+    auto fill_ahead = [&](int limit) {
+      while (q_fill <= limit && q_fill < q_end) {
+        const int s = q_fill % n_slots, f = q_fill / n_slots;
+        if (f > 0) ntr::mbar_wait(&s_empty[s], (unsigned)(f - 1) & 1u);
+        const size_t t0 = (size_t)j * TB + (size_t)(q_fill - q) * GS;
+        float* slot = s_ring + (size_t)s * SLOT;
+        ntr::mbar_expect(&s_full[s], SLOT * 4u);
+        ntr::bulk_copy(slot, grec + t0 * D * PW, GS * D * PW * 4u,
+                       &s_full[s]);
+#pragma unroll 1
+        for (int p = 0; p < D; ++p)
+          ntr::bulk_copy(slot + GS * D * PW + p * GS, ci + (size_t)p * T + t0,
+                         GS * 4u, &s_full[s]);
+        ++q_fill;
+      }
+    };
+    for (int qq = q; qq < q_end; ++qq) {
+      if (tid == 0) fill_ahead(qq + n_slots - lag);
+      const int s = qq % n_slots;
+      ntr::mbar_wait(&s_full[s], (unsigned)(qq / n_slots) & 1u);
+      const float* slot = s_ring + (size_t)s * SLOT;
+      const int id0 = j * TB + (qq - q) * GS;
+#pragma unroll 1
+      for (int l = 0; l < GS; ++l)
+        grid_pair<D, SHARED>(slot, l, id0 + l, o, dv, sk, best, bid);
+      __syncwarp();
+      if (lane == 0) ntr::mbar_arrive(&s_empty[s]);
+    }
+    q = q_end;
+  }
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    out_t[r0 + c] = best[c];
+    out_id[r0 + c] = bid[c];
+  }
+  if (tid == 0) tiles[blockIdx.x] = ntiles;
+}
+
+// Ring depth and dynamic shared memory of kernel 2.9 at D: as many blocks
+// an SM as its registers allow (at most 8), and as many slots (2 to
+// GRING_MAX) as let them share an SM's shared memory; fewer blocks where
+// two slots do not fit.
+template <int D, class Kernel>
+cudaError_t grid_ring_config(Kernel kernel, int threads, int* n_slots,
+                             int* smem_bytes, int* blocks) {
+  int dev = 0, per_sm = 0, by_regs = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, kernel,
+                                                        threads, 0);
+  if (err != cudaSuccess) return err;
+  const int slot = grid_slot_floats<D>() * 4;
+  const int fixed = 1024 + (int)fa.sharedSizeBytes;   // 1 KB per block
+  int b = by_regs < 8 ? by_regs : 8;
+  int s = 0;
+  for (; b >= 1; --b) {
+    s = (per_sm / b - fixed) / slot;
+    if (s >= 2) break;
+  }
+  if (s > GRING_MAX) s = GRING_MAX;
+  if (b < 1 || s < 2) return cudaErrorInvalidConfiguration;
+  *n_slots = s;
+  *smem_bytes = s * slot;
+  *blocks = b;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem_bytes);
+  if (err != cudaSuccess) return err;
+  int pct = (100 * b * (*smem_bytes + fixed) + per_sm - 1) / per_sm;
+  if (pct > 100) pct = 100;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+}
+
+template <int D, bool SHARED>
+int launch_nearest(const float* oT, const float* dT, const int* skip,
+                   const float* init_t, const float* grec, const float* ci,
+                   const float* k_lo, const float* k_hi, const float* k_any,
+                   int T, int R, float* out_t, int* out_id, int* tiles,
+                   cudaStream_t stream) {
+  constexpr int RPT = grid_rays<SHARED>();
+  auto kernel = grid_nearest_kernel<D, SHARED, RPT>;
+  int n_slots = 0, smem = 0, blocks = 0;
+  const cudaError_t err =
+      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<R / RB, RB / RPT, smem, stream>>>(oT, dT, skip, init_t, grec, ci,
+                                             k_lo, k_hi, k_any, T, R,
+                                             n_slots, out_t, out_id, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool SHARED>
+int nearest_info(int* info) {
+  constexpr int RPT = grid_rays<SHARED>();
+  auto kernel = grid_nearest_kernel<D, SHARED, RPT>;
+  int n_slots = 0, smem = 0, blocks = 0;
+  cudaError_t err =
+      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int active = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
+                                                        RB / RPT, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.localSizeBytes;
+  info[2] = active;
+  info[3] = n_slots;
+  info[4] = smem + (int)fa.sharedSizeBytes;
+  info[5] = RPT;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2.10: the occlusion grid walk
+// ---------------------------------------------------------------------------
 
 struct Ray {
   float o[MAXD], dv[MAXD], inv[MAXD];
@@ -119,8 +510,7 @@ __device__ __forceinline__ void stage(const float* __restrict__ gt,
 // Ray x triangle pair test (tracer.hpp:411-440) against staged triangle l:
 // the hit distance `t` and whether the hit is valid (the id and distance
 // tests are the caller's).  Plane dots accumulate coordinate by coordinate
-// from 0.  SHARED: the offset rows already carry the origin dots.
-template <bool SHARED>
+// from 0.
 __device__ __forceinline__ bool pair_test(const float* s_g, const float* s_c,
                                           int l, const Ray& ray, int d,
                                           float& t) {
@@ -129,11 +519,11 @@ __device__ __forceinline__ bool pair_test(const float* s_g, const float* s_c,
   for (int k = 0; k < MAXD; ++k) {
     if (k < d) {
       const float gv = s_g[k * SUB + l];
-      if (!SHARED) o0 = o0 + ray.o[k] * gv;
+      o0 = o0 + ray.o[k] * gv;
       dn = dn + ray.dv[k] * gv;
     }
   }
-  t = SHARED ? s_c[l] / dn : (s_c[l] - o0) / dn;
+  t = (s_c[l] - o0) / dn;
   bool valid = (dn != 0.f) && (t > 0.f);
   float tot = 0.f;
   for (int i = 1; i < d; ++i) {
@@ -143,58 +533,15 @@ __device__ __forceinline__ bool pair_test(const float* s_g, const float* s_c,
     for (int k = 0; k < MAXD; ++k) {
       if (k < d) {
         const float gv = g[k * SUB];
-        if (!SHARED) oi = oi + ray.o[k] * gv;
+        oi = oi + ray.o[k] * gv;
         di = di + ray.dv[k] * gv;
       }
     }
-    const float a = SHARED ? s_c[i * SUB + l] - t * di
-                           : (s_c[i * SUB + l] - oi) - t * di;
+    const float a = (s_c[i * SUB + l] - oi) - t * di;
     valid = valid && (a >= -FUZZ) && (a <= 1.f + FUZZ);
     tot = tot + a;
   }
   return valid && (tot <= 1.f + FUZZ);
-}
-
-template <bool SHARED>
-__global__ void __launch_bounds__(RB) grid_nearest_kernel(
-    const float* __restrict__ oT, const float* __restrict__ dT,
-    const int* __restrict__ skip, const float* __restrict__ init_t,
-    const float* __restrict__ gt, const float* __restrict__ ci,
-    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
-    const float* __restrict__ k_any, int T, int R, int d,
-    float* __restrict__ out_t, int* __restrict__ out_id,
-    int* __restrict__ tiles) {
-  __shared__ float s_g[MAXD * MAXD * SUB];   // plane rows of SUB triangles
-  __shared__ float s_c[MAXD * SUB];          // their offset (or shared) rows
-
-  const int r = blockIdx.x * RB + threadIdx.x;
-  Ray ray;
-  load_ray(oT, dT, R, d, r, ray);
-  const int sk = skip[r];
-  float best = init_t[r];
-  int best_id = -1;
-  int ntiles = 0;
-  for (int j = 0; j < T / TB; ++j) {
-    // the block's vote, with the carry from before this tile
-    const float e = tile_entry(ray, d, k_lo + (size_t)j * d,
-                               k_hi + (size_t)j * d);
-    if (!__syncthreads_or(e < best) || !(k_any[j] != 0.f)) continue;
-    ++ntiles;
-    for (int t0 = j * TB; t0 < (j + 1) * TB; t0 += SUB) {
-      stage(gt, ci, T, d, t0, s_g, s_c);
-      for (int l = 0; l < SUB; ++l) {
-        float t;
-        if (pair_test<SHARED>(s_g, s_c, l, ray, d, t) && (t0 + l != sk) &&
-            t < best) {
-          best = t;
-          best_id = t0 + l;
-        }
-      }
-    }
-  }
-  out_t[r] = best;
-  out_id[r] = best_id;
-  if (threadIdx.x == 0) tiles[blockIdx.x] = ntiles;
 }
 
 __global__ void __launch_bounds__(RB) grid_occluded_kernel(
@@ -226,7 +573,7 @@ __global__ void __launch_bounds__(RB) grid_occluded_kernel(
       if (!blocked && ld > 0.f) {
         for (int l = 0; l < SUB; ++l) {
           float t;
-          if (pair_test<false>(s_g, s_c, l, ray, d, t) && t < ld &&
+          if (pair_test(s_g, s_c, l, ray, d, t) && t < ld &&
               (t0 + l != sk)) {
             blocked = true;
             break;
@@ -247,16 +594,22 @@ int check(int T, int R, int d) {
 
 }  // namespace
 
+// every d that the wrappers take: 3 .. MAXD
+#define NTR_GRID_DS(X)                                                      \
+  X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15)    \
+  X(16)
+
 extern "C" {
 
-// Launch the nearest-hit grid walk on `stream`.  Rays are lane-major (d, R)
-// with 3 <= d <= 16 and R a multiple of 512; skip (R,) i32; init_t (R,)
-// the start distance; gt (d*d, T), ci (d, T) (the shared rows when
-// `shared`), k_lo/k_hi (T/512, 1, d), k_any (T/512, 1, 1), T a multiple of
-// 512; out_t (R,), out_id (R,) i32, tiles (R/512,) i32.  Returns
-// cudaGetLastError() after the launch.
+// Launch the nearest-hit grid walk (kernel 2.9) on `stream`.  Rays are
+// lane-major (d, R) with 3 <= d <= 16 and R a multiple of 512; skip (R,)
+// i32; init_t (R,) the start distance; grec (T, d, pw) the plane records
+// (grid_kernels.plane_records, pw = 4 * ceil(d / 4)), ci (d, T) (the
+// shared rows when `shared`), both 16-byte aligned; k_lo/k_hi (T/512, 1,
+// d), k_any (T/512, 1, 1), T a multiple of 512; out_t (R,), out_id (R,)
+// i32, tiles (R/512,) i32.  Returns cudaGetLastError() after the launch.
 int ntr_grid_nearest_hit(const float* oT, const float* dT, const int* skip,
-                         const float* init_t, const float* gt,
+                         const float* init_t, const float* grec,
                          const float* ci, const float* k_lo,
                          const float* k_hi, const float* k_any, int T, int R,
                          int d, int shared, float* out_t, int* out_id,
@@ -264,21 +617,42 @@ int ntr_grid_nearest_hit(const float* oT, const float* dT, const int* skip,
   const int bad = check(T, R, d);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
-  if (shared)
-    grid_nearest_kernel<true><<<R / RB, RB, 0, s>>>(
-        oT, dT, skip, init_t, gt, ci, k_lo, k_hi, k_any, T, R, d, out_t,
-        out_id, tiles);
-  else
-    grid_nearest_kernel<false><<<R / RB, RB, 0, s>>>(
-        oT, dT, skip, init_t, gt, ci, k_lo, k_hi, k_any, T, R, d, out_t,
-        out_id, tiles);
-  return (int)cudaGetLastError();
+#define NTR_CASE(DD)                                                        \
+  case DD:                                                                  \
+    return shared ? launch_nearest<DD, true>(oT, dT, skip, init_t, grec, ci, \
+                                             k_lo, k_hi, k_any, T, R, out_t, \
+                                             out_id, tiles, s)               \
+                  : launch_nearest<DD, false>(oT, dT, skip, init_t, grec,    \
+                                              ci, k_lo, k_hi, k_any, T, R,   \
+                                              out_t, out_id, tiles, s);
+  switch (d) {
+    NTR_GRID_DS(NTR_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
-// Launch the occlusion grid walk on `stream`.  Arguments as
+// Kernel 2.9 at dimension d (shared: the primary rays' variant) as it
+// launches: info[0..5] = registers a thread, local (spill) bytes a thread,
+// blocks per SM, ring slots, shared bytes a block, rays a thread.
+int ntr_grid_nearest_hit_info(int d, int shared, int* info) {
+#define NTR_CASE(DD)                                                        \
+  case DD:                                                                  \
+    return shared ? nearest_info<DD, true>(info)                            \
+                  : nearest_info<DD, false>(info);
+  switch (d) {
+    NTR_GRID_DS(NTR_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
+}
+
+// Launch the occlusion grid walk (kernel 2.10) on `stream`.  Arguments as
 // ntr_grid_nearest_hit, with ldist (R,) (<= 0 for an inactive ray) in
-// place of init_t and ci always the pool's offset rows; blocked (R,) bytes
-// (0 or 1).
+// place of init_t, the plane rows gt (d*d, T) in place of grec and ci
+// always the pool's offset rows; blocked (R,) bytes (0 or 1).
 int ntr_grid_occluded(const float* oT, const float* dT, const int* skip,
                       const float* ldist, const float* gt, const float* ci,
                       const float* k_lo, const float* k_hi,

@@ -1,7 +1,8 @@
 // The streaming walks' loop for Hopper, shared by the STREAM variants of
 // the four walk sources: kernels 2.5 (nearest_hit.cu), 2.6 (occluded.cu),
-// 2.7 (nearest_hit_transparent.cu) and 2.8 (occluded_transparent.cu).  The
-// resident walks keep pair_test.cuh's loop; this one visits exactly what
+// 2.7 (nearest_hit_transparent.cu) and 2.8 (occluded_transparent.cu, whose
+// body kernel 2.4 launches too, on pools under the line).  The resident
+// walks 2.1-2.3 keep pair_test.cuh's loop; this one visits exactly what
 // they visit, and spends its work on the rays that are still live.
 //
 // One CUDA block of 512 threads serves one 512-ray block; thread r owns ray

@@ -54,9 +54,9 @@ _OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
 # (csrc/grid_walk.cu)
 _GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
 _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
-# the streaming walks' launch queries: the occlusion walks' (kernels 2.6
-# and 2.8) take (d, int[5]), the nearest-hit walks' (2.5 and 2.7) (d,
-# shared, int[5])
+# the launch queries: the streaming occlusion walks' (kernels 2.6 and 2.8)
+# take (d, int[5]), the streaming nearest-hit walks' (2.5 and 2.7) (d,
+# shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6])
 _INFO_ARGS = [_I, _P]
 _NEAREST_INFO_ARGS = [_I, _I, _P]
 
@@ -172,7 +172,8 @@ def load():
                 ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
                 ("ntr_occluded_hbm_info", _INFO_ARGS),
                 ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
-                ("ntr_occluded_t_hbm_info", _INFO_ARGS))
+                ("ntr_occluded_t_hbm_info", _INFO_ARGS),
+                ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS))
             for name, args in stream:
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ctypes.c_int

@@ -90,6 +90,19 @@ def prepare_tri_arrays(tri_p1, tri_fn, tri_en, tri_dc, tri_lo, tri_hi, d):
                 b_lo=b_lo, b_hi=b_hi)
 
 
+def plane_records(gt, d):
+    """The plane rows ``gt`` (d*d, T) laid out triangle by triangle for the
+    CUDA nearest-hit grid walk: (T, d, pw) float32 with pw = d rounded up
+    to a multiple of 4 and zeros past d, so that ``rec[t, p, :d]`` is plane
+    p of triangle t (``gt[p*d:(p+1)*d, t]``).  A run of triangles is one
+    contiguous range, and each plane starts on a 16-byte boundary."""
+    T = gt.shape[1]
+    pw = -(-d // 4) * 4
+    rec = torch.zeros((T, d, pw), dtype=torch.float32, device=gt.device)
+    rec[:, :, :d] = gt.reshape(d, d, T).permute(2, 0, 1)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Per-frame prep (plain torch)
 # ---------------------------------------------------------------------------
@@ -270,6 +283,25 @@ def occluded_ref(kern, oT, dT, ldist, skip, d):
 # The kernel wrappers
 # ---------------------------------------------------------------------------
 
+GRID_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
+             "shared_bytes", "rays_per_thread")
+
+
+def launch_info(d, shared):
+    """Kernel 2.9 (``nearest_hit``'s CUDA kernel) at dimension ``d`` as it
+    launches on the current card, in its ``shared`` (primary rays) variant
+    or not: registers and local (spill) bytes a thread, blocks per SM, ring
+    slots and shared bytes a block, rays a thread (``GRID_INFO``)."""
+    from . import _build
+    lib = _build.load()
+    info = torch.zeros((len(GRID_INFO),), dtype=torch.int32)
+    err = lib.ntr_grid_nearest_hit_info(d, int(shared), info.data_ptr())
+    if err:
+        raise RuntimeError(f"kernel query failed: {_build.error_string(err)} "
+                           f"({err})")
+    return dict(zip(GRID_INFO, info.tolist()))
+
+
 def _check_grid(w, dev):
     """Check what both kernels take; returns (R, T)."""
     d = w["d"]
@@ -304,8 +336,10 @@ def nearest_hit(kern, oT, dT, skip, d, sh=None):
 
     Returns (t (R,) f32, id (R,) i32 pool id or -1, tiles (R // 512,) i32
     tiles run per block); t is the start distance where id is -1.  On CUDA
-    tensors the CUDA kernel runs (and ``nearest_hit.launches`` counts it);
-    on CPU tensors the plain twin ``nearest_hit_ref`` does."""
+    tensors the CUDA kernel runs (and ``nearest_hit.launches`` counts it),
+    reading the plane rows as ``kern["grec"]`` (``plane_records``, made
+    here when ``kern`` has none); on CPU tensors the plain twin
+    ``nearest_hit_ref`` does."""
     w = _grid_inputs(kern, oT, dT, skip, d, sh=sh)
     if not rk._device("grid nearest_hit", oT.device):
         return _grid_ref(w)
@@ -313,13 +347,20 @@ def nearest_hit(kern, oT, dT, skip, d, sh=None):
     lib = _build.load()
     dev = oT.device
     R, T = _check_grid(w, dev)
+    grec = kern.get("grec")
+    if grec is None:
+        grec = plane_records(w["gt"], d)
+    rk._check("grec", grec, torch.float32, (T, d, -(-d // 4) * 4), dev)
+    for name, x in (("grec", grec), ("ci", w["ci"])):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     out_t = torch.empty((R,), dtype=torch.float32, device=dev)
     out_id = torch.empty((R,), dtype=torch.int32, device=dev)
     tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
     init_t = w["init_t"].contiguous()
     err = lib.ntr_grid_nearest_hit(
         oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), init_t.data_ptr(),
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
+        grec.data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
         w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
         int(w["shared"]), out_t.data_ptr(), out_id.data_ptr(),
         tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -54,7 +54,9 @@ shared memory while the previous group is tested.  They compute what their
 resident siblings compute, with one exception that is the TPU kernels':
 the streaming K-slot walk picks its candidates in groups of four, so its
 slot positions (and visits) may differ from ``nearest_hit_transparent``'s
-on the same inputs.
+on the same inputs.  The filtered occlusion walks share one CUDA body: the
+kernel of ``occluded_transparent`` is the streaming one of
+``occluded_transparent_hbm``, on pools of any size.
 """
 
 from __future__ import annotations
@@ -791,8 +793,15 @@ def _device(name, dev):
     return True
 
 
+# the C entries whose kernel fills a ring of chunk slots by TMA bulk copies
+# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.4, which runs 2.8's
+# body on any pool
+_RING_ENTRIES = ("ntr_nearest_hit_hbm", "ntr_occluded_hbm",
+                 "ntr_nearest_t_hbm", "ntr_occluded_t_hbm", "ntr_occluded_t")
+
+
 def _check_stream(w):
-    """The streaming kernels copy each piece of a chunk as one 16-byte
+    """The ring's kernels copy each piece of a chunk as one 16-byte
     aligned range."""
     for k in ("gt", "ci", "ids", "opa"):
         if w[k] is not None and w[k].data_ptr() % 16:
@@ -814,7 +823,7 @@ def _nearest_kernel(name, w, dev):
     from . import _build
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
-    if name.endswith("_hbm"):
+    if name in _RING_ENTRIES:
         _check_stream(w)
     f32, i32 = torch.float32, torch.int32
     K = w["K"]
@@ -851,7 +860,7 @@ def _occlusion_kernel(name, w, dev):
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
     _check("ldist", w["ldist"], torch.float32, (R,), dev)
-    if name.endswith("_hbm"):
+    if name in _RING_ENTRIES:
         _check_stream(w)
     blive = w["blive"].contiguous()
     blocked = torch.empty((R,), dtype=torch.bool, device=dev)
@@ -1050,15 +1059,18 @@ STREAM_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
 _INFO_ENTRIES = {"nearest_hit_hbm": "ntr_nearest_hit_hbm_info",
                  "occluded_hbm": "ntr_occluded_hbm_info",
                  "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
-                 "occluded_transparent_hbm": "ntr_occluded_t_hbm_info"}
+                 "occluded_transparent_hbm": "ntr_occluded_t_hbm_info",
+                 # kernel 2.4 launches 2.8's body
+                 "occluded_transparent": "ntr_occluded_t_hbm_info"}
 
 
 def stream_info(name, d, shared=False):
     """The streaming walk ``name`` (one of the four ``*_hbm`` wrappers:
-    kernels 2.5-2.8) at dimension ``d`` as it launches on the current card,
-    for the nearest-hit walks in their ``shared`` (primary rays) variant or
-    not: registers and local (spill) bytes a thread, blocks per SM, ring
-    slots and shared bytes a block (``STREAM_INFO``)."""
+    kernels 2.5-2.8, or ``occluded_transparent``: kernel 2.4, which
+    launches 2.8's body) at dimension ``d`` as it launches on the current
+    card, for the nearest-hit walks in their ``shared`` (primary rays)
+    variant or not: registers and local (spill) bytes a thread, blocks per
+    SM, ring slots and shared bytes a block (``STREAM_INFO``)."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(STREAM_INFO),), dtype=torch.int32)

@@ -308,6 +308,9 @@ def _grid_arrays(a, d, n_tris, arrs):
                     ("k_hi", "khi"), ("k_any", "kany"), ("b_lo", "blo"),
                     ("b_hi", "bhi")):
         arrs["kern_" + name] = kern[k]
+    # the plane rows as the CUDA nearest-hit grid walk reads them
+    arrs["kern_grec"] = gk.plane_records(torch.from_numpy(kern["gt"]),
+                                         d).numpy()
     return arrs
 
 
@@ -367,9 +370,13 @@ def _res_dict(arrs):
 
 
 def _kern_dict(arrs):
-    return dict(gt=arrs["kern_gt"], ci=arrs["kern_ci"], k_lo=arrs["kern_klo"],
-                k_hi=arrs["kern_khi"], k_any=arrs["kern_kany"],
-                b_lo=arrs["kern_blo"], b_hi=arrs["kern_bhi"])
+    kern = dict(gt=arrs["kern_gt"], ci=arrs["kern_ci"],
+                k_lo=arrs["kern_klo"], k_hi=arrs["kern_khi"],
+                k_any=arrs["kern_kany"], b_lo=arrs["kern_blo"],
+                b_hi=arrs["kern_bhi"])
+    if "kern_grec" in arrs:
+        kern["grec"] = arrs["kern_grec"]
+    return kern
 
 
 def _streams(arrs):

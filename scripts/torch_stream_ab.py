@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Time the streaming nearest-hit walks of ntracer_tpu_torch (kernels 2.5
-and 2.7) from several CUDA source trees against each other on one card.
+"""Time hand-written walks of ntracer_tpu_torch from several CUDA source
+trees against each other on one card.
 
-    python3 scripts/torch_stream_ab.py NAME=CSRC_DIR [NAME=CSRC_DIR ...]
+    python3 scripts/torch_stream_ab.py [--kernels 2.4,2.5,2.7,2.9] \
+        NAME=CSRC_DIR [NAME=CSRC_DIR ...]
 
-Each CSRC_DIR holds nearest_hit.cu, nearest_hit_transparent.cu and the
-headers they include: ntracer_tpu_torch/csrc of this tree, of another
-commit unpacked with ``git archive``, or an edited copy.  Their C entries
-``ntr_nearest_hit_hbm`` and ``ntr_nearest_t_hbm`` take this tree's
-arguments.  The script compiles the two sources of every tree with this
-tree's nvcc flags, builds chip_smoke.py's mesh and glass mesh (the
-495,612-triangle sphere of scripts/bench_mesh.py, opaque, and glass and
-opaque by turns, K = 8) and their primary wavefronts at 1024x1024 (shared
-rows, front-to-back order), checks that every tree gives the first tree's
-outputs bit for bit, and times each kernel in turns (A, B, ..., B, A; three
+Each CSRC_DIR holds the sources of the chosen kernels and the headers they
+include: ntracer_tpu_torch/csrc of this tree, of another commit unpacked
+with ``git archive``, or an edited copy.  The kernels and their wavefronts,
+each at 1024x1024 (1,048,576 rays):
+
+  * 2.4, ``ntr_occluded_t`` (occluded_transparent.cu): chip_smoke.py's
+    shadow wavefronts of the glass 120-cell and of the "transparent d=3"
+    scene, towards the point light and along the global light;
+  * 2.5, ``ntr_nearest_hit_hbm`` (nearest_hit.cu): the primary wavefront of
+    chip_smoke.py's mesh (the 495,612-triangle sphere of
+    scripts/bench_mesh.py), shared rows, front-to-back order;
+  * 2.7, ``ntr_nearest_t_hbm`` (nearest_hit_transparent.cu): the same of
+    the glass mesh (glass and opaque by turns, K = 8);
+  * 2.9, ``ntr_grid_nearest_hit`` (grid_walk.cu): chip_smoke.py's
+    wavefronts of the 10-orthoplex (primary, shared rows, and bounce), of
+    the 9-orthoplex (primary) and of a 16-D pool (aimed from the camera).
+
+Every entry takes this tree's arguments, but for 2.9 a tree whose library
+has no ``ntr_grid_nearest_hit_info`` reads the pool's plane rows ``gt``
+(d*d, T) where this tree's kernel reads the plane records
+(``grid_kernels.plane_records``).  The script compiles the chosen sources of
+every tree with this tree's nvcc flags (the wavefronts are made with this
+tree's own library), checks that every tree gives the first tree's outputs
+bit for bit, and times each kernel in turns (A, B, ..., B, A; three
 launches a turn).  It prints, for each tree, ptxas's registers and spills
-of the d = 3 kernels and, for each wavefront, the mean time in ms with the
-card's name and power limit.  Needs one CUDA card; the port never imports
-it.
+of the kernels at d = 3 (2.5, 2.7), 4 (2.4) and 10 (2.9) and, for each
+wavefront, the mean time in ms with the card's name and power limit.
+Needs one CUDA card; the port never imports it.
 """
 
 import ctypes
@@ -35,20 +50,34 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from ntracer_tpu_torch import NTracer, Material  # noqa: E402
+from ntracer_tpu_torch import kdtree  # noqa: E402
 from ntracer_tpu_torch.engine import _build  # noqa: E402
+from ntracer_tpu_torch.engine import grid_kernels as gk  # noqa: E402
 from ntracer_tpu_torch.engine import resident_kernels as rk  # noqa: E402
 from ntracer_tpu_torch.engine import wavefront as wf  # noqa: E402
 
-SOURCES = ("nearest_hit.cu", "nearest_hit_transparent.cu")
+# kernel -> (source, C entry, its ctypes arguments, ptxas kernel pattern)
+KERNELS = {
+    "2.4": ("occluded_transparent.cu", "ntr_occluded_t",
+            _build._OCCLUDED_T_ARGS, r"occluded_t\w*kernelILi4E"),
+    "2.5": ("nearest_hit.cu", "ntr_nearest_hit_hbm", _build._NEAREST_ARGS,
+            r"nearest_\w*kernelILi3E"),
+    "2.7": ("nearest_hit_transparent.cu", "ntr_nearest_t_hbm",
+            _build._NEAREST_T_ARGS, r"nearest_t\w*kernelILi3E"),
+    "2.9": ("grid_walk.cu", "ntr_grid_nearest_hit",
+            _build._GRID_NEAREST_ARGS, r"grid_nearest_kernelI(Li10E|Lb)"),
+}
 
 
-def build(trees, out):
-    """One shared library a tree (both sources compiled side by side);
+def build(trees, kernels, out):
+    """One shared library a tree (its sources compiled side by side);
     returns {name: (library, ptxas report)}."""
     nvcc = _build.find_nvcc()
+    # nearest_hit.cu also holds ntr_error_string
+    sources = sorted({KERNELS[k][0] for k in kernels} | {"nearest_hit.cu"})
     procs = {}
     for name, csrc in trees:
-        for src in SOURCES:
+        for src in sources:
             obj = os.path.join(out, f"{name}.{src}.o")
             procs[name, src] = (obj, subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj,
@@ -64,30 +93,32 @@ def build(trees, out):
     for name, _csrc in trees:
         so = os.path.join(out, f"{name}.so")
         subprocess.run([nvcc, "-shared", "-o", so] +
-                       [procs[name, s][0] for s in SOURCES], check=True)
+                       [procs[name, s][0] for s in sources], check=True)
         lib = ctypes.CDLL(so)
-        lib.ntr_nearest_hit_hbm.argtypes = _build._NEAREST_ARGS
-        lib.ntr_nearest_t_hbm.argtypes = _build._NEAREST_T_ARGS
+        for k in kernels:
+            fn = getattr(lib, KERNELS[k][1])
+            fn.argtypes = KERNELS[k][2]
+            fn.restype = ctypes.c_int
         lib.ntr_error_string.argtypes = [ctypes.c_int]
         lib.ntr_error_string.restype = ctypes.c_char_p
         libs[name] = (lib, logs[name])
     return libs
 
 
-def ptxas_d3(log):
-    """(kernel, registers, spill stores, spill loads) of every d = 3 entry
-    function in a ptxas -v report."""
+def ptxas_rows(log, kernels):
+    """(kernel, registers, spill stores, spill loads) of the chosen kernels'
+    entry functions (at the d named in KERNELS) in a ptxas -v report."""
     rows = []
     for m in re.finditer(
-            r"Compiling entry function '\w*?\d(nearest_\w*?kernel)I"
-            r"(Li3E\w*?)EEEv.*?(\d+) bytes spill stores, (\d+) bytes spill "
-            r"loads.*?Used (\d+) registers", log, re.S):
-        rows.append((f"{m.group(1)}<{m.group(2)}>", int(m.group(5)),
-                     int(m.group(3)), int(m.group(4))))
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
+        if any(re.search(KERNELS[k][3], m.group(1)) for k in kernels):
+            rows.append((m.group(1), int(m.group(4)), int(m.group(2)),
+                         int(m.group(3))))
     return rows
 
 
-def wavefronts(dev):
+def mesh_cases(dev, kernels):
     """The mesh and the glass mesh primary wavefronts as walk inputs."""
     nt3 = NTracer(3)
     tris = cs.sphere_mesh(cs.MESH_TRIS)
@@ -96,10 +127,12 @@ def wavefronts(dev):
     groups = wf._frame_groups(-(-(cs.W * cs.H) // wf.TILE))
     xs, ys, _unswz = wf._frame_coords(groups, cs.W, dev)
     cases = {}
-    for label, mats, K in (
-            ("mesh primary", [solid] * len(tris), 0),
-            ("glass mesh primary",
+    for kernel, label, mats, K in (
+            ("2.5", "mesh primary", [solid] * len(tris), 0),
+            ("2.7", "glass mesh primary",
              [glass if i % 2 else solid for i in range(len(tris))], 8)):
+        if kernel not in kernels:
+            continue
         scene, _cam = cs.mesh_scene(
             nt3, nt3.TrianglePrototype.batch_from_points(tris, mats))
         cfg, arrs, _flat = wf.get_device_scene(scene, dev)
@@ -112,40 +145,177 @@ def wavefronts(dev):
         if K:
             res["opa"] = arrs["res_opa"]
         skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
-        cases[label] = rk._walk_inputs(res, oT, dT, skip, 3, pctx["order"],
-                                       None, pctx["sh_res"], K=K)
+        cases[label] = (kernel, rk._walk_inputs(
+            res, oT, dT, skip, 3, pctx["order"], None, pctx["sh_res"], K=K))
     return cases
 
 
+def primary_hits(scene, dev):
+    """A scene's primary wavefront at 1024x1024 and its hits (this tree's
+    library): (cfg, arrs, cam_o, oT, dT, pctx, hit)."""
+    groups = wf._frame_groups(-(-(cs.W * cs.H) // wf.TILE))
+    xs, ys, _unswz = wf._frame_coords(groups, cs.W, dev)
+    cfg, arrs, _flat = wf.get_device_scene(scene, dev)
+    cam_o = torch.as_tensor(scene._cam._origin, device=dev)
+    cam_t = torch.as_tensor(scene._cam._t, device=dev)
+    oT, dT = wf.make_rays(cam_o, cam_t,
+                          *wf._fov_params(cs.W, cs.H, scene.fov), xs, ys)
+    pctx = wf.primary_ctx(arrs, cfg, cam_o)
+    skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
+    hit = wf.trace_pool(arrs, cfg, oT, dT, skip, shared_origin=cam_o,
+                        pctx=pctx)
+    return cfg, arrs, cam_o, oT, dT, pctx, hit
+
+
+def shadow_cases(dev):
+    """Kernel 2.4's inputs: chip_smoke.py's shadow wavefronts of the glass
+    120-cell (from the opaque hits) and of the "transparent d=3" scene
+    (from the first glass surface), to the point light and along the
+    global light."""
+    nt = NTracer(4)
+    solid, glass_m = Material((0.3, 0.8, 0.5)), \
+        Material((1, 0.7, 0.7), opacity=0.4)
+    glass, _cam, _n = cs.cell120_scene(
+        nt, lambda i: glass_m if i % 2 else solid, -4.0, lit=True)
+    with cs.unbatched(kdtree):
+        d3 = cs.mesh_d3_scene(NTracer(3), Material((0.7, 0.8, 1.0),
+                                                   opacity=0.45), 500)
+    cases = {}
+    for label, scene in (("glass", glass), ("d3", d3)):
+        cfg, arrs, _o, oT, dT, _p, hit = primary_hits(scene, dev)
+        if label == "d3":
+            first = hit["tidT"][0] >= 0
+            hit = dict(hit=first, pid=torch.where(first, hit["tidT"][0], -1),
+                       pointT=oT + hit["ttT"][0][None, :] * dT)
+        res = wf._res_dict(arrs)
+        point = torch.where(hit["hit"][None, :], hit["pointT"], 0.0)
+        lv = point - arrs["pl_pos"][0][:, None]
+        dist = rk._sqrt(wf._dotT(lv, lv))
+        gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous()
+        exit_t = rk._scene_exit_T(point, gl, arrs["res_blo"],
+                                  arrs["res_bhi"])
+        for light, dirs, ldist in (
+                ("point light", (lv / dist[None, :]).contiguous(),
+                 torch.where(hit["hit"], dist, 0.0)),
+                ("global light", gl, torch.where(hit["hit"], exit_t, 0.0))):
+            cases[f"{label} {light}"] = ("2.4", rk._occlusion_inputs(
+                res, point, dirs, ldist, hit["pid"], cfg.d, None,
+                filtered=True))
+    return cases
+
+
+def grid_cases(dev):
+    """Kernel 2.9's inputs, chip_smoke.py's: the 10-orthoplex's primary
+    wavefront (shared rows) and its bounce wavefront (every ray, each
+    skipping the surface it leaves), the 9-orthoplex's primary wavefront
+    and rays from the camera aimed at a 16-D pool of 200 random
+    simplices (shared rows)."""
+    opaque = Material((1, 0.5, 0.5))
+    orth, _cam, _n = cs.orthoplex_scene(NTracer(10), opaque)
+    cfg, arrs, _o, oT, dT, pctx, hit = primary_hits(orth, dev)
+    kern = wf._kern_dict(arrs)
+    skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
+    sine = -wf._dotT(dT, hit["normalT"])
+    b_dT = wf._unitT(dT - hit["normalT"] * (-2 * sine)[None, :])
+    orth9, _cam, _n = cs.orthoplex_scene(NTracer(9), opaque)
+    cfg9, arrs9, _o, oT9, dT9, pctx9, _hit = primary_hits(orth9, dev)
+    pool16, simplices = cs.random_pool(NTracer(16),
+                                       Material((0.8, 0.5, 0.9)), 200)
+    cfg16, arrs16, _flat = wf.get_device_scene(pool16, dev)
+    cam16 = torch.as_tensor(pool16._cam._origin, device=dev)
+    oT16 = cam16[:, None].expand(16, dT.shape[1]).contiguous()
+    dT16 = torch.as_tensor(cs.aimed(pool16._cam._origin, simplices,
+                                    dT.shape[1]), device=dev)
+    pctx16 = wf.primary_ctx(arrs16, cfg16, cam16)
+    return {
+        "orthoplex primary": ("2.9", gk._grid_inputs(
+            kern, oT, dT, skip, cfg.d, sh=pctx["sh_kern"])),
+        "orthoplex bounce": ("2.9", gk._grid_inputs(
+            kern, hit["pointT"], b_dT, hit["pid"], cfg.d)),
+        "orthoplex9 primary": ("2.9", gk._grid_inputs(
+            wf._kern_dict(arrs9), oT9, dT9, skip, cfg9.d,
+            sh=pctx9["sh_kern"])),
+        "random16 aimed": ("2.9", gk._grid_inputs(
+            wf._kern_dict(arrs16), oT16, dT16, skip, 16,
+            sh=pctx16["sh_kern"])),
+    }
+
+
+def grid_call(lib, w, records):
+    """2.9 from ``lib``: (t, id, tiles).  ``records()`` gives the pool's
+    plane records, read by a library with ``ntr_grid_nearest_hit_info``."""
+    dev = w["oT"].device
+    R, T = gk._check_grid(w, dev)
+    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_id = torch.empty((R,), dtype=torch.int32, device=dev)
+    tiles = torch.empty((R // gk.RAY_BLOCK,), dtype=torch.int32, device=dev)
+    rows = records() if hasattr(lib, "ntr_grid_nearest_hit_info") \
+        else w["gt"]
+    init_t = w["init_t"].contiguous()
+    err = lib.ntr_grid_nearest_hit(
+        w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
+        init_t.data_ptr(), rows.data_ptr(), w["ci"].data_ptr(),
+        w["k_lo"].data_ptr(), w["k_hi"].data_ptr(), w["k_any"].data_ptr(),
+        T, R, w["d"], int(w["shared"]), out_t.data_ptr(), out_id.data_ptr(),
+        tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return err, (out_t, out_id, tiles)
+
+
 def main():
-    trees = [a.split("=", 1) for a in sys.argv[1:]]
-    if not trees or any(len(t) != 2 for t in trees):
+    args = sys.argv[1:]
+    kernels = list(KERNELS)
+    if args and args[0].startswith("--kernels"):
+        spec = args.pop(0).split("=", 1)
+        kernels = (spec[1] if len(spec) == 2 else args.pop(0)).split(",")
+    trees = [a.split("=", 1) for a in args]
+    if not trees or any(len(t) != 2 for t in trees) or \
+            any(k not in KERNELS for k in kernels):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("torch finds no CUDA device")
     card = cs.card()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as out:
-        libs = build(trees, out)
+        libs = build(trees, kernels, out)
         for name, (_lib, log) in libs.items():
-            for row in ptxas_d3(log):
+            for row in ptxas_rows(log, kernels):
                 print(f"{name}: {row[0]}: {row[1]} registers, spill stores "
                       f"{row[2]} B, loads {row[3]} B")
-        cases = wavefronts(dev)
+        # the wavefronts, with this tree's library
+        cases = {}
+        if "2.4" in kernels:
+            cases.update(shadow_cases(dev))
+        cases.update(mesh_cases(dev, kernels))
+        if "2.9" in kernels:
+            cases.update(grid_cases(dev))
+        records = {}
         names = [n for n, _c in trees]
 
-        def run(name, w):
-            _build._lib = libs[name][0]
-            entry = "ntr_nearest_t_hbm" if w["K"] else "ntr_nearest_hit_hbm"
-            err, got = rk._nearest_kernel(entry, w, w["oT"].device)
+        def run(name, kernel, w):
+            lib = libs[name][0]
+            _build._lib = lib
+            if kernel == "2.9":
+                def plane_records():
+                    key = id(w["gt"])
+                    if key not in records:
+                        records[key] = gk.plane_records(w["gt"], w["d"])
+                    return records[key]
+                err, got = grid_call(lib, w, plane_records)
+            elif kernel == "2.4":
+                err, got = rk._occlusion_kernel(KERNELS[kernel][1], w,
+                                                w["oT"].device)
+            else:
+                err, got = rk._nearest_kernel(KERNELS[kernel][1], w,
+                                              w["oT"].device)
             if err:
-                raise SystemExit(f"{name}: {entry} failed ({err})")
+                raise SystemExit(f"{name}: {KERNELS[kernel][1]} failed "
+                                 f"({err})")
             return got
 
-        for label, w in cases.items():
-            ref = run(names[0], w)
+        for label, (kernel, w) in cases.items():
+            ref = run(names[0], kernel, w)
             for name in names[1:]:
-                for a, b in zip(run(name, w), ref):
+                for a, b in zip(run(name, kernel, w), ref):
                     if a.dtype == torch.float32:
                         a, b = a.view(torch.int32), b.view(torch.int32)
                     if not torch.equal(a, b):
@@ -153,11 +323,15 @@ def main():
                                          f"on the {label}")
             times = {n: [] for n in names}
             for name in names + names[::-1]:
-                times[name].append(cs.time_cuda(lambda: run(name, w), 3))
+                times[name].append(cs.time_cuda(
+                    lambda: run(name, kernel, w), 3))
             for name in names:
-                print(f"{label}: {name} {np.mean(times[name]):.4f} ms "
-                      f"(turns {', '.join(f'{t:.4f}' for t in times[name])})"
+                print(f"{kernel} {label}: {name} "
+                      f"{np.mean(times[name]):.4f} ms (turns "
+                      f"{', '.join(f'{t:.4f}' for t in times[name])})"
                       f" [{card}]")
+            print(f"{kernel} {label}: outputs equal bit for bit across "
+                  f"{', '.join(names)}")
 
 
 if __name__ == "__main__":

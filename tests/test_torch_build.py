@@ -163,3 +163,51 @@ def test_one_streaming_loop_for_the_four_streaming_walks(fn):
         text = open(os.path.join(_build.CSRC_DIR, src)).read()
         assert '#include "stream_walk.cuh"' in text
         assert re.search(r"stream_walk<D, (true|false)>\(", text), src
+
+
+def test_filtered_occlusion_walks_share_the_streaming_body():
+    """Kernel 2.4 runs 2.8's body on stream_walk.cuh: both C entries launch
+    the one launcher of `occluded_t_stream_kernel`, and the resident body
+    `occluded_t_kernel` is gone."""
+    src = open(os.path.join(_build.CSRC_DIR, "occluded_transparent.cu")).read()
+    assert "occluded_t_kernel" not in src
+    assert "resident_walk" not in src and "pair_test<" not in src
+    assert len(re.findall(r"__global__", src)) == 1
+    for entry in ("ntr_occluded_t", "ntr_occluded_t_hbm"):
+        body = re.search(r"int %s\(.*?\)\s*\{(.*?)\n\}" % entry, src, re.S)
+        assert "return launch_stream_d(" in body.group(1), entry
+    assert "occluded_t_stream_kernel<DD>" in src
+
+
+def test_grid_nearest_launch_info_signature():
+    """Kernel 2.9's launch query takes (d, shared, int[6]), bound by load()
+    like the streaming walks' queries, and the wrapper names the six."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    _check_signature("ntr_grid_nearest_hit_info", _build._NEAREST_INFO_ARGS,
+                     "grid_walk.cu")
+    src = open(_build.__file__).read()
+    assert '("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS)' in src
+    cu = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    assert len(re.findall(r"info\[\d\] = ", cu)) == len(gk.GRID_INFO) == 6
+
+
+def test_grid_nearest_kernel_instantiated_for_every_d():
+    """2.9 is a template on D with no run-time d in its dots, switched at
+    launch for every d the wrappers take (3..MAX_D), both variants."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    assert re.search(r"template <int D, bool SHARED, int RPT>\s*__global__ "
+                     r"void __launch_bounds__\(RB / RPT\) grid_nearest_kernel",
+                     src)
+    listed = re.search(r"#define NTR_GRID_DS\(X\)(.*?)\n\n", src, re.S)
+    ds = [int(x) for x in re.findall(r"X\((\d+)\)", listed.group(1))]
+    assert ds == list(range(3, gk.MAX_D + 1))
+    for entry in ("ntr_grid_nearest_hit", "ntr_grid_nearest_hit_info"):
+        body = re.search(r"int %s\(.*?\)\s*\{(.*?)\n\}" % entry, src, re.S)
+        assert "NTR_GRID_DS(NTR_CASE)" in body.group(1), entry
+        assert "<DD, true>" in body.group(1) and "<DD, false>" in body.group(1)
+    # the nearest-hit walk's dots run at the exact width: no `k < d` guard
+    kernel = src[src.index("// Kernel 2.9: the nearest-hit grid walk"):
+                 src.index("// Kernel 2.10: the occlusion grid walk")]
+    assert "k < d" not in kernel and "MAXD" not in kernel
+    assert "__any_sync" in kernel

@@ -690,6 +690,24 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
         _equal(got, resident(*args))
 
 
+@pytest.mark.parametrize("d", [3, 6, 8])
+def test_resident_filtered_occlusion_entry_corner_cases(cuda, d,
+                                                         monkeypatch):
+    """Kernel 2.4's entry (``occluded_transparent``, which launches 2.8's
+    body) on the corner cases of ``_occlusion_cases``: it equals its twin
+    ``occluded_transparent_ref`` bit for bit (blocked, filt, visits), and
+    the streaming entry on the same inputs."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, (oT, dT, ld, sk), _facts = _occlusion_cases(d, cuda)
+    args = (res, oT, dT, ld, sk, d)
+    before = prk.occluded_transparent.launches
+    got = prk.occluded_transparent(*args)
+    assert prk.occluded_transparent.launches == before + 1
+    torch.cuda.synchronize()
+    _equal(got, prk.occluded_transparent_ref(*args))
+    _equal(got, prk.occluded_transparent_hbm(*args))
+
+
 def _aim(origin, points):
     """Unit directions (d, n) from ``origin`` (d,) to ``points`` (d, n)."""
     v = points - origin[:, None]
@@ -1192,3 +1210,159 @@ def test_card_grid_frame_matches_cpu_frame(cuda):
     diff = np.abs(np.frombuffer(bytes(a), np.uint8).astype(int)
                   - np.frombuffer(bytes(b), np.uint8).astype(int))
     assert diff.max() <= 1
+
+
+def _grid_corner_cases(d, dev, n=300, ties=600, seed=3):
+    """Kernel 2.9's corner cases at dimension ``d``: ``n`` random simplices
+    (chip_smoke.random_pool's spread) and ``ties`` identical copies of one
+    simplex in the plane x_2 = -4 (``_tie_vertices``), in front of them
+    from the camera at -8 on axis 2: 1,024 pool slots, two tiles, and the
+    copies fill lanes of both.  Six 512-ray blocks from the camera:
+      0. aimed at the copies: t tied across lanes and tiles;
+      1. the same, each skipping the winner's pool id;
+      2. the same with every other origin NaN;
+      3. pointing away from the pool (a dead block: it runs no tile);
+      4. through the pool's box, meeting no simplex (a live block without
+         hits);
+      5. aimed at random simplices of the second tile, with no valid pair
+         in the first.
+    Returns (kern, oT, dT, skip, sh, facts), facts the twin's view."""
+    a = api()
+    nt = a.NTracer(d)
+    rng = np.random.RandomState(seed)
+    pts = (rng.uniform(-2, 2, (n, 1, d))
+           + rng.uniform(-0.7, 0.7, (n, d, d))).astype(np.float32)
+    tie = np.asarray(_tie_vertices(d, (-0.6, -0.6, -4.0), 1.6), np.float32)
+    allp = np.concatenate([pts, np.broadcast_to(tie, (ties, d, d))])
+    mat = a.Material((0.8, 0.5, 0.9))
+    scene = nt.build_composite_scene(
+        nt.TrianglePrototype.batch_from_points(allp, [mat] * len(allp)))
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(cam)
+    cfg, arrs, flat = pwf.get_device_scene(scene, dev)
+    kern = pwf._kern_dict(arrs)
+    assert "kern_gt" in arrs and kern["gt"].shape[1] == 2 * gk.TRI_BLOCK
+    cam_o = torch.as_tensor(np.asarray(scene._cam._origin, np.float32),
+                            device=dev)
+    smoke = _smoke()
+    none = torch.full((512,), -1, dtype=torch.int32, device=dev)
+
+    def twin(o, dv, sk, k_any=None):
+        k = kern if k_any is None else dict(kern, k_any=k_any)
+        return gk.nearest_hit_ref(k, o.contiguous(), dv.contiguous(), sk, d)
+
+    o_cam = cam_o[:, None].expand(d, 512)
+    d_tie = torch.as_tensor(smoke.aimed(cam_o.cpu().numpy(), tie[None],
+                                        512), device=dev)
+    t0, id0, _v = twin(o_cam, d_tie, none)
+    winner = int(id0[0])
+    g = kern["gt"]
+    copies = torch.nonzero((g == g[:, winner:winner + 1]).all(dim=0) &
+                           (kern["ci"] == kern["ci"][:, winner:winner + 1])
+                           .all(dim=0)).flatten()
+    skip1 = torch.full((512,), winner, dtype=torch.int32, device=dev)
+    t1, id1, _v = twin(o_cam, d_tie, skip1)
+    o_nan = o_cam.clone()
+    o_nan[:, ::2] = float("nan")
+    # 4: aimed at the plane of the copies, beside them, within the box
+    side = np.asarray(_tie_vertices(d, (-2.5, -2.5, -4.0), 0.3), np.float32)
+    d_miss = torch.as_tensor(smoke.aimed(cam_o.cpu().numpy(), side[None],
+                                         4096, seed=5), device=dev)
+    _t, idm, _v = twin(cam_o[:, None].expand(d, 4096), d_miss,
+                       torch.full((4096,), -1, dtype=torch.int32,
+                                  device=dev))
+    exit_m = prk._scene_exit_T(cam_o[:, None].expand(d, 4096).contiguous(),
+                               d_miss, kern["b_lo"], kern["b_hi"])
+    miss = torch.nonzero((idm < 0) & (exit_m > 0)).flatten()
+    assert miss.numel() > 0
+    d_miss = d_miss[:, miss[torch.arange(512, device=dev) % miss.numel()]]
+    # 5: aimed at random simplices of the second tile
+    second = [i for i in range(gk.TRI_BLOCK, 2 * gk.TRI_BLOCK)
+              if i not in set(copies.tolist())
+              and np.linalg.norm(flat.arrays["tri_fn"][i]) > 0]
+    verts = _pool_vertices(flat.arrays, second)
+    d_2nd = torch.as_tensor(smoke.aimed(cam_o.cpu().numpy(), verts, 4096,
+                                        seed=7), device=dev)
+    o4k = cam_o[:, None].expand(d, 4096)
+    sk4k = torch.full((4096,), -1, dtype=torch.int32, device=dev)
+    _t, ids_all, _v = twin(o4k, d_2nd, sk4k)
+    only_first = kern["k_any"].clone()
+    only_first[1] = 0
+    _t, ids_first, _v = twin(o4k, d_2nd, sk4k, k_any=only_first)
+    keep = torch.nonzero((ids_all >= gk.TRI_BLOCK) & (ids_first < 0)) \
+        .flatten()
+    assert keep.numel() > 0
+    d_2nd = d_2nd[:, keep[torch.arange(512, device=dev) % keep.numel()]]
+    oT = torch.cat([o_cam, o_cam, o_nan, o_cam, o_cam, o_cam], dim=1)
+    dT = torch.cat([d_tie, d_tie, d_tie, -d_tie, d_miss, d_2nd], dim=1)
+    skip = torch.cat([none, skip1, none, none, none, none])
+    oT, dT = oT.contiguous(), dT.contiguous()
+    t, ids, tiles = gk.nearest_hit_ref(kern, oT, dT, skip, d)
+    ids = ids.reshape(6, 512)
+    facts = dict(
+        copies=int(copies.numel()),
+        copy_tiles=len(set((copies // gk.TRI_BLOCK).tolist())),
+        tied_winner=bool((ids[0] == int(copies.min())).all()),
+        skipped_winner=bool((ids[1] == int(copies[1])).all()),
+        nan_hits=int((ids[2, ::2] >= 0).sum()),
+        dead_tiles=int(tiles[3]),
+        live_no_hit=int(tiles[4]) > 0 and bool((ids[4] < 0).all()),
+        second_tile=bool((ids[5] >= gk.TRI_BLOCK).all()))
+    sh = gk.shared_rows(kern["gt"], kern["ci"], cam_o, d)
+    return kern, oT, dT, skip, sh, facts
+
+
+def _pool_vertices(a, ids):
+    """The vertices (m, d, d) of pool triangles ``ids`` of the flat arrays
+    ``a``: p1, and the points where the edge planes meet the face plane
+    (vertex k + 1 is where edge plane k reads 1 and the others 0)."""
+    out = []
+    for i in ids:
+        d = a["tri_fn"].shape[1]
+        m = np.concatenate([a["tri_fn"][i][None], a["tri_en"][i]]) \
+            .astype(np.float64)
+        en_p1 = a["tri_en"][i].astype(np.float64) @ \
+            a["tri_p1"][i].astype(np.float64)
+        vs = []
+        for k in range(d):
+            b = np.zeros(d - 1)
+            if k:
+                b[k - 1] = 1.0
+            rhs = np.concatenate([[-float(a["tri_dc"][i])], en_p1 - b])
+            vs.append(np.linalg.solve(m, rhs))
+        out.append(vs)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("d", [9, 10, 12, 16])
+def test_grid_nearest_kernel_corner_cases(cuda, d):
+    """Kernel 2.9 on ``_grid_corner_cases(d)`` -- ties across lanes and
+    tiles, the winner skipped, NaN origins, a dead block, a live block
+    without hits, hits only in the second tile -- with the shared rows and
+    without: t, ids and tiles equal the twin's bit for bit."""
+    kern, oT, dT, skip, sh, facts = _grid_corner_cases(d, cuda)
+    print(f"d = {d}: {facts}")
+    assert facts["copies"] == 600 and facts["copy_tiles"] == 2
+    assert facts["tied_winner"] and facts["skipped_winner"]
+    assert facts["nan_hits"] == 0 and facts["dead_tiles"] == 0
+    assert facts["live_no_hit"] and facts["second_tile"]
+    for kw in (dict(sh=sh), {}):
+        n0 = gk.nearest_hit.launches
+        got = gk.nearest_hit(kern, oT, dT, skip, d, **kw)
+        assert gk.nearest_hit.launches == n0 + 1
+        torch.cuda.synchronize()
+        _grid_equal(got, gk.nearest_hit_ref(kern, oT, dT, skip, d, **kw))
+
+
+def test_grid_nearest_kernel_launch_info(cuda):
+    """Kernel 2.9 as it launches at d = 9, 10 and 16 (both variants): two
+    rays a thread with the shared rows, one without, a ring of at least two
+    slots, at least one block an SM."""
+    for d in (9, 10, 16):
+        for shared in (True, False):
+            info = gk.launch_info(d, shared)
+            print(f"2.9 d = {d} shared={shared}: {info}")
+            assert info["rays_per_thread"] == (2 if shared else 1)
+            assert info["ring_slots"] >= 2 and info["blocks_per_sm"] >= 1
+            assert info["registers"] <= 255
