@@ -47,11 +47,11 @@ at 1024x1024, 8-bit RGB:
 
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its resident sibling (kernels 2.1-2.4) on the same
-inputs (2.4 launches 2.8's body: that check is one of equality, not of
-time); the grid kernels against their twins at the orthoplex's full
+inputs (2.1 and 2.4 launch 2.5's and 2.8's bodies: those checks are of
+equality, not of time); the grid kernels against their twins at the orthoplex's full
 wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
 rays to three lights and a dead wavefront), and at d = 9 (the 9-orthoplex)
-and d = 16 (200 random simplices, rays aimed at them) for a runtime d.  The script checks 64 pixels of each frame against the scalar NumPy
+and d = 16 (200 random simplices, rays aimed at them) for other d.  The script checks 64 pixels of each frame against the scalar NumPy
 oracle, computed by forked worker processes on the host (5e-5;
 5e-4 for the composed pixels of the transparent frames), chosen from the
 engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
@@ -64,9 +64,10 @@ decides (tests/test_torch_mirror_view.py); so are both mesh frames (the
 axis camera looks through the sphere's polar holes) and the orthoplex.
 Each kernel's launch count is set to 0 before a path is driven and read
 after it; one more glass 120-cell frame counts kernel 2.4's live launches
-(a block visited a chunk).  The script prints the launch of 2.4
-(stream_walk.cuh's body) and of 2.9 at d = 9, 10 and 16 (registers,
-spills, blocks an SM, ring slots, rays a thread).  Any failed phase exits
+(a block visited a chunk).  The script prints the launch of 2.1 at d = 4
+and 6 and of 2.4 (stream_walk.cuh's bodies), of 2.9 and 2.10 at d = 9, 10
+and 16 (registers, spills, blocks an SM, ring slots, rays a thread), and
+the time of 2.1's entry pass alone on the flagship pool.  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
 kernel's numbers and ``{"ok": true, "device": {...}}``.
 
@@ -112,13 +113,15 @@ PEAK_BYTES = 3.35e12       # bytes/s
 # Instructions an IEEE division (div.rn.f32) executes on its fast path in the
 # card's SASS, counted by div_sass_ops() from the same nvcc flags.
 DIV_OPS = 10
-# The four streaming walks and kernel 2.4 run the loop of stream_walk.cuh
-# (compacted rays, the straight-line pair test, per-warp slot release).
+# The four streaming walks and kernels 2.1 and 2.4 run the loop of
+# stream_walk.cuh (compacted rays, the straight-line pair test, per-warp
+# slot release).
 REDESIGNED = "ntracer_tpu_torch/csrc/stream_walk.cuh"
-# Kernel 2.9 runs grid_nearest_kernel<D, SHARED, RPT> (exact width, RPT rays
-# a thread, warp-uniform skips, a TMA ring of sub-tiles).
-GRID_REDESIGNED = ("ntracer_tpu_torch/csrc/grid_walk.cu: "
-                   "grid_nearest_kernel<D, SHARED, RPT>")
+# Kernels 2.9 and 2.10 run grid_nearest_kernel<D, SHARED, RPT> and
+# grid_occluded_kernel<D, RPT> (exact width, RPT rays a thread, one
+# straight-line pair test with warp-uniform skips, a TMA ring of sub-tiles).
+GRID_REDESIGNED = ("ntracer_tpu_torch/csrc/grid_walk.cu: grid_pair and "
+                   "grid_tiles")
 DIV_PROBE = r"""
 extern "C" __global__ void ntr_div_probe(float* a, const float* b) {
   a[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
@@ -745,6 +748,24 @@ def grid_walk_stages(kern, o, dv, skip, d, visits, sh=None, t=None,
     return walk_stages(w, (ldist > 0) & ~blocked, ldist, visits)[0]
 
 
+def grid_shadow_rays(hit, light_pos=None, light_dir=None):
+    """Shadow rays of a d > 8 frame as the engine casts them: from the
+    primary hits (misses inactive) away from the point light at
+    ``light_pos`` (ldist its distance), or towards the global light
+    ``light_dir`` (ldist REAL_MAX, unclamped).  -> (origins, directions,
+    ldist)."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    from ntracer_tpu_torch.engine import wavefront as wf
+    point = torch.where(hit["hit"][None, :], hit["pointT"], 0.0)
+    if light_pos is not None:
+        lv = point - light_pos[:, None]
+        dist = rk._sqrt(wf._dotT(lv, lv))
+        return point, (lv / dist[None, :]).contiguous(), \
+            torch.where(hit["hit"], dist, 0.0)
+    ld = (-light_dir)[:, None].expand_as(point).contiguous()
+    return point, ld, torch.where(hit["hit"], wf.REAL_MAX, 0.0)
+
+
 def pool_bytes(arrs, opacity=False):
     """Bytes of the pool's rows and boxes; with ``opacity`` the row of
     opacities the transparent walks read (row 0 of ``res_opa``)."""
@@ -1147,6 +1168,10 @@ def main():
         slot_diff = int((ks != ps).sum())
         t_diff = int((kt.view(torch.int32) != pt.view(torch.int32)).sum())
         vis_diff = int((kv != pv).sum())
+        # 2.1 launches 2.5's body: the streaming entry on the same inputs
+        ht, hs, hv = rk.nearest_hit_hbm(*args, **kw)
+        vs_2_5 = dict(slot=int((ks != hs).sum()), t_bits=bit_diffs(kt, ht),
+                      visits=int((kv != hv).sum()))
         err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
                     .max())
         ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 20)
@@ -1163,13 +1188,48 @@ def main():
         print(f"   {label}: {R} rays, {int(need.sum())} to test, "
               f"{int((ks >= 0).sum())} hits, "
               f"slot diffs {slot_diff}, t bit diffs {t_diff}, visit diffs "
-              f"{vis_diff}, max |dt| {err}, visits/block "
+              f"{vis_diff}, diffs against 2.5 {json.dumps(vs_2_5)}, max |dt| "
+              f"{err}, visits/block "
               f"{float(kv.float().mean()):.4f}; kernel {ms:.4f} ms, twin "
               f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound reached "
               f"[{name_limit}]")
-        if slot_diff or t_diff or vis_diff:
-            raise SystemExit(f"nearest_hit kernel != twin in {label} mode")
+        if slot_diff or t_diff or vis_diff or any(vs_2_5.values()):
+            raise SystemExit(f"nearest_hit kernel != twin or 2.5 in {label} "
+                             f"mode")
+    # kernel 2.1 launches 2.5's body (stream_walk.cuh): as it launches at
+    # the flagship's d and the lit configuration's
+    near_info = {}
+    for d_ in (cfg.d, lcfg.d):
+        for shared in (True, False):
+            near_info[d_, shared] = rk.stream_info("nearest_hit", d_, shared)
+            print(f"   nearest_hit at d = {d_}"
+                  f"{' (shared rows)' if shared else ''}: "
+                  f"{near_info[d_, shared]}")
+    # the entry pass alone on the flagship pool: every block live, every
+    # origin far outside the pool's box, pointing away, and a start
+    # distance no chunk is within, so no block visits a chunk
+    far = torch.full((cfg.d, R), 10.0, device=dev)
+    away = torch.full((cfg.d, R), cfg.d ** -0.5, device=dev)
+    none = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    pw = rk._walk_inputs(res, far, away, none, cfg.d, None, None, None)
+    pw["init_t"] = torch.full((R,), 1e-30, device=dev)
+    pw["blive"] = torch.ones_like(pw["blive"])
+
+    def flagship_entry_probe():
+        err, got = rk._nearest_kernel("ntr_nearest_hit", pw, far.device)
+        if err:
+            raise SystemExit(f"the 2.1 entry-pass probe failed: {err}")
+        return got
+
+    kt, ks, kv = flagship_entry_probe()
+    if bool(kv.any()) or bool((ks >= 0).any()):
+        raise SystemExit("the 2.1 entry-pass probe visited a chunk")
+    entry_1_ms = time_cuda(flagship_entry_probe, 5)
+    print(f"   2.1 (2.5's body) entry pass alone ({R // 512} live blocks x "
+          f"{int(arrs['res_neff'])} chunks): {entry_1_ms:.4f} ms, "
+          f"{100 * entry_1_ms / near['primary']['ms']:.1f}% of the primary "
+          f"walk [{name_limit}]")
     done(t0)
 
     # kernel 2.2 at the lit frame's full wavefront: 1,048,576 shadow rays
@@ -1433,7 +1493,8 @@ def main():
                      visits_vs_2_1=int((kv != rv).sum()))
         err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
                     .max())
-        # in turns: 2.1, 2.5, 2.5, 2.1
+        # in turns: 2.1, 2.5, 2.5, 2.1 (2.1 launches 2.5's body: the times
+        # should agree, and the diffs above hold the two entries together)
         res_ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 3)
         ms = time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)
         ms = (ms + time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)) / 2
@@ -1454,7 +1515,9 @@ def main():
               f"{int((ks >= 0).sum())} hits, {int((kv > 0).sum())} live "
               f"blocks, visits/block {float(kv.float().mean()):.4f}; diffs "
               f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.5 {ms:.4f} ms, "
-              f"kernel 2.1 on the same inputs {res_ms:.4f} ms, ratio 2.5/2.1 "
+              f"kernel 2.1 on the same inputs {res_ms:.4f} ms (the same "
+              f"body since 2.1's redesign: an equality check, not 2.5's "
+              f"yardstick), ratio 2.5/2.1 "
               f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound reached; "
@@ -1702,7 +1765,7 @@ def main():
 
     # Kernels 2.9 and 2.10 at full wavefronts, each against its twin: the
     # grid walks of the 10-orthoplex (two 512-triangle tiles), the
-    # 9-orthoplex (one) and a 16-D random pool (one), for a runtime d.  A
+    # 9-orthoplex (one) and a 16-D random pool (one), for other d.  A
     # twin's one call takes seconds: it is timed once.
     t0 = phase("grid nearest_hit kernel vs twin")
     # kernel 2.9 as it launches: registers, spills, blocks an SM, ring
@@ -1785,17 +1848,12 @@ def main():
     # cross the body and most end blocked; then a wavefront without any
     # active ray
     t0 = phase("grid occluded kernel vs twin")
-
-    def grid_shadow_rays(hit_, light_pos=None, light_dir=None):
-        point = torch.where(hit_["hit"][None, :], hit_["pointT"], 0.0)
-        if light_pos is not None:
-            lv = point - light_pos[:, None]
-            dist = rk._sqrt(wf._dotT(lv, lv))
-            return point, (lv / dist[None, :]).contiguous(), \
-                torch.where(hit_["hit"], dist, 0.0)
-        ld = (-light_dir)[:, None].expand_as(point).contiguous()
-        return point, ld, torch.where(hit_["hit"], wf.REAL_MAX, 0.0)
-
+    # kernel 2.10 as it launches: registers, spills, blocks an SM, ring
+    # slots, rays a thread
+    occl_info = {}
+    for d_ in (9, 10, 16):
+        occl_info[d_] = gk.launch_info(d_, walk="occluded")
+        print(f"   grid_occluded at d = {d_}: {occl_info[d_]}")
     gcases = {
         "orthoplex point light": (ocfg, oarrs, okern, ohit, grid_shadow_rays(
             ohit, light_pos=oarrs["pl_pos"][0])),
@@ -2284,7 +2342,10 @@ def main():
     tpu = "ntracer_tpu/engine/resident_kernels.py:"
     kernels = [
         kernel_entry("nearest_hit", csrc + "nearest_hit.cu", tpu + "778",
-                     "flagship", near, "primary"),
+                     "flagship", near, "primary", entry_ms=entry_1_ms,
+                     redesigned=REDESIGNED,
+                     launch={f"d={d_}{' shared' if sh_ else ''}": v
+                             for (d_, sh_), v in near_info.items()}),
         kernel_entry("occluded", csrc + "occluded.cu", tpu + "1100",
                      "lit 120-cell", occ, "flagship point light",
                      dead_ms=dead_ms),
@@ -2328,7 +2389,8 @@ def main():
                              for (d_, sh_), v in grid_info.items()}),
         kernel_entry("grid_occluded", csrc + "grid_walk.cu", pallas + "346",
                      "orthoplex d=10", occ_g, "orthoplex global light",
-                     dead_ms=dead_g_ms),
+                     dead_ms=dead_g_ms, redesigned=GRID_REDESIGNED,
+                     launch={f"d={d_}": v for d_, v in occl_info.items()}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,34 +28,34 @@
 // plane the pair reaches.  The pool is small (1,024 triangles at d = 10 is
 // 450 KB) and sits in L2.
 //
-// Kernel 2.9 (`grid_nearest_kernel<D, SHARED, RPT>`) is built for that:
+// Both kernels are built for that (`grid_nearest_kernel<D, SHARED, RPT>`
+// for 2.9, `grid_occluded_kernel<D, RPT>` for 2.10):
 //   * Templated on d (3..16), so every dot runs at the exact width; a ray's
 //     direction (and, for rays that do not share one origin, its origin)
 //     is all it keeps in registers through the triangle loop: the tile
 //     vote reloads a shared origin and recomputes 1 / dv.
-//   * RPT rays a thread (two for primary rays, one otherwise; a block is
-//     512 / RPT threads): one broadcast float4 load of a plane's values
-//     serves 4 x RPT multiply-adds.  The pool's plane rows are re-laid
-//     triangle by triangle (`grid_kernels.plane_records`: (T, d, pw), each
-//     plane padded to pw = 4 * ceil(d / 4) floats), so a triangle's planes
-//     are consecutive float4s.
-//   * The straight-line pair test with warp-uniform skips (as
+//   * RPT rays a thread (2.9: two for primary rays, one otherwise; 2.10:
+//     one; a block is 512 / RPT threads): one broadcast float4 load of a
+//     plane's values serves 4 x RPT multiply-adds.  The pool's plane rows
+//     are re-laid triangle by triangle (`grid_kernels.plane_records`: (T,
+//     d, pw), each plane padded to pw = 4 * ceil(d / 4) floats), so a
+//     triangle's planes are consecutive float4s.
+//   * One straight-line pair test with warp-uniform skips (grid_pair, as
 //     stream_walk.cuh's pair_test_warp): after plane 0 (the division, t
-//     against the ray's best) and after each edge, a warp none of whose
-//     rays can still hit the triangle goes on to the next one.  `valid` is
-//     an AND and the edge total matters only where the pair is valid, so
-//     the skips change no bit.  Before the division every pair tests the
-//     signs of the numerator and the denominator, and a warp none of whose
-//     rays can have t > 0 skips the division.
+//     against the ray's best or ldist) and after each edge, a warp none of
+//     whose rays can still hit the triangle goes on to the next one.
+//     Before the division every pair tests the signs of the numerator and
+//     the denominator, and a warp none of whose rays can have t > 0 skips
+//     the division.  In 2.10 a ray that is blocked, or whose ldist is <= 0
+//     or NaN, tests nothing, and a warp of such rays skips the rest of the
+//     tile.
 //   * Sub-tiles of GS = 32 triangles stream through a ring of shared-memory
-//     slots by TMA bulk copies (chunk_ring.cuh): one copy of the sub-tile's
-//     plane records and d copies of its offset rows (`ci`, or the shared
-//     rows), counted on the slot's "full" mbarrier; each warp releases a
-//     slot on its "empty" mbarrier after its tests, and thread 0 refills it.
-//     The block syncs once a tile, in the vote.
-// Kernel 2.10 (`grid_occluded_kernel`) keeps the first port's design: d at
-// run time up to MAXD = 16, one ray a thread, 32 triangles staged by the
-// block with two syncs.
+//     slots by TMA bulk copies (chunk_ring.cuh; the loop is grid_tiles):
+//     one copy of the sub-tile's plane records and d copies of its offset
+//     rows (`ci`, or the shared rows), counted on the slot's "full"
+//     mbarrier; each warp releases a slot on its "empty" mbarrier after its
+//     tests, and thread 0 refills it.  The block syncs once a tile, in the
+//     vote.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).  No a*b+c
 // is contracted, so every operation rounds as in the twin.
@@ -70,8 +70,6 @@ namespace {
 
 constexpr int RB = 512;           // rays per block
 constexpr int TB = 512;           // triangles per tile
-constexpr int SUB = 32;           // triangles 2.10 stages at once
-constexpr int MAXD = 16;          // largest d
 constexpr float FUZZ = 1.1920928955078125e-06f;   // float32(eps * 10)
 constexpr float BIG = 3e37f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -85,7 +83,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 2.9: the nearest-hit grid walk
+// Kernel 2.9: the nearest-hit grid walk, and what 2.10 shares with it
 // ---------------------------------------------------------------------------
 
 constexpr int GS = 32;            // triangles a ring slot holds
@@ -105,7 +103,7 @@ __host__ __device__ constexpr int grid_slot_floats() {
   return GS * D * plane_width<D>() + D * GS;
 }
 
-// Rays a thread: two for primary rays (the shared rows carry the origin
+// Rays a thread of 2.9: two for primary rays (the shared rows carry the origin
 // dots, so a ray keeps only its direction), one for rays of their own
 // origin.  Four and two ran slower on the 10-orthoplex's primary and
 // bounce wavefronts on the H100 (PERF.md section 6): more rays a warp
@@ -116,8 +114,9 @@ __host__ __device__ constexpr int grid_rays() {
 }
 
 // Entry distance into a tile's box (lo/hi: its d bounds) of a ray whose
-// reciprocals are computed here, as load_ray computes them; INFINITY when
-// the box is missed.  The operations of tile_entry below.
+// reciprocals are computed here (0 on a parallel axis); INFINITY when the
+// box is missed.  The twin's slab entry (resident_kernels._entry_all),
+// operation for operation.
 template <int D>
 __device__ __forceinline__ float tile_entry_d(const float (&o)[D],
                                               const float (&dv)[D],
@@ -170,9 +169,16 @@ __device__ __forceinline__ void plane_dots(const float4* g,
   }
 }
 
-// RPT rays of a thread against triangle l of ring slot `b` (pool id `id`),
-// every lane of the warp at once: grid_walk's pair test (tracer.hpp:411-440)
-// && id != skip && t < best, and the strict < update of (best, bid).
+// The pair test (tracer.hpp:411-440) of RPT rays of a thread against
+// triangle l of ring slot `b` (pool id `id`), every lane of the warp at
+// once: one straight line that both grid walks run.  Ray c takes part
+// where want(c) holds and `id` is not its skip id sk[c]; where the
+// triangle is a valid hit with 0 < t < cut[c] -- the twin's valid && t <
+// cut, with every value that decides it rounded as the twin rounds it --
+// hit(c, t) runs, in ray order.  The kernels differ only in `want`, the
+// cut and `hit`: 2.9 cuts at its best and keeps (t, id) on strict <, 2.10
+// takes its live rays, cuts at ldist and ORs `blocked`.  Returns whether
+// the warp ran every stage (false: no hit).
 //   * Sums start at their first product rather than at +0: they differ
 //     only in the sign of a zero sum.  A zero dn fails either way; a zero
 //     numerator gives t = +-0, which fails t > 0 either way (SHARED sums no
@@ -184,21 +190,23 @@ __device__ __forceinline__ void plane_dots(const float4* g,
 //     that skips the division.  Rays that fail before the division divide
 //     by 1 (t unused), off the division's slow path.
 //   * Each later stage runs only while a ray of the warp can still pass it
-//     (__any_sync: every lane calls this with the same l).
-template <int D, bool SHARED, int RPT, int OD>
-__device__ __forceinline__ void grid_pair(const float* __restrict__ b, int l,
+//     (__any_sync: every lane calls this with the same l).  `valid` is an
+//     AND and the edge total matters only where the pair is valid, so the
+//     skips change no bit.
+template <int D, bool SHARED, int RPT, int OD, class Want, class Hit>
+__device__ __forceinline__ bool grid_pair(const float* __restrict__ b, int l,
                                           int id, const float (&o)[RPT][OD],
                                           const float (&dv)[RPT][D],
                                           const int (&sk)[RPT],
-                                          float (&best)[RPT],
-                                          int (&bid)[RPT]) {
+                                          const float (&cut)[RPT], Want want,
+                                          Hit hit) {
   constexpr int PW = plane_width<D>();
   const float4* rec = reinterpret_cast<const float4*>(b + l * D * PW);
   const float* sc = b + GS * D * PW + l;       // offset row p at sc[p * GS]
   float od[RPT], dd[RPT];
   plane_dots<D, SHARED>(rec, o, dv, od, dd);
   const float c0 = sc[0];
-  float num[RPT], t[RPT], tot[RPT];
+  float num[RPT], tot[RPT], t[RPT];
   bool go[RPT];
   bool any = false;
 #pragma unroll
@@ -207,18 +215,18 @@ __device__ __forceinline__ void grid_pair(const float* __restrict__ b, int l,
     // bitwise, so the compiler keeps it one line of predicates
     const bool pos = (num[c] > 0.f) & (dd[c] > 0.f);
     const bool neg = (num[c] < 0.f) & (dd[c] < 0.f);
-    go[c] = (id != sk[c]) & (pos | neg);
+    go[c] = (id != sk[c]) & want(c) & (pos | neg);
     any = any || go[c];
   }
-  if (!__any_sync(FULL, any)) return;
+  if (!__any_sync(FULL, any)) return false;
   any = false;
 #pragma unroll
   for (int c = 0; c < RPT; ++c) {
     t[c] = num[c] / (go[c] ? dd[c] : 1.f);
-    go[c] = go[c] && t[c] > 0.f && t[c] < best[c];
+    go[c] = go[c] && t[c] > 0.f && t[c] < cut[c];
     any = any || go[c];
   }
-  if (!__any_sync(FULL, any)) return;
+  if (!__any_sync(FULL, any)) return false;
   // edge 1, then the rest in a loop: few pairs get past edge 1
   {
     plane_dots<D, SHARED>(rec + PW / 4, o, dv, od, dd);
@@ -231,7 +239,7 @@ __device__ __forceinline__ void grid_pair(const float* __restrict__ b, int l,
       tot[c] = a;
       any = any || go[c];
     }
-    if (!__any_sync(FULL, any)) return;
+    if (!__any_sync(FULL, any)) return false;
   }
 #pragma unroll 1
   for (int i = 2; i < D; ++i) {
@@ -245,81 +253,55 @@ __device__ __forceinline__ void grid_pair(const float* __restrict__ b, int l,
       tot[c] = tot[c] + a;
       any = any || go[c];
     }
-    if (!__any_sync(FULL, any)) return;
+    if (!__any_sync(FULL, any)) return false;
   }
 #pragma unroll
-  for (int c = 0; c < RPT; ++c) {
-    if (go[c] && tot[c] <= 1.f + FUZZ) {
-      best[c] = t[c];
-      bid[c] = id;
-    }
-  }
+  for (int c = 0; c < RPT; ++c)
+    if (go[c] && tot[c] <= 1.f + FUZZ) hit(c, t[c]);
+  return true;
 }
 
-// Kernel 2.9.  Thread `tid` owns rays tid * RPT .. tid * RPT + RPT - 1 of
-// the block.  `grec` (T, D, plane_width<D>()) are the pool's plane records,
-// `ci` (D, T) its offset rows (SHARED: the shared rows); the dynamic shared
-// memory is `n_slots` ring slots of grid_slot_floats<D>() floats.
-template <int D, bool SHARED, int RPT>
-__global__ void __launch_bounds__(RB / RPT) grid_nearest_kernel(
-    const float* __restrict__ oT, const float* __restrict__ dT,
-    const int* __restrict__ skip, const float* __restrict__ init_t,
-    const float* __restrict__ grec, const float* __restrict__ ci,
-    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
-    const float* __restrict__ k_any, int T, int R, int n_slots,
-    float* __restrict__ out_t, int* __restrict__ out_id,
-    int* __restrict__ tiles) {
+// The tile loop of both grid walks.  Every thread calls it; thread `tid`
+// owns the block's rays tid * RPT .. tid * RPT + RPT - 1.
+//   * Before tile j the block votes with the carry from before it: `vote(j)`
+//     says whether some ray of the thread wants the tile (enters its box
+//     before its best, or before its ldist on a ray not blocked yet); the
+//     tile runs when some thread wants it and its flag k_any holds.
+//   * A tile that runs streams its GNS sub-tiles of GS triangles through
+//     the `n_slots` ring slots (the dynamic shared memory): thread 0 starts
+//     one copy of a sub-tile's plane records and D copies of its offset
+//     rows, counted on the slot's "full" mbarrier, once every warp has
+//     released the slot's last sub-tile on its "empty" one (a slot is
+//     refilled `lag` sub-tiles after its last test began).
+//   * Every warp waits on each sub-tile's "full" barrier, runs
+//     `test(slot, id0)` (id0: the sub-tile's first pool id) and releases
+//     the slot: a warp that has nothing left to test still waits for the
+//     copies before it releases the slot, or thread 0 could re-arm a slot
+//     whose copies are still landing.
+// The block syncs once a tile, in the vote.  Returns the tiles run.
+template <int D, int RPT, class Vote, class Test>
+__device__ __forceinline__ int grid_tiles(const float* __restrict__ grec,
+                                          const float* __restrict__ ci,
+                                          const float* __restrict__ k_any,
+                                          int T, int n_slots, Vote vote,
+                                          Test test) {
   constexpr int NWG = RB / RPT / 32;        // warps a block
   constexpr int PW = plane_width<D>();
   constexpr int SLOT = grid_slot_floats<D>();
-  constexpr int OD = SHARED ? 1 : D;
   extern __shared__ __align__(128) float s_ring[];
   __shared__ uint64_t s_full[GRING_MAX];
   __shared__ uint64_t s_empty[GRING_MAX];
   const int tid = threadIdx.x, lane = tid & 31;
-  const int r0 = blockIdx.x * RB + tid * RPT;
-
-  float o[RPT][OD], dv[RPT][D], best[RPT];
-  int sk[RPT], bid[RPT];
-#pragma unroll
-  for (int c = 0; c < RPT; ++c) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      dv[c][k] = dT[(size_t)k * R + r0 + c];
-      if constexpr (!SHARED) o[c][k] = oT[(size_t)k * R + r0 + c];
-    }
-    if constexpr (SHARED) o[c][0] = 0.f;
-    sk[c] = skip[r0 + c];
-    best[c] = init_t[r0 + c];
-    bid[c] = -1;
-  }
   if (tid < n_slots) {
     ntr::mbar_init(&s_full[tid]);
     ntr::mbar_init_count(&s_empty[tid], NWG);
   }
   ntr::mbar_fence_init();              // the vote's sync orders it first
-  // a slot is refilled `lag` sub-tiles after its last test began
   const int lag = n_slots > 2 ? 2 : 1;
   int q = 0;                           // sub-tiles started so far
   int ntiles = 0;
   for (int j = 0; j < T / TB; ++j) {
-    // the block's vote, with the carry from before this tile
-    bool want = false;
-#pragma unroll
-    for (int c = 0; c < RPT; ++c) {
-      float oo[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        if constexpr (SHARED)
-          oo[k] = oT[(size_t)k * R + r0 + c];
-        else
-          oo[k] = o[c][k];
-      }
-      const float e = tile_entry_d<D>(oo, dv[c], k_lo + (size_t)j * D,
-                                      k_hi + (size_t)j * D);
-      want = want || e < best[c];
-    }
-    if (!__syncthreads_or(want) || !(k_any[j] != 0.f)) continue;
+    if (!__syncthreads_or(vote(j)) || !(k_any[j] != 0.f)) continue;
     ++ntiles;
     const int q_end = q + GNS;
     int q_fill = q;
@@ -345,16 +327,78 @@ __global__ void __launch_bounds__(RB / RPT) grid_nearest_kernel(
       if (tid == 0) fill_ahead(qq + n_slots - lag);
       const int s = qq % n_slots;
       ntr::mbar_wait(&s_full[s], (unsigned)(qq / n_slots) & 1u);
-      const float* slot = s_ring + (size_t)s * SLOT;
-      const int id0 = j * TB + (qq - q) * GS;
-#pragma unroll 1
-      for (int l = 0; l < GS; ++l)
-        grid_pair<D, SHARED>(slot, l, id0 + l, o, dv, sk, best, bid);
+      test(s_ring + (size_t)s * SLOT, j * TB + (qq - q) * GS);
       __syncwarp();
       if (lane == 0) ntr::mbar_arrive(&s_empty[s]);
     }
     q = q_end;
   }
+  return ntiles;
+}
+
+// Kernel 2.9.  `grec` (T, D, plane_width<D>()) are the pool's plane
+// records, `ci` (D, T) its offset rows (SHARED: the shared rows); the
+// dynamic shared memory is `n_slots` ring slots of grid_slot_floats<D>()
+// floats.
+template <int D, bool SHARED, int RPT>
+__global__ void __launch_bounds__(RB / RPT) grid_nearest_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ init_t,
+    const float* __restrict__ grec, const float* __restrict__ ci,
+    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
+    const float* __restrict__ k_any, int T, int R, int n_slots,
+    float* __restrict__ out_t, int* __restrict__ out_id,
+    int* __restrict__ tiles) {
+  constexpr int OD = SHARED ? 1 : D;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * RB + tid * RPT;
+
+  float o[RPT][OD], dv[RPT][D], best[RPT];
+  int sk[RPT], bid[RPT];
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      dv[c][k] = dT[(size_t)k * R + r0 + c];
+      if constexpr (!SHARED) o[c][k] = oT[(size_t)k * R + r0 + c];
+    }
+    if constexpr (SHARED) o[c][0] = 0.f;
+    sk[c] = skip[r0 + c];
+    best[c] = init_t[r0 + c];
+    bid[c] = -1;
+  }
+  // the vote reloads a shared origin
+  auto vote = [&](int j) {
+    bool want = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      float oo[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        if constexpr (SHARED)
+          oo[k] = oT[(size_t)k * R + r0 + c];
+        else
+          oo[k] = o[c][k];
+      }
+      const float e = tile_entry_d<D>(oo, dv[c], k_lo + (size_t)j * D,
+                                      k_hi + (size_t)j * D);
+      want = want || e < best[c];
+    }
+    return want;
+  };
+  auto test = [&](const float* slot, int id0) {
+#pragma unroll 1
+    for (int l = 0; l < GS; ++l) {
+      grid_pair<D, SHARED>(
+          slot, l, id0 + l, o, dv, sk, best, [](int) { return true; },
+          [&](int c, float t) {        // t < best: the strict < update
+            best[c] = t;
+            bid[c] = id0 + l;
+          });
+    }
+  };
+  const int ntiles = grid_tiles<D, RPT>(grec, ci, k_any, T, n_slots, vote,
+                                        test);
 #pragma unroll
   for (int c = 0; c < RPT; ++c) {
     out_t[r0 + c] = best[c];
@@ -363,8 +407,8 @@ __global__ void __launch_bounds__(RB / RPT) grid_nearest_kernel(
   if (tid == 0) tiles[blockIdx.x] = ntiles;
 }
 
-// Ring depth and dynamic shared memory of kernel 2.9 at D: as many blocks
-// an SM as its registers allow (at most 8), and as many slots (2 to
+// Ring depth and dynamic shared memory of a grid kernel at D: as many
+// blocks an SM as its registers allow (at most 8), and as many slots (2 to
 // GRING_MAX) as let them share an SM's shared memory; fewer blocks where
 // two slots do not fit.
 template <int D, class Kernel>
@@ -404,6 +448,30 @@ cudaError_t grid_ring_config(Kernel kernel, int threads, int* n_slots,
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
 }
 
+// A grid kernel at D as it launches (threads a block: RB / RPT):
+// info[0..5] = registers a thread, local (spill) bytes a thread, blocks per
+// SM, ring slots, shared bytes a block, rays a thread.
+template <int D, int RPT, class Kernel>
+int grid_info(Kernel kernel, int* info) {
+  int n_slots = 0, smem = 0, blocks = 0;
+  cudaError_t err =
+      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int active = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
+                                                        RB / RPT, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.localSizeBytes;
+  info[2] = active;
+  info[3] = n_slots;
+  info[4] = smem + (int)fa.sharedSizeBytes;
+  info[5] = RPT;
+  return 0;
+}
+
 template <int D, bool SHARED>
 int launch_nearest(const float* oT, const float* dT, const int* skip,
                    const float* init_t, const float* grec, const float* ci,
@@ -425,176 +493,115 @@ int launch_nearest(const float* oT, const float* dT, const int* skip,
 template <int D, bool SHARED>
 int nearest_info(int* info) {
   constexpr int RPT = grid_rays<SHARED>();
-  auto kernel = grid_nearest_kernel<D, SHARED, RPT>;
-  int n_slots = 0, smem = 0, blocks = 0;
-  cudaError_t err =
-      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
-  cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-  int active = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
-                                                        RB / RPT, smem);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = fa.numRegs;
-  info[1] = (int)fa.localSizeBytes;
-  info[2] = active;
-  info[3] = n_slots;
-  info[4] = smem + (int)fa.sharedSizeBytes;
-  info[5] = RPT;
-  return 0;
+  return grid_info<D, RPT>(grid_nearest_kernel<D, SHARED, RPT>, info);
 }
 
 // ---------------------------------------------------------------------------
 // Kernel 2.10: the occlusion grid walk
 // ---------------------------------------------------------------------------
 
-struct Ray {
-  float o[MAXD], dv[MAXD], inv[MAXD];
-};
+// Rays a thread of the occlusion walk: shadow rays leave their own hit
+// points, so a ray keeps its origin and direction in registers.  Two a
+// thread gained at most 5% on the orthoplex's shadow wavefronts and lost
+// 13% where every ray ends blocked (PERF.md section 6).
+constexpr int OCCL_RAYS = 1;
 
-// Load thread r's ray from the lane-major (d, R) arrays.
-__device__ __forceinline__ void load_ray(const float* __restrict__ oT,
-                                         const float* __restrict__ dT, int R,
-                                         int d, int r, Ray& ray) {
-#pragma unroll
-  for (int c = 0; c < MAXD; ++c) {
-    ray.o[c] = ray.dv[c] = ray.inv[c] = 0.f;
-    if (c < d) {
-      ray.o[c] = oT[(size_t)c * R + r];
-      ray.dv[c] = dT[(size_t)c * R + r];
-      ray.inv[c] = ray.dv[c] == 0.f ? 0.f : 1.f / ray.dv[c];
-    }
-  }
-}
-
-// Entry distance of the ray into tile j's box (k_lo/k_hi are (nj, 1, d));
-// INFINITY when the box is missed.
-__device__ __forceinline__ float tile_entry(const Ray& ray, int d,
-                                            const float* __restrict__ lo,
-                                            const float* __restrict__ hi) {
-  float tn = -BIG, tf = BIG;
-#pragma unroll
-  for (int c = 0; c < MAXD; ++c) {
-    if (c < d) {
-      const float l = lo[c], h = hi[c];
-      const bool par = ray.dv[c] == 0.f;
-      const float a = (l - ray.o[c]) * ray.inv[c];
-      const float b = (h - ray.o[c]) * ray.inv[c];
-      const bool ins = (ray.o[c] >= l) && (ray.o[c] <= h);
-      const float t0 = par ? (ins ? -BIG : BIG) : nan_min(a, b);
-      const float t1 = par ? (ins ? BIG : -BIG) : nan_max(a, b);
-      tn = nan_max(tn, t0);
-      tf = nan_min(tf, t1);
-    }
-  }
-  const float entry = nan_max(tn, 0.f);
-  return (tf >= entry && tf >= 0.f) ? entry : INFINITY;
-}
-
-// Stage the rows of triangles [t0, t0 + SUB) in shared memory: s_g[row *
-// SUB + l] for the d*d plane rows, s_c[p * SUB + l] for the d offset rows.
-// Syncs before (earlier readers are done) and after.
-__device__ __forceinline__ void stage(const float* __restrict__ gt,
-                                      const float* __restrict__ ci, int T,
-                                      int d, int t0, float* s_g, float* s_c) {
-  const int tid = threadIdx.x;
-  __syncthreads();
-  for (int i = tid; i < d * d * SUB; i += RB)
-    s_g[i] = gt[(size_t)(i / SUB) * T + t0 + i % SUB];
-  for (int i = tid; i < d * SUB; i += RB)
-    s_c[i] = ci[(size_t)(i / SUB) * T + t0 + i % SUB];
-  __syncthreads();
-}
-
-// Ray x triangle pair test (tracer.hpp:411-440) against staged triangle l:
-// the hit distance `t` and whether the hit is valid (the id and distance
-// tests are the caller's).  Plane dots accumulate coordinate by coordinate
-// from 0.
-__device__ __forceinline__ bool pair_test(const float* s_g, const float* s_c,
-                                          int l, const Ray& ray, int d,
-                                          float& t) {
-  float o0 = 0.f, dn = 0.f;
-#pragma unroll
-  for (int k = 0; k < MAXD; ++k) {
-    if (k < d) {
-      const float gv = s_g[k * SUB + l];
-      o0 = o0 + ray.o[k] * gv;
-      dn = dn + ray.dv[k] * gv;
-    }
-  }
-  t = (s_c[l] - o0) / dn;
-  bool valid = (dn != 0.f) && (t > 0.f);
-  float tot = 0.f;
-  for (int i = 1; i < d; ++i) {
-    float oi = 0.f, di = 0.f;
-    const float* g = s_g + i * d * SUB + l;
-#pragma unroll
-    for (int k = 0; k < MAXD; ++k) {
-      if (k < d) {
-        const float gv = g[k * SUB];
-        oi = oi + ray.o[k] * gv;
-        di = di + ray.dv[k] * gv;
-      }
-    }
-    const float a = (s_c[i * SUB + l] - oi) - t * di;
-    valid = valid && (a >= -FUZZ) && (a <= 1.f + FUZZ);
-    tot = tot + a;
-  }
-  return valid && (tot <= 1.f + FUZZ);
-}
-
-__global__ void __launch_bounds__(RB) grid_occluded_kernel(
+// Kernel 2.10: 2.9's design (the tile loop, the ring, grid_pair) with
+// ldist as the cut and `blocked` a monotone OR.  A ray is live while it is
+// not blocked and its ldist > 0 (an ldist <= 0 or NaN admits no t with
+// 0 < t < ldist, and no tile entry below it): a dead ray takes no vote and
+// no pair test, and a warp whose rays are all dead skips the rest of a
+// tile's pair tests.  No bit changes: a blocked ray stays blocked.
+template <int D, int RPT>
+__global__ void __launch_bounds__(RB / RPT) grid_occluded_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
     const int* __restrict__ skip, const float* __restrict__ ldist,
-    const float* __restrict__ gt, const float* __restrict__ ci,
+    const float* __restrict__ grec, const float* __restrict__ ci,
     const float* __restrict__ k_lo, const float* __restrict__ k_hi,
-    const float* __restrict__ k_any, int T, int R, int d,
+    const float* __restrict__ k_any, int T, int R, int n_slots,
     unsigned char* __restrict__ out_blocked, int* __restrict__ tiles) {
-  __shared__ float s_g[MAXD * MAXD * SUB];
-  __shared__ float s_c[MAXD * SUB];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * RB + tid * RPT;
 
-  const int r = blockIdx.x * RB + threadIdx.x;
-  Ray ray;
-  load_ray(oT, dT, R, d, r, ray);
-  const int sk = skip[r];
-  const float ld = ldist[r];
-  bool blocked = false;
-  int ntiles = 0;
-  for (int j = 0; j < T / TB; ++j) {
-    const float e = tile_entry(ray, d, k_lo + (size_t)j * d,
-                               k_hi + (size_t)j * d);
-    if (!__syncthreads_or(!blocked && e < ld) || !(k_any[j] != 0.f))
-      continue;
-    ++ntiles;
-    for (int t0 = j * TB; t0 < (j + 1) * TB; t0 += SUB) {
-      stage(gt, ci, T, d, t0, s_g, s_c);
-      // no t < ld can hold for ld <= 0 (valid needs t > 0) or NaN
-      if (!blocked && ld > 0.f) {
-        for (int l = 0; l < SUB; ++l) {
-          float t;
-          if (pair_test(s_g, s_c, l, ray, d, t) && t < ld &&
-              (t0 + l != sk)) {
-            blocked = true;
-            break;
-          }
-        }
-      }
+  float o[RPT][D], dv[RPT][D], ld[RPT];
+  int sk[RPT];
+  bool live[RPT], blocked[RPT];
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      o[c][k] = oT[(size_t)k * R + r0 + c];
+      dv[c][k] = dT[(size_t)k * R + r0 + c];
     }
+    sk[c] = skip[r0 + c];
+    ld[c] = ldist[r0 + c];
+    live[c] = ld[c] > 0.f;
+    blocked[c] = false;
   }
-  out_blocked[r] = blocked ? 1 : 0;
-  if (threadIdx.x == 0) tiles[blockIdx.x] = ntiles;
+  auto vote = [&](int j) {
+    bool want = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      if (live[c])
+        want = want || tile_entry_d<D>(o[c], dv[c], k_lo + (size_t)j * D,
+                                       k_hi + (size_t)j * D) < ld[c];
+    }
+    return want;
+  };
+  auto warp_live = [&] {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) any = any || live[c];
+    return __any_sync(FULL, any);
+  };
+  auto test = [&](const float* slot, int id0) {
+    if (!warp_live()) return;
+#pragma unroll 1
+    for (int l = 0; l < GS; ++l) {
+      if (!grid_pair<D, false>(
+              slot, l, id0 + l, o, dv, sk, ld,
+              [&](int c) { return live[c]; },
+              [&](int c, float) {      // 0 < t < ldist: blocked for good
+                blocked[c] = true;
+                live[c] = false;
+              }))
+        continue;
+      if (!warp_live()) return;
+    }
+  };
+  const int ntiles = grid_tiles<D, RPT>(grec, ci, k_any, T, n_slots, vote,
+                                        test);
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) out_blocked[r0 + c] = blocked[c] ? 1 : 0;
+  if (tid == 0) tiles[blockIdx.x] = ntiles;
 }
 
-int check(int T, int R, int d) {
-  if (R % RB || R == 0 || T % TB || T == 0 || d < 3 || d > MAXD)
+template <int D>
+int launch_occluded(const float* oT, const float* dT, const int* skip,
+                    const float* ldist, const float* grec, const float* ci,
+                    const float* k_lo, const float* k_hi, const float* k_any,
+                    int T, int R, unsigned char* blocked, int* tiles,
+                    cudaStream_t stream) {
+  auto kernel = grid_occluded_kernel<D, OCCL_RAYS>;
+  int n_slots = 0, smem = 0, blocks = 0;
+  const cudaError_t err = grid_ring_config<D>(kernel, RB / OCCL_RAYS,
+                                              &n_slots, &smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<R / RB, RB / OCCL_RAYS, smem, stream>>>(
+      oT, dT, skip, ldist, grec, ci, k_lo, k_hi, k_any, T, R, n_slots,
+      blocked, tiles);
+  return (int)cudaGetLastError();
+}
+
+int check(int T, int R) {
+  if (R % RB || R == 0 || T % TB || T == 0)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
-// every d that the wrappers take: 3 .. MAXD
+// every d that the wrappers take: 3 .. 16 (a ray's registers)
 #define NTR_GRID_DS(X)                                                      \
   X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15)    \
   X(16)
@@ -614,7 +621,7 @@ int ntr_grid_nearest_hit(const float* oT, const float* dT, const int* skip,
                          const float* k_hi, const float* k_any, int T, int R,
                          int d, int shared, float* out_t, int* out_id,
                          int* tiles, void* stream) {
-  const int bad = check(T, R, d);
+  const int bad = check(T, R);
   if (bad) return bad;
   cudaStream_t s = (cudaStream_t)stream;
 #define NTR_CASE(DD)                                                        \
@@ -651,19 +658,41 @@ int ntr_grid_nearest_hit_info(int d, int shared, int* info) {
 
 // Launch the occlusion grid walk (kernel 2.10) on `stream`.  Arguments as
 // ntr_grid_nearest_hit, with ldist (R,) (<= 0 for an inactive ray) in
-// place of init_t, the plane rows gt (d*d, T) in place of grec and ci
-// always the pool's offset rows; blocked (R,) bytes (0 or 1).
+// place of init_t and ci always the pool's offset rows; blocked (R,) bytes
+// (0 or 1).
 int ntr_grid_occluded(const float* oT, const float* dT, const int* skip,
-                      const float* ldist, const float* gt, const float* ci,
+                      const float* ldist, const float* grec, const float* ci,
                       const float* k_lo, const float* k_hi,
                       const float* k_any, int T, int R, int d,
                       unsigned char* blocked, int* tiles, void* stream) {
-  const int bad = check(T, R, d);
+  const int bad = check(T, R);
   if (bad) return bad;
-  grid_occluded_kernel<<<R / RB, RB, 0, (cudaStream_t)stream>>>(
-      oT, dT, skip, ldist, gt, ci, k_lo, k_hi, k_any, T, R, d, blocked,
-      tiles);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define NTR_CASE(DD)                                                        \
+  case DD:                                                                  \
+    return launch_occluded<DD>(oT, dT, skip, ldist, grec, ci, k_lo, k_hi,   \
+                               k_any, T, R, blocked, tiles, s);
+  switch (d) {
+    NTR_GRID_DS(NTR_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
+}
+
+// Kernel 2.10 at dimension d as it launches: info as
+// ntr_grid_nearest_hit_info.
+int ntr_grid_occluded_info(int d, int* info) {
+#define NTR_CASE(DD)                                                        \
+  case DD:                                                                  \
+    return grid_info<DD, OCCL_RAYS>(grid_occluded_kernel<DD, OCCL_RAYS>,    \
+                                    info);
+  switch (d) {
+    NTR_GRID_DS(NTR_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NTR_CASE
 }
 
 }  // extern "C"

@@ -1,50 +1,48 @@
 // Front-to-back nearest-hit walk over a chunked triangle pool, for Hopper
 // (sm_90a).
 //
-// Replaces the TPU kernel ntracer_tpu/engine/resident_kernels.py
-// `nearest_hit` (pallas_call body `_nearest_kernel` -> `_nearest_walk_live`,
-// pair test `_chunk_hits_vals`, entry bounds `_entry_all`).  Its plain
-// PyTorch twin is `nearest_hit_ref` in
-// ntracer_tpu_torch/engine/resident_kernels.py; the two agree bit for bit.
-// The entry pass, the candidate scan and the pair test live in
-// pair_test.cuh, shared with the occlusion walk (occluded.cu).
+// Replaces two TPU kernels of ntracer_tpu/engine/resident_kernels.py with
+// one body, `nearest_stream_kernel`: `nearest_hit` (kernel 2.1, pallas_call
+// body `_nearest_kernel` -> `_nearest_walk_live`, pair test
+// `_chunk_hits_vals`, entry bounds `_entry_all`), the walk of pools under
+// the line, and `nearest_hit_hbm` (kernel 2.5, body `_nearest_hbm_kernel`
+// -> `_nearest_hbm_live`), the walk of pools over it
+// (resident_kernels.STREAM_POOL_BYTES, 48 MiB: more than the H100's 50 MB
+// L2 holds beside the rest).  Both C entries launch the body; the plain
+// PyTorch twins are `nearest_hit_ref` and `nearest_hit_hbm_ref` in
+// ntracer_tpu_torch/engine/resident_kernels.py, and kernel and twins agree
+// bit for bit on t, the slot and the visits of each block.
 //
 // What it computes.  One CUDA block walks one 512-ray block (a 32x16-pixel
-// tile), one thread per ray.  First every thread computes its slab entry
-// into every chunk's box (chunks in visit order), and the block keeps the
-// minimum over its rays per chunk position (`emin`, in global scratch, so
-// the pool has no chunk-count limit).  Then the walk picks the next four
-// candidate positions (emin below the block's largest best t) with the
-// bound from before the previous group's updates -- the TPU kernel's
-// grouped rule, so both visit the same chunks -- and visits them: the
-// chunk's plane rows, offset rows and id row are staged in shared memory
-// and each thread tests its ray against the 128 slots in lane order,
-// keeping the first lane of the minimum and updating its best on strict <.
+// tile).  First every ray's slab entry into every chunk's box (chunks in
+// visit order) is taken, and the block keeps the minimum over its rays per
+// chunk position (`emin`, in global scratch, so the pool has no
+// chunk-count limit).  Then the walk picks the next four candidate
+// positions (emin below the block's largest best t) with the bound from
+// before the previous group's updates -- the TPU kernel's grouped rule, so
+// both visit the same chunks -- and visits them: each ray is tested
+// against the chunk's 128 slots, keeping the first lane of the minimum and
+// updating its best on strict <.  A block without a live ray stores its
+// outputs and returns.
 //
 // What bounds it.  Per-visit pair-test arithmetic: each visit is 512 x 128
-// pair tests of d*d multiply-adds plus one IEEE division (d = 4: ~50
-// instructions a pair).  The flagship 120-cell frame makes ~9.6 visits per
-// block; its whole pool is ~442 KB and sits in L2, so device memory is not
-// the limit.  The design keeps the pool rows in shared memory for the
-// block's visit (all threads read the same address: broadcast, no bank
-// conflicts) and the ray in registers, and skips dead blocks outright.
-// Making the pair test cheaper (fewer divisions, several rays a thread,
-// async staging of the next chunk) is later work.
+// pair tests of d*d multiply-adds plus one IEEE division, each edge plane
+// only for the pairs that reach it.  The flagship 120-cell frame makes
+// ~9.6 visits per block over a pool of ~442 KB, which sits in L2; the mesh
+// makes ~395 over 63 MiB.
 //
-// STREAM: kernel 2.5, which replaces `nearest_hit_hbm` (pallas_call body
-// `_nearest_hbm_kernel` -> `_nearest_hbm_live`) for pools over the line
-// (resident_kernels.STREAM_POOL_BYTES, 48 MiB: more than the H100's 50 MB L2
-// holds beside the rest).  The same walk, visits and outputs, bit for bit.
-// Its body is `nearest_stream_kernel`, on stream_walk.cuh's loop: each
-// visited chunk is copied into a ring of shared-memory slots by TMA bulk
-// copies, the rays whose nearest hit can still fall (best > 0) are
-// compacted at each group boundary, each ray's 128 slots are split into
-// four ranges of 32 on neighbouring lanes, a lane holds rays_a_lane<D>()
-// rays so one shared load serves several tests, the pair test is one
-// straight line with warp-uniform skips and a cut at the ray's best
-// (pair_test_warp), a visit's tasks are drawn by whichever warp is free,
-// slots are released per warp, two blocks share an SM and the entry pass
-// stages the chunk boxes in shared memory.  What keeps it exact:
+// The design is stream_walk.cuh's loop: each visited chunk is copied into
+// a ring of shared-memory slots by TMA bulk copies, the rays whose nearest
+// hit can still fall (best > 0) are compacted at each group boundary, each
+// ray's 128 slots are split into four ranges of 32 on neighbouring lanes,
+// a lane holds rays_a_lane<D>() rays so one shared load serves several
+// tests, the pair test is one straight line with warp-uniform skips and a
+// cut at the ray's best (pair_test_warp), a visit's tasks are drawn by
+// whichever warp is free, slots are released per warp, two blocks share an
+// SM and the entry pass stages the chunk boxes in shared memory.  A pool
+// under the line (27 chunks for the 4-D 120-cell) takes the same body: its
+// chunks stay in the 50 MB L2, and the ring's copies come from there.
+// What keeps it exact:
 //   * the cut.  best only falls and the update is strict <, so a pair with
 //     t >= the ray's best at the group boundary never wins; a range also
 //     cuts at its own nearest hit so far (a later lane wins no tie);
@@ -67,73 +65,9 @@ namespace {
 
 using namespace ntr;
 
-template <int D, bool SHARED>
-__global__ void __launch_bounds__(RB) nearest_kernel(
-    const float* __restrict__ oT, const float* __restrict__ dT,
-    const int* __restrict__ skip, const float* __restrict__ init_t,
-    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
-    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
-    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
-    const int* __restrict__ ids, int pr, int R, float* __restrict__ out_t,
-    int* __restrict__ out_slot, int* __restrict__ visits,
-    float* __restrict__ emin_all) {
-  __shared__ float s_wmin[NW * 32];    // per-warp entry minima
-  __shared__ float s_red[NW];
-  __shared__ int s_cand[NCAND];
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int r = blk * RB + tid;
-  const float it = init_t[r];
-  if (!blive[blk]) {                   // every ray of the block is dead
-    out_t[r] = it;
-    out_slot[r] = -1;
-    if (tid == 0) visits[blk] = 0;
-    return;
-  }
-
-  float o[D], dv[D], inv[D];
-  load_ray<D>(oT, dT, R, r, o, dv, inv);
-  const int sk = skip[r];
-  float* emin = emin_all + (size_t)blk * n_eff;
-
-  // 1. min-over-rays slab entry of every chunk position
-  entry_minima<D>(o, dv, inv, klo_t, khi_t, ncp, n_eff, emin, s_wmin);
-
-  float best = it;
-  int best_id = -1;
-
-  auto bound = [&]() { return block_max(best, s_red); };
-  auto test = [&](int idx, const Chunk& ch) {
-    float cbest = INFINITY;
-    int carg = 0;
-    for (int l = 0; l < CK; ++l) {
-      float t;
-      const bool valid =
-          pair_test<D, SHARED>(ch.g, ch.c, l, o, dv, t) && (ch.id[l] != sk);
-      if (valid && t < cbest) {
-        cbest = t;
-        carg = l;
-      }
-    }
-    if (cbest < best) {
-      best = cbest;
-      best_id = idx * CK + carg;
-    }
-  };
-
-  // 2. the walk
-  const int nvis = resident_walk<D, NCAND, false>(
-      gt, ci, ids, nullptr, pr, order, n_eff, emin, s_cand, bound, test);
-
-  out_t[r] = best;
-  out_slot[r] = best_id;
-  if (tid == 0) visits[blk] = nvis;
-}
-
 constexpr unsigned long long NO_KEY = ~0ull;
 
-// Kernel 2.5: the streaming nearest-hit walk (stream_walk.cuh).
+// Kernels 2.1 and 2.5: the streaming nearest-hit walk (stream_walk.cuh).
 template <int D, bool SHARED>
 __global__ void __launch_bounds__(RB, STREAM_BLOCKS) nearest_stream_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
@@ -255,18 +189,6 @@ __global__ void __launch_bounds__(RB, STREAM_BLOCKS) nearest_stream_kernel(
 }
 
 template <int D, bool SHARED>
-int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
-           const int* skip, const float* init_t, const int* order, int n_eff,
-           const int* blive, const float* klo_t, const float* khi_t, int ncp,
-           const float* gt, const float* ci, const int* ids, int pr, int R,
-           float* out_t, int* out_slot, int* visits, float* emin) {
-  nearest_kernel<D, SHARED><<<grid, RB, 0, s>>>(
-      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
-      ids, pr, R, out_t, out_slot, visits, emin);
-  return (int)cudaGetLastError();
-}
-
-template <int D, bool SHARED>
 int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
                   const int* skip, const float* init_t, const int* order,
                   int n_eff, const int* blive, const float* klo_t,
@@ -284,26 +206,22 @@ int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
   return (int)cudaGetLastError();
 }
 
-template <bool STREAM>
-int launch_d(const float* oT, const float* dT, const int* skip,
-             const float* init_t, const int* order, int n_eff,
-             const int* blive, const float* klo_t, const float* khi_t,
-             int ncp, const float* gt, const float* ci, const int* ids,
-             int pr, int R, int d, int shared, float* out_t, int* out_slot,
-             int* visits, float* emin, void* stream) {
+int launch_stream_d(const float* oT, const float* dT, const int* skip,
+                    const float* init_t, const int* order, int n_eff,
+                    const int* blive, const float* klo_t, const float* khi_t,
+                    int ncp, const float* gt, const float* ci, const int* ids,
+                    int pr, int R, int d, int shared, float* out_t,
+                    int* out_slot, int* visits, float* emin, void* stream) {
   const int grid = R / RB;
   if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define NTR_LAUNCH(FN, DD, SH)                                               \
-  FN<DD, SH>(grid, s, oT, dT, skip, init_t, order, n_eff, blive, klo_t,      \
-             khi_t, ncp, gt, ci, ids, pr, R, out_t, out_slot, visits, emin)
+#define NTR_LAUNCH(DD, SH)                                                   \
+  launch_stream<DD, SH>(grid, s, oT, dT, skip, init_t, order, n_eff, blive,  \
+                        klo_t, khi_t, ncp, gt, ci, ids, pr, R, out_t,        \
+                        out_slot, visits, emin)
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    if (STREAM)                                                              \
-      return shared ? NTR_LAUNCH(launch_stream, DD, true)                    \
-                    : NTR_LAUNCH(launch_stream, DD, false);                  \
-    return shared ? NTR_LAUNCH(launch, DD, true)                             \
-                  : NTR_LAUNCH(launch, DD, false);
+    return shared ? NTR_LAUNCH(DD, true) : NTR_LAUNCH(DD, false);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(4)
@@ -322,23 +240,24 @@ int launch_d(const float* oT, const float* dT, const int* skip,
 
 extern "C" {
 
-// Launch the walk on `stream`.  Rays are lane-major (d, R) with 3 <= d <= 8
-// and R a multiple of 512; gt (nc, pr, 128), ci (nc, 8, 128), ids (nc, 8, 128) i32; klo_t/khi_t
-// (8, ncp) in visit order; emin scratch holds (R / 512) * n_eff floats.
-// Returns cudaGetLastError() after the launch.
+// Launch the walk (kernel 2.1) on `stream`.  Rays are lane-major (d, R)
+// with 3 <= d <= 8 and R a multiple of 512; gt (nc, pr, 128), ci (nc, 8,
+// 128), ids (nc, 8, 128) i32, all 16-byte aligned; klo_t/khi_t (8, ncp) in
+// visit order; emin scratch holds (R / 512) * n_eff floats.  Returns
+// cudaGetLastError() after the launch.
 int ntr_nearest_hit(const float* oT, const float* dT, const int* skip,
                     const float* init_t, const int* order, int n_eff,
                     const int* blive, const float* klo_t, const float* khi_t,
                     int ncp, const float* gt, const float* ci, const int* ids,
                     int pr, int R, int d, int shared, float* out_t,
                     int* out_slot, int* visits, float* emin, void* stream) {
-  return launch_d<false>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+  return launch_stream_d(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
                          khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
                          out_slot, visits, emin, stream);
 }
 
-// The streaming walk (kernel 2.5): arguments and outputs as
-// ntr_nearest_hit; gt, ci and ids must be 16-byte aligned.
+// The same walk for a pool over the line (kernel 2.5): arguments and
+// outputs as ntr_nearest_hit.
 int ntr_nearest_hit_hbm(const float* oT, const float* dT, const int* skip,
                         const float* init_t, const int* order, int n_eff,
                         const int* blive, const float* klo_t,
@@ -346,14 +265,14 @@ int ntr_nearest_hit_hbm(const float* oT, const float* dT, const int* skip,
                         const float* ci, const int* ids, int pr, int R, int d,
                         int shared, float* out_t, int* out_slot, int* visits,
                         float* emin, void* stream) {
-  return launch_d<true>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
-                        khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
-                        out_slot, visits, emin, stream);
+  return launch_stream_d(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
+                         out_slot, visits, emin, stream);
 }
 
-// Kernel 2.5 at dimension d (shared: the primary rays' variant) as it
-// launches: info[0..4] = registers a thread, local (spill) bytes a thread,
-// blocks per SM, ring slots, shared bytes a block.
+// Kernels 2.1 and 2.5 at dimension d (shared: the primary rays' variant)
+// as they launch: info[0..4] = registers a thread, local (spill) bytes a
+// thread, blocks per SM, ring slots, shared bytes a block.
 int ntr_nearest_hit_hbm_info(int d, int shared, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \

@@ -90,7 +90,9 @@ __device__ __forceinline__ float slab_entry_clean(
 // 1 + 1 shuffles) leaves lanes 2p and 2p + 1 the warp's minimum of
 // position p, and one block step takes the minimum over warps.  fminf is
 // exact and order-free, so `emin` equals entry_minima's bit for bit.  A
-// warp whose rays are all clean (slab_entry_clean) takes the short form.
+// warp whose rays are all clean (slab_entry_clean) takes the short form,
+// and a batch runs only the rounds that hold a position below n_eff (a
+// pool of 27 chunks: two of eight).
 // `scratch` holds (NW + 2 * D) * EB floats.
 template <int D>
 __device__ __forceinline__ void entry_minima_t(
@@ -112,7 +114,7 @@ __device__ __forceinline__ void entry_minima_t(
       s_hi[i] = k < n_eff ? khi_t[(i / EB) * ncp + k] : 0.f;
     }
     __syncthreads();
-    for (int k1 = 0; k1 < EB; k1 += EW) {
+    for (int k1 = 0; k1 < EB && k0 + k1 < n_eff; k1 += EW) {
       float v[EW];
       if (fast && k0 + k1 + EW <= n_eff) {
 #pragma unroll

@@ -56,7 +56,8 @@ _GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
 _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
 # the launch queries: the streaming occlusion walks' (kernels 2.6 and 2.8)
 # take (d, int[5]), the streaming nearest-hit walks' (2.5 and 2.7) (d,
-# shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6])
+# shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6]),
+# the occlusion grid walk's (2.10) (d, int[6])
 _INFO_ARGS = [_I, _P]
 _NEAREST_INFO_ARGS = [_I, _I, _P]
 
@@ -173,7 +174,8 @@ def load():
                 ("ntr_occluded_hbm_info", _INFO_ARGS),
                 ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
                 ("ntr_occluded_t_hbm_info", _INFO_ARGS),
-                ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS))
+                ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS),
+                ("ntr_grid_occluded_info", _INFO_ARGS))
             for name, args in stream:
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ctypes.c_int

@@ -92,7 +92,7 @@ def prepare_tri_arrays(tri_p1, tri_fn, tri_en, tri_dc, tri_lo, tri_hi, d):
 
 def plane_records(gt, d):
     """The plane rows ``gt`` (d*d, T) laid out triangle by triangle for the
-    CUDA nearest-hit grid walk: (T, d, pw) float32 with pw = d rounded up
+    CUDA grid walks: (T, d, pw) float32 with pw = d rounded up
     to a multiple of 4 and zeros past d, so that ``rec[t, p, :d]`` is plane
     p of triangle t (``gt[p*d:(p+1)*d, t]``).  A run of triangles is one
     contiguous range, and each plane starts on a 16-byte boundary."""
@@ -287,19 +287,40 @@ GRID_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
              "shared_bytes", "rays_per_thread")
 
 
-def launch_info(d, shared):
-    """Kernel 2.9 (``nearest_hit``'s CUDA kernel) at dimension ``d`` as it
-    launches on the current card, in its ``shared`` (primary rays) variant
-    or not: registers and local (spill) bytes a thread, blocks per SM, ring
-    slots and shared bytes a block, rays a thread (``GRID_INFO``)."""
+def launch_info(d, shared=False, walk="nearest_hit"):
+    """A grid kernel at dimension ``d`` as it launches on the current card:
+    kernel 2.9 (``walk="nearest_hit"``) in its ``shared`` (primary rays)
+    variant or not, or kernel 2.10 (``walk="occluded"``; rays of their own
+    origins).  Registers and local (spill) bytes a thread, blocks per SM,
+    ring slots and shared bytes a block, rays a thread (``GRID_INFO``)."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(GRID_INFO),), dtype=torch.int32)
-    err = lib.ntr_grid_nearest_hit_info(d, int(shared), info.data_ptr())
+    if walk == "nearest_hit":
+        err = lib.ntr_grid_nearest_hit_info(d, int(shared), info.data_ptr())
+    elif walk == "occluded":
+        err = lib.ntr_grid_occluded_info(d, info.data_ptr())
+    else:
+        raise ValueError(f"no grid walk {walk!r}")
     if err:
         raise RuntimeError(f"kernel query failed: {_build.error_string(err)} "
                            f"({err})")
     return dict(zip(GRID_INFO, info.tolist()))
+
+
+def _plane_records(kern, w, dev, T):
+    """The pool's plane records as the CUDA kernels read them:
+    ``kern["grec"]``, or made from the plane rows when ``kern`` has none;
+    checked with the offset rows for the ring's 16-byte aligned copies."""
+    d = w["d"]
+    grec = kern.get("grec")
+    if grec is None:
+        grec = plane_records(w["gt"], d)
+    rk._check("grec", grec, torch.float32, (T, d, -(-d // 4) * 4), dev)
+    for name, x in (("grec", grec), ("ci", w["ci"])):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    return grec
 
 
 def _check_grid(w, dev):
@@ -347,13 +368,7 @@ def nearest_hit(kern, oT, dT, skip, d, sh=None):
     lib = _build.load()
     dev = oT.device
     R, T = _check_grid(w, dev)
-    grec = kern.get("grec")
-    if grec is None:
-        grec = plane_records(w["gt"], d)
-    rk._check("grec", grec, torch.float32, (T, d, -(-d // 4) * 4), dev)
-    for name, x in (("grec", grec), ("ci", w["ci"])):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    grec = _plane_records(kern, w, dev, T)
     out_t = torch.empty((R,), dtype=torch.float32, device=dev)
     out_id = torch.empty((R,), dtype=torch.int32, device=dev)
     tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
@@ -378,7 +393,8 @@ def occluded(kern, oT, dT, ldist, skip, d):
     (<= 0 marks an inactive ray), ``skip`` (R,) i32 pool id never hit (or
     -1).  Returns (blocked (R,) bool, tiles (R // 512,) i32 tiles run per
     block).  On CUDA tensors the CUDA kernel runs (and
-    ``occluded.launches`` counts it); on CPU tensors the plain twin
+    ``occluded.launches`` counts it), reading the plane rows as
+    ``kern["grec"]`` as ``nearest_hit`` does; on CPU tensors the plain twin
     ``occluded_ref`` does."""
     w = _grid_inputs(kern, oT, dT, skip, d, ldist=ldist)
     if not rk._device("grid occluded", oT.device):
@@ -388,11 +404,12 @@ def occluded(kern, oT, dT, ldist, skip, d):
     dev = oT.device
     R, T = _check_grid(w, dev)
     rk._check("ldist", ldist, torch.float32, (R,), dev)
+    grec = _plane_records(kern, w, dev, T)
     blocked = torch.empty((R,), dtype=torch.bool, device=dev)
     tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
     err = lib.ntr_grid_occluded(
         oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
-        w["gt"].data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
+        grec.data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
         w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
         blocked.data_ptr(), tiles.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -54,8 +54,9 @@ shared memory while the previous group is tested.  They compute what their
 resident siblings compute, with one exception that is the TPU kernels':
 the streaming K-slot walk picks its candidates in groups of four, so its
 slot positions (and visits) may differ from ``nearest_hit_transparent``'s
-on the same inputs.  The filtered occlusion walks share one CUDA body: the
-kernel of ``occluded_transparent`` is the streaming one of
+on the same inputs.  The nearest-hit walks share one CUDA body, and so do
+the filtered occlusion walks: the kernels of ``nearest_hit`` and
+``occluded_transparent`` are the streaming ones of ``nearest_hit_hbm`` and
 ``occluded_transparent_hbm``, on pools of any size.
 """
 
@@ -794,10 +795,11 @@ def _device(name, dev):
 
 
 # the C entries whose kernel fills a ring of chunk slots by TMA bulk copies
-# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.4, which runs 2.8's
-# body on any pool
+# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.1 and 2.4, which run
+# 2.5's and 2.8's bodies on any pool
 _RING_ENTRIES = ("ntr_nearest_hit_hbm", "ntr_occluded_hbm",
-                 "ntr_nearest_t_hbm", "ntr_occluded_t_hbm", "ntr_occluded_t")
+                 "ntr_nearest_t_hbm", "ntr_occluded_t_hbm", "ntr_occluded_t",
+                 "ntr_nearest_hit")
 
 
 def _check_stream(w):
@@ -892,8 +894,9 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
 
     Returns (t (R,) f32, slot (R,) i32 = chunk*CK + lane or -1, visits
     (R // RAY_BLOCK,) i32 chunks visited per block).  On CUDA tensors the
-    CUDA kernel runs (and ``nearest_hit.launches`` counts it); on CPU
-    tensors the plain twin ``nearest_hit_ref`` does."""
+    CUDA kernel runs (and ``nearest_hit.launches`` counts it): the body of
+    ``nearest_hit_hbm``'s, so the pool's rows must be 16-byte aligned; on
+    CPU tensors the plain twin ``nearest_hit_ref`` does."""
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
     if not _device("nearest_hit", oT.device):
         return _walk_ref(w)
@@ -1060,17 +1063,19 @@ _INFO_ENTRIES = {"nearest_hit_hbm": "ntr_nearest_hit_hbm_info",
                  "occluded_hbm": "ntr_occluded_hbm_info",
                  "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
                  "occluded_transparent_hbm": "ntr_occluded_t_hbm_info",
-                 # kernel 2.4 launches 2.8's body
+                 # kernels 2.1 and 2.4 launch 2.5's and 2.8's bodies
+                 "nearest_hit": "ntr_nearest_hit_hbm_info",
                  "occluded_transparent": "ntr_occluded_t_hbm_info"}
 
 
 def stream_info(name, d, shared=False):
     """The streaming walk ``name`` (one of the four ``*_hbm`` wrappers:
-    kernels 2.5-2.8, or ``occluded_transparent``: kernel 2.4, which
-    launches 2.8's body) at dimension ``d`` as it launches on the current
-    card, for the nearest-hit walks in their ``shared`` (primary rays)
-    variant or not: registers and local (spill) bytes a thread, blocks per
-    SM, ring slots and shared bytes a block (``STREAM_INFO``)."""
+    kernels 2.5-2.8, or ``nearest_hit`` and ``occluded_transparent``:
+    kernels 2.1 and 2.4, which launch 2.5's and 2.8's bodies) at dimension
+    ``d`` as it launches on the current card, for the nearest-hit walks in
+    their ``shared`` (primary rays) variant or not: registers and local
+    (spill) bytes a thread, blocks per SM, ring slots and shared bytes a
+    block (``STREAM_INFO``)."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(STREAM_INFO),), dtype=torch.int32)

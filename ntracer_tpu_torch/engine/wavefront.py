@@ -308,7 +308,7 @@ def _grid_arrays(a, d, n_tris, arrs):
                     ("k_hi", "khi"), ("k_any", "kany"), ("b_lo", "blo"),
                     ("b_hi", "bhi")):
         arrs["kern_" + name] = kern[k]
-    # the plane rows as the CUDA nearest-hit grid walk reads them
+    # the plane rows as the CUDA grid walks read them
     arrs["kern_grec"] = gk.plane_records(torch.from_numpy(kern["gt"]),
                                          d).numpy()
     return arrs

@@ -2,7 +2,7 @@
 """Time hand-written walks of ntracer_tpu_torch from several CUDA source
 trees against each other on one card.
 
-    python3 scripts/torch_stream_ab.py [--kernels 2.4,2.5,2.7,2.9] \
+    python3 scripts/torch_stream_ab.py [--kernels 2.1,2.4,2.5,2.7,2.9,2.10] \
         NAME=CSRC_DIR [NAME=CSRC_DIR ...]
 
 Each CSRC_DIR holds the sources of the chosen kernels and the headers they
@@ -10,6 +10,12 @@ include: ntracer_tpu_torch/csrc of this tree, of another commit unpacked
 with ``git archive``, or an edited copy.  The kernels and their wavefronts,
 each at 1024x1024 (1,048,576 rays):
 
+  * 2.1, ``ntr_nearest_hit`` (nearest_hit.cu): chip_smoke.py's wavefronts
+    of its "nearest_hit kernel vs twin" phase -- the flagship 120-cell's
+    primary rays (shared rows, front-to-back order) and its bounce rays
+    (every other block active), the lit configuration's primary rays
+    (d = 6) -- and the entry pass alone on the flagship pool (every block
+    live, no chunk within any ray's start distance: no visit);
   * 2.4, ``ntr_occluded_t`` (occluded_transparent.cu): chip_smoke.py's
     shadow wavefronts of the glass 120-cell and of the "transparent d=3"
     scene, towards the point light and along the global light;
@@ -20,18 +26,26 @@ each at 1024x1024 (1,048,576 rays):
     the glass mesh (glass and opaque by turns, K = 8);
   * 2.9, ``ntr_grid_nearest_hit`` (grid_walk.cu): chip_smoke.py's
     wavefronts of the 10-orthoplex (primary, shared rows, and bounce), of
-    the 9-orthoplex (primary) and of a 16-D pool (aimed from the camera).
+    the 9-orthoplex (primary) and of a 16-D pool (aimed from the camera);
+  * 2.10, ``ntr_grid_occluded`` (grid_walk.cu): chip_smoke.py's shadow
+    wavefronts of its "grid occluded kernel vs twin" phase -- the
+    10-orthoplex's to the point light, along the global light and from a
+    light at the camera, the 9-orthoplex's and the 16-D pool's along the
+    global light -- and the 10-orthoplex's with every ray inactive.
 
-Every entry takes this tree's arguments, but for 2.9 a tree whose library
-has no ``ntr_grid_nearest_hit_info`` reads the pool's plane rows ``gt``
-(d*d, T) where this tree's kernel reads the plane records
-(``grid_kernels.plane_records``).  The script compiles the chosen sources of
-every tree with this tree's nvcc flags (the wavefronts are made with this
-tree's own library), checks that every tree gives the first tree's outputs
-bit for bit, and times each kernel in turns (A, B, ..., B, A; three
-launches a turn).  It prints, for each tree, ptxas's registers and spills
-of the kernels at d = 3 (2.5, 2.7), 4 (2.4) and 10 (2.9) and, for each
-wavefront, the mean time in ms with the card's name and power limit.
+Every entry takes this tree's arguments, but for 2.9 (2.10) a tree whose
+library has no ``ntr_grid_nearest_hit_info`` (``ntr_grid_occluded_info``)
+reads the pool's plane rows ``gt`` (d*d, T) where this tree's kernel reads
+the plane records (``grid_kernels.plane_records``).  The script compiles
+the chosen sources of every tree with this tree's nvcc flags (the
+wavefronts are made with this tree's own library), checks that every tree
+gives the first tree's outputs bit for bit, and times each kernel in turns
+(A, B, ..., B, A; three launches a turn), on the card (CUDA events) and on
+the host (three calls back to back, no synchronisation between them: a
+launch that waits for an earlier one shows the kernel's time there).  It
+prints, for each tree, ptxas's registers and spills of the kernels at d =
+3 (2.5, 2.7), 4 (2.1, 2.4), 10 and 16 (2.9, 2.10) and, for each wavefront,
+the mean times in ms with the card's name and power limit.
 Needs one CUDA card; the port never imports it.
 """
 
@@ -41,6 +55,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -58,6 +73,8 @@ from ntracer_tpu_torch.engine import wavefront as wf  # noqa: E402
 
 # kernel -> (source, C entry, its ctypes arguments, ptxas kernel pattern)
 KERNELS = {
+    "2.1": ("nearest_hit.cu", "ntr_nearest_hit", _build._NEAREST_ARGS,
+            r"nearest_\w*kernelILi4E"),
     "2.4": ("occluded_transparent.cu", "ntr_occluded_t",
             _build._OCCLUDED_T_ARGS, r"occluded_t\w*kernelILi4E"),
     "2.5": ("nearest_hit.cu", "ntr_nearest_hit_hbm", _build._NEAREST_ARGS,
@@ -65,7 +82,9 @@ KERNELS = {
     "2.7": ("nearest_hit_transparent.cu", "ntr_nearest_t_hbm",
             _build._NEAREST_T_ARGS, r"nearest_t\w*kernelILi3E"),
     "2.9": ("grid_walk.cu", "ntr_grid_nearest_hit",
-            _build._GRID_NEAREST_ARGS, r"grid_nearest_kernelI(Li10E|Lb)"),
+            _build._GRID_NEAREST_ARGS, r"grid_nearest_kernelILi1[06]E"),
+    "2.10": ("grid_walk.cu", "ntr_grid_occluded", _build._GRID_OCCLUDED_ARGS,
+             r"grid_occluded_kernel(ILi1[06]E|EPK)"),
 }
 
 
@@ -167,6 +186,87 @@ def primary_hits(scene, dev):
     return cfg, arrs, cam_o, oT, dT, pctx, hit
 
 
+def nearest_cases(dev):
+    """Kernel 2.1's inputs, chip_smoke.py's: the flagship's primary
+    wavefront (shared rows, front-to-back order) and bounce wavefront
+    (reflections off the primary hits, every other block active, each ray
+    skipping the surface it leaves), the lit configuration's primary
+    wavefront, and the entry-pass probe on the flagship pool."""
+    flagship, _cam, _n = cs.cell120_scene(NTracer(4), Material((1, 0.5, 0.5)),
+                                          -4.0, lit=False)
+    lit, _cam = cs.lit_scene(NTracer(6), Material)
+    cases = {}
+    for label, scene in (("flagship", flagship), ("lit", lit)):
+        cfg, arrs, _o, oT, dT, pctx, hit = primary_hits(scene, dev)
+        res = wf._res_dict(arrs)
+        skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
+        cases[f"{label} primary"] = ("2.1", rk._walk_inputs(
+            res, oT, dT, skip, cfg.d, pctx["order"], None, pctx["sh_res"]))
+        if label != "flagship":
+            continue
+        R = dT.shape[1]
+        sine = -wf._dotT(dT, hit["normalT"])
+        blk = torch.arange(R, device=dev) // rk.RAY_BLOCK
+        cases["flagship bounce"] = ("2.1", rk._walk_inputs(
+            res, hit["pointT"], wf._unitT(dT - hit["normalT"] *
+                                          (-2 * sine)[None, :]),
+            hit["pid"], cfg.d, None, hit["hit"] & (blk % 2 == 0), None))
+        # every origin far outside the pool's box, pointing away, and a
+        # start distance no chunk is within: the entry pass and no visit
+        far = torch.full((cfg.d, R), 10.0, device=dev)
+        out = torch.full((cfg.d, R), cfg.d ** -0.5, device=dev)
+        pw = rk._walk_inputs(res, far, out, skip, cfg.d, None, None, None)
+        pw["init_t"] = torch.full((R,), 1e-30, device=dev)
+        pw["blive"] = torch.ones_like(pw["blive"])
+        cases["flagship entry pass"] = ("2.1", pw)
+    return cases
+
+
+def grid_shadow_cases(dev):
+    """Kernel 2.10's inputs, chip_smoke.py's: shadow rays from the primary
+    hits of the 10-orthoplex (to its point light, along its global light,
+    from a light at the camera, and with every ray inactive), of the
+    9-orthoplex and of rays from the camera aimed at a 16-D pool of 200
+    random simplices (along the global light)."""
+    opaque = Material((1, 0.5, 0.5))
+    orth, _cam, _n = cs.orthoplex_scene(NTracer(10), opaque)
+    cfg, arrs, cam_o, _oT, dT, _p, hit = primary_hits(orth, dev)
+    orth9, _cam, _n = cs.orthoplex_scene(NTracer(9), opaque)
+    cfg9, arrs9, _o, _oT, _dT, _p, hit9 = primary_hits(orth9, dev)
+    pool16, simplices = cs.random_pool(NTracer(16),
+                                       Material((0.8, 0.5, 0.9)), 200)
+    cfg16, arrs16, _flat = wf.get_device_scene(pool16, dev)
+    cam16 = torch.as_tensor(pool16._cam._origin, device=dev)
+    oT16 = cam16[:, None].expand(16, dT.shape[1]).contiguous()
+    dT16 = torch.as_tensor(cs.aimed(pool16._cam._origin, simplices,
+                                    dT.shape[1]), device=dev)
+    skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
+    hit16 = wf.trace_pool(arrs16, cfg16, oT16, dT16, skip,
+                          shared_origin=cam16,
+                          pctx=wf.primary_ctx(arrs16, cfg16, cam16))
+    kern = wf._kern_dict(arrs)
+    cases = {}
+    for label, (kern_, d, hit_, light) in {
+            "orthoplex point light": (kern, 10, hit,
+                                      dict(light_pos=arrs["pl_pos"][0])),
+            "orthoplex global light": (kern, 10, hit,
+                                       dict(light_dir=arrs["gl_dir"][0])),
+            "orthoplex camera light": (kern, 10, hit, dict(light_pos=cam_o)),
+            "orthoplex9 global light": (wf._kern_dict(arrs9), 9, hit9,
+                                        dict(light_dir=arrs9["gl_dir"][0])),
+            "random16 global light": (wf._kern_dict(arrs16), 16, hit16,
+                                      dict(light_dir=arrs16["gl_dir"][0])),
+            "orthoplex dead": (kern, 10, hit,
+                               dict(light_dir=arrs["gl_dir"][0])),
+    }.items():
+        point, dirs, ldist = cs.grid_shadow_rays(hit_, **light)
+        if label.endswith("dead"):
+            ldist = torch.zeros_like(ldist)
+        w = gk._grid_inputs(kern_, point, dirs, hit_["pid"], d, ldist=ldist)
+        cases[label] = ("2.10", w)
+    return cases
+
+
 def shadow_cases(dev):
     """Kernel 2.4's inputs: chip_smoke.py's shadow wavefronts of the glass
     120-cell (from the opaque hits) and of the "transparent d=3" scene
@@ -261,6 +361,38 @@ def grid_call(lib, w, records):
     return err, (out_t, out_id, tiles)
 
 
+def grid_occluded_call(lib, w, records):
+    """2.10 from ``lib``: (blocked, tiles).  ``records()`` gives the pool's
+    plane records, read by a library with ``ntr_grid_occluded_info``."""
+    dev = w["oT"].device
+    R, T = gk._check_grid(w, dev)
+    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
+    tiles = torch.empty((R // gk.RAY_BLOCK,), dtype=torch.int32, device=dev)
+    rows = records() if hasattr(lib, "ntr_grid_occluded_info") else w["gt"]
+    err = lib.ntr_grid_occluded(
+        w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
+        w["ldist"].data_ptr(), rows.data_ptr(), w["ci"].data_ptr(),
+        w["k_lo"].data_ptr(), w["k_hi"].data_ptr(), w["k_any"].data_ptr(),
+        T, R, w["d"], blocked.data_ptr(), tiles.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    return err, (blocked, tiles)
+
+
+def host_ms(fn, reps):
+    """Host time of one call of ``fn`` in ``reps`` calls made back to back
+    with no synchronisation between them, in ms: a launch that waits for
+    the device shows its kernel's time here, one that only enqueues shows
+    the wrapper's and the driver's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def main():
     args = sys.argv[1:]
     kernels = list(KERNELS)
@@ -283,24 +415,31 @@ def main():
                       f"{row[2]} B, loads {row[3]} B")
         # the wavefronts, with this tree's library
         cases = {}
+        if "2.1" in kernels:
+            cases.update(nearest_cases(dev))
         if "2.4" in kernels:
             cases.update(shadow_cases(dev))
         cases.update(mesh_cases(dev, kernels))
         if "2.9" in kernels:
             cases.update(grid_cases(dev))
+        if "2.10" in kernels:
+            cases.update(grid_shadow_cases(dev))
         records = {}
         names = [n for n, _c in trees]
 
         def run(name, kernel, w):
             lib = libs[name][0]
             _build._lib = lib
+            def plane_records():
+                key = id(w["gt"])
+                if key not in records:
+                    records[key] = gk.plane_records(w["gt"], w["d"])
+                return records[key]
+
             if kernel == "2.9":
-                def plane_records():
-                    key = id(w["gt"])
-                    if key not in records:
-                        records[key] = gk.plane_records(w["gt"], w["d"])
-                    return records[key]
                 err, got = grid_call(lib, w, plane_records)
+            elif kernel == "2.10":
+                err, got = grid_occluded_call(lib, w, plane_records)
             elif kernel == "2.4":
                 err, got = rk._occlusion_kernel(KERNELS[kernel][1], w,
                                                 w["oT"].device)
@@ -322,13 +461,16 @@ def main():
                         raise SystemExit(f"{name} differs from {names[0]} "
                                          f"on the {label}")
             times = {n: [] for n in names}
+            host = {n: [] for n in names}
             for name in names + names[::-1]:
                 times[name].append(cs.time_cuda(
                     lambda: run(name, kernel, w), 3))
+                host[name].append(host_ms(lambda: run(name, kernel, w), 3))
             for name in names:
                 print(f"{kernel} {label}: {name} "
                       f"{np.mean(times[name]):.4f} ms (turns "
-                      f"{', '.join(f'{t:.4f}' for t in times[name])})"
+                      f"{', '.join(f'{t:.4f}' for t in times[name])}), "
+                      f"host {np.mean(host[name]):.4f} ms a launch"
                       f" [{card}]")
             print(f"{kernel} {label}: outputs equal bit for bit across "
                   f"{', '.join(names)}")

@@ -128,12 +128,29 @@ def test_grid_ctypes_signatures_match_the_c_entry_points(fn, argtypes):
     assert f"lib.{fn}.argtypes = {argtypes}" in src
 
 
+def _grid_ds(src):
+    """The d that grid_walk.cu's entries switch over (NTR_GRID_DS)."""
+    listed = re.search(r"#define NTR_GRID_DS\(X\)(.*?)\n\n", src, re.S)
+    return [int(x) for x in re.findall(r"X\((\d+)\)", listed.group(1))]
+
+
+def _entry_body(src, entry):
+    return re.search(r"int %s\(.*?\)\s*\{(.*?)\n\}" % entry, src,
+                     re.S).group(1)
+
+
 def test_grid_kernels_take_d_up_to_16():
-    """The CUDA grid kernels hold a ray's coordinates in registers for
-    d <= MAX_D, and refuse a larger d: the wrappers' cap is the source's."""
+    """The CUDA grid kernels hold a ray's coordinates in registers, one
+    instantiation for each d up to MAX_D, and every entry refuses a larger
+    d (the switch's default): the wrappers' cap is the source's."""
     from ntracer_tpu_torch.engine import grid_kernels as gk
     src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
-    assert re.search(r"constexpr int MAXD = %d;" % gk.MAX_D, src)
+    assert max(_grid_ds(src)) == gk.MAX_D
+    for entry in ("ntr_grid_nearest_hit", "ntr_grid_nearest_hit_info",
+                  "ntr_grid_occluded", "ntr_grid_occluded_info"):
+        body = _entry_body(src, entry)
+        assert "NTR_GRID_DS(NTR_CASE)" in body, entry
+        assert "default:\n      return (int)cudaErrorInvalidValue;" in body
     assert re.search(r"constexpr int TB = %d;" % gk.TRI_BLOCK, src)
     assert re.search(r"constexpr int RB = %d;" % gk.RAY_BLOCK, src)
     assert gk.MAX_D >= 16
@@ -211,3 +228,80 @@ def test_grid_nearest_kernel_instantiated_for_every_d():
                  src.index("// Kernel 2.10: the occlusion grid walk")]
     assert "k < d" not in kernel and "MAXD" not in kernel
     assert "__any_sync" in kernel
+
+
+def test_grid_occluded_kernel_instantiated_for_every_d():
+    """2.10 is a template on D (and rays a thread) with no run-time d,
+    switched at launch for every d the wrappers take; it reads the plane
+    records `grec`, and the first port's run-time-d pieces are gone."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    assert re.search(r"template <int D, int RPT>\s*__global__ void "
+                     r"__launch_bounds__\(RB / RPT\) grid_occluded_kernel",
+                     src)
+    assert _grid_ds(src) == list(range(3, gk.MAX_D + 1))
+    for entry in ("ntr_grid_occluded", "ntr_grid_occluded_info"):
+        assert "<DD>" in _entry_body(src, entry) or \
+            "<DD, OCCL_RAYS>" in _entry_body(src, entry), entry
+    kernel = src[src.index("// Kernel 2.10: the occlusion grid walk"):
+                 src.index("}  // namespace")]
+    assert "k < d" not in kernel and "__any_sync" in kernel
+    assert re.search(r"const float\* __restrict__ grec", kernel)
+    for gone in (r"\bMAXD\b", r"\bSUB\b", r"struct Ray\b", r"\bload_ray\(",
+                 r"\bstage\(", r"\btile_entry\("):
+        assert not re.search(gone, src), gone
+
+
+def test_grid_walks_share_one_pair_test_and_tile_loop():
+    """Both grid kernels run one straight-line pair test (`grid_pair`, the
+    sign pre-test and warp-uniform skips) in one tile loop (`grid_tiles`,
+    the TMA ring): each is defined once and called by both kernels."""
+    src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    for fn in ("grid_pair", "grid_tiles"):
+        assert len(re.findall(r"__device__ __forceinline__ \w+ %s\(" % fn,
+                              src)) == 1, fn
+    near = src[src.index("__global__ void __launch_bounds__(RB / RPT) "
+                         "grid_nearest_kernel"):
+               src.index("// Ring depth and dynamic shared memory")]
+    occl = src[src.index("__global__ void __launch_bounds__(RB / RPT) "
+                         "grid_occluded_kernel"):
+               src.index("int launch_occluded")]
+    for body in (near, occl):
+        assert "grid_pair<D, " in body and "grid_tiles<D, RPT>(" in body
+        assert "__syncthreads" not in body and "pair_test" not in body
+
+
+def test_grid_occluded_ctypes_signatures():
+    """ntr_grid_occluded takes the plane records `grec` where it took the
+    plane rows, and 2.10's launch query takes (d, int[6]), bound by load()
+    like the streaming occlusion walks' queries."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    _check_signature("ntr_grid_occluded", _build._GRID_OCCLUDED_ARGS,
+                     "grid_walk.cu")
+    _check_signature("ntr_grid_occluded_info", _build._INFO_ARGS,
+                     "grid_walk.cu")
+    src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
+    params = re.search(r"int ntr_grid_occluded\((.*?)\)\s*\{", src,
+                       re.S).group(1)
+    assert "const float* grec" in params and " gt" not in params
+    assert '("ntr_grid_occluded_info", _INFO_ARGS)' in \
+        open(_build.__file__).read()
+    body = _entry_body(src, "ntr_grid_occluded_info")
+    assert "grid_info<DD, OCCL_RAYS>" in body
+    assert len(gk.GRID_INFO) == 6
+
+
+def test_nearest_walks_share_the_streaming_body():
+    """Kernel 2.1 runs 2.5's body on stream_walk.cuh: both C entries launch
+    the one launcher of `nearest_stream_kernel`, and the resident body
+    `nearest_kernel` is gone."""
+    src = open(os.path.join(_build.CSRC_DIR, "nearest_hit.cu")).read()
+    assert not re.search(r"\bnearest_kernel\b", src)
+    assert "resident_walk" not in src and "pair_test<" not in src
+    assert len(re.findall(r"__global__", src)) == 1
+    for entry in ("ntr_nearest_hit", "ntr_nearest_hit_hbm"):
+        assert "return launch_stream_d(" in _entry_body(src, entry), entry
+    assert "nearest_stream_kernel<D, SHARED>" in src
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    assert "ntr_nearest_hit" in rk._RING_ENTRIES
+    assert rk._INFO_ENTRIES["nearest_hit"] == "ntr_nearest_hit_hbm_info"

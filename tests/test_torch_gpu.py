@@ -691,6 +691,42 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
 
 
 @pytest.mark.parametrize("d", [3, 6, 8])
+def test_resident_nearest_entry_corner_cases(cuda, d, monkeypatch):
+    """Kernel 2.1's entry (``nearest_hit``, which launches 2.5's body) on
+    the corner cases of ``_nearest_cases`` -- ties across lanes and visits,
+    the winner skipped, NaN origins, a dead block, a live block without
+    hits -- with every live ray active and with every other one, and on the
+    frame's primary wavefront with the shared rows, with and without an
+    active mask: it equals its twin ``nearest_hit_ref`` bit for bit (t,
+    slots, visits), and the streaming entry on the same inputs."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, (oT, dT, sk), actives, facts = _nearest_cases(d, cuda)
+    assert facts["tie_lanes"] >= 2 and facts["skip_moves"]
+    assert facts["nan_hits"] == 0 and facts["dead_visits"] == 0
+    for active in actives:
+        args = (res, oT, dT, sk, d)
+        before = prk.nearest_hit.launches
+        got = prk.nearest_hit(*args, active=active)
+        assert prk.nearest_hit.launches == before + 1
+        torch.cuda.synchronize()
+        _equal(got, prk.nearest_hit_ref(*args, active=active))
+        _equal(got, prk.nearest_hit_hbm(*args, active=active))
+    scene = _stack_scene(d, ties=300)
+    cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    res = pwf._res_dict(arrs)
+    skip = torch.full((oT.shape[1],), -1, dtype=torch.int32, device=cuda)
+    half = torch.arange(oT.shape[1], device=cuda) % 3 != 0
+    for kw in (dict(order=pctx["order"], sh=pctx["sh_res"]),
+               dict(order=pctx["order"], sh=pctx["sh_res"], active=half)):
+        got = prk.nearest_hit(res, oT, dT, skip, d, **kw)
+        torch.cuda.synchronize()
+        assert int((got[1] >= 0).sum()) > 100
+        _equal(got, prk.nearest_hit_ref(res, oT, dT, skip, d, **kw))
+        _equal(got, prk.nearest_hit_hbm(res, oT, dT, skip, d, **kw))
+
+
+@pytest.mark.parametrize("d", [3, 6, 8])
 def test_resident_filtered_occlusion_entry_corner_cases(cuda, d,
                                                          monkeypatch):
     """Kernel 2.4's entry (``occluded_transparent``, which launches 2.8's
@@ -1353,6 +1389,94 @@ def test_grid_nearest_kernel_corner_cases(cuda, d):
         assert gk.nearest_hit.launches == n0 + 1
         torch.cuda.synchronize()
         _grid_equal(got, gk.nearest_hit_ref(kern, oT, dT, skip, d, **kw))
+
+
+def _grid_occlusion_cases(d, dev):
+    """Kernel 2.10's corner cases at dimension ``d`` over the pool of
+    ``_grid_corner_cases(d)`` (the tie copies fill lanes 300.. of the first
+    tile and the second tile), seven 512-ray blocks of shadow rays from its
+    camera, ldist from the twin's nearest hit t:
+      0. aimed at the copies, ldist just above t on even rays (blocked),
+         ldist = t on odd rays (an occluder at t = ldist: not blocked);
+      1. the same, each skipping the winning copy's id: the next copy
+         blocks;
+      2. the same with every other origin NaN;
+      3. pointing away from the pool with ldist 0: a dead block;
+      4. aimed at the copies with ldist 0, -1, NaN and inf by turns;
+      5. aimed at simplices of the second tile (no valid pair in the
+         first), ldist just above the hit, even rays skipping what they hit
+         (the first tile runs where the block's rays enter its box before
+         their ldist);
+      6. aimed at the copies with ldist inf: every ray blocked at lane 300
+         of the first tile, so whole warps end blocked inside it.
+    Returns (kern, oT, dT, ldist, skip, facts), facts the twin's view."""
+    kern, oT, dT, skip, _sh, _facts = _grid_corner_cases(d, dev)
+    t, ids, _tiles = gk.nearest_hit_ref(kern, oT, dT, skip, d)
+    t, ids = t.reshape(6, 512), ids.reshape(6, 512)
+    blk = [slice(i * 512, (i + 1) * 512) for i in range(6)]
+    above = torch.nextafter(t, torch.full_like(t, float("inf")))
+    even = torch.arange(512, device=dev) % 2 == 0
+    none = torch.full((512,), -1, dtype=torch.int32, device=dev)
+    mix = torch.tensor([0.0, -1.0, float("nan"), float("inf")],
+                       device=dev)[torch.arange(512, device=dev) % 4]
+    inf = torch.full((512,), float("inf"), device=dev)
+    rows = [
+        (oT[:, blk[0]], dT[:, blk[0]], torch.where(even, above[0], t[0]),
+         none),
+        (oT[:, blk[1]], dT[:, blk[1]], above[1], skip[blk[1]]),
+        (oT[:, blk[2]], dT[:, blk[2]], above[0], none),
+        (oT[:, blk[3]], dT[:, blk[3]], torch.zeros_like(inf), none),
+        (oT[:, blk[0]], dT[:, blk[0]], mix, none),
+        (oT[:, blk[5]], dT[:, blk[5]], above[5],
+         torch.where(even, ids[5], -1).to(torch.int32)),
+        (oT[:, blk[0]], dT[:, blk[0]], inf, none),
+    ]
+    o, dv, ld, sk = (torch.cat(x, dim=-1).contiguous() for x in zip(*rows))
+    blocked, tiles = gk.occluded_ref(kern, o, dv, ld, sk, d)
+    b = blocked.reshape(7, 512)
+    facts = dict(
+        just_below=bool(b[0, ::2].all()), at_ldist=not bool(b[0, 1::2].any()),
+        skipped=bool(b[1].all()),
+        nan=not bool(b[2, ::2].any()) and bool(b[2, 1::2].all()),
+        dead_tiles=int(tiles[3]),
+        ldist_mix=bool(torch.equal(b[4], torch.isinf(mix))),
+        second_tile=bool(b[5, 1::2].all()) and not bool(b[5, ::2].any())
+        and int(tiles[5]) >= 1 and bool((ids[5] >= gk.TRI_BLOCK).all()),
+        mid_tile=bool(b[6].all()) and int(tiles[6]) == 1)
+    return kern, o, dv, ld, sk, facts
+
+
+@pytest.mark.parametrize("d", [9, 10, 12, 16])
+def test_grid_occluded_kernel_corner_cases(cuda, d):
+    """Kernel 2.10 on ``_grid_occlusion_cases(d)`` -- an occluder just below
+    ldist and one at ldist, the skipped id, NaN origins, a dead block,
+    ldist <= 0, NaN and inf, an occluder only in the second tile, warps
+    that end blocked inside a tile -- reading the plane records the device
+    scene carries and ones the wrapper makes: ``blocked`` and tiles equal
+    the twin's."""
+    kern, oT, dT, ld, sk, facts = _grid_occlusion_cases(d, cuda)
+    print(f"d = {d}: {facts}")
+    assert all(v for k, v in facts.items() if k != "dead_tiles")
+    assert facts["dead_tiles"] == 0
+    ref = gk.occluded_ref(kern, oT, dT, ld, sk, d)
+    bare = {k: v for k, v in kern.items() if k != "grec"}
+    for k in (kern, bare):
+        n0 = gk.occluded.launches
+        got = gk.occluded(k, oT, dT, ld, sk, d)
+        assert gk.occluded.launches == n0 + 1
+        torch.cuda.synchronize()
+        _grid_equal(got, ref)
+
+
+def test_grid_occluded_kernel_launch_info(cuda):
+    """Kernel 2.10 as it launches at d = 9, 10 and 16: one ray a thread, a
+    ring of at least two slots, at least one block an SM, no spill."""
+    for d in (9, 10, 16):
+        info = gk.launch_info(d, walk="occluded")
+        print(f"2.10 d = {d}: {info}")
+        assert info["rays_per_thread"] == 1
+        assert info["ring_slots"] >= 2 and info["blocks_per_sm"] >= 1
+        assert info["registers"] <= 255
 
 
 def test_grid_nearest_kernel_launch_info(cuda):

@@ -1,8 +1,8 @@
-"""The exactness arguments of the redesigned nearest-hit grid walk (kernel
-2.9, ``grid_nearest_kernel<D, SHARED, RPT>`` in csrc/grid_walk.cu), held
-here to the plain twin ``grid_kernels.nearest_hit_ref`` on the CPU in
-float32 numpy; the kernel itself is held to the twin on the card
-(tests/test_torch_gpu.py).
+"""The exactness arguments of the redesigned grid walks (kernel 2.9,
+``grid_nearest_kernel<D, SHARED, RPT>`` in csrc/grid_walk.cu, and 2.10
+below), held here to the plain twins ``grid_kernels.nearest_hit_ref`` and
+``occluded_ref`` on the CPU in float32 numpy; the kernels themselves are
+held to the twins on the card (tests/test_torch_gpu.py).
 
 * The plane records: ``plane_records`` lays the plane rows out triangle by
   triangle, each plane padded to a float4, and the kernel reads plane p of
@@ -16,6 +16,13 @@ float32 numpy; the kernel itself is held to the twin on the card
   the shared rows and rays of their own origins.
 * A sum started at its first product differs from one started at +0 only
   in the sign of a zero.
+* The redesigned occlusion grid walk (kernel 2.10, ``grid_occluded_kernel<D,
+  RPT>``) runs the same pair test with ldist as the cut and ORs
+  ``blocked``; a ray that is blocked, or whose ldist is <= 0 or NaN, tests
+  nothing more, and a warp of such rays skips the rest of a tile.  Its rule
+  gives the twin ``grid_kernels.occluded_ref``'s ``blocked`` and tiles on
+  the 9- and 10-orthoplex's shadow wavefronts (point, global and camera
+  light) and a 16-D pool's, with one and two rays a thread.
 """
 
 import numpy as np
@@ -175,6 +182,158 @@ def kernel_rule(w, rpt, rec):
         out_t[rs], out_id[rs] = best, bid
         assert n_warps * 32 * rpt == RB
     return out_t, out_id, tiles, skipped
+
+
+def occlusion_rule(w, rpt, rec):
+    """Kernel 2.10's walk of every block of the grid inputs ``w`` (with
+    ``w["ldist"]``), ray by ray in float32 numpy, reading the plane records
+    ``rec``: (blocked, tiles, counts) with counts of the warp stages the
+    pair test skipped (``stage``), of the triangles a warp of decided rays
+    skipped (``decided``) and of the warps whose last live ray was blocked
+    inside a sub-tile (``mid``)."""
+    d = w["d"]
+    o, dv = w["oT"].numpy(), w["dT"].numpy()
+    ci, sk, ld = w["ci"].numpy(), w["skip"].numpy(), w["ldist"].numpy()
+    k_any = w["k_any"].reshape(-1).numpy()
+    nb, nj = o.shape[1] // RB, len(k_any)
+    entries = prk._entry_all(
+        d, w["oT"].reshape(d, nb, RB, 1), w["dT"].reshape(d, nb, RB, 1),
+        w["k_lo"][:, 0, :].T, w["k_hi"][:, 0, :].T, nj).numpy()
+    nw = RB // rpt // 32
+    warp = np.arange(RB) // rpt // 32
+    blocked = np.zeros(o.shape[1], bool)
+    tiles = np.zeros(nb, np.int32)
+    counts = dict(stage=0, decided=0, mid=0)
+    one = F32(prk.ONE_FUZZ)
+
+    def keep(go, alive):
+        """The rays of the warps with a ray left; the other warps skip."""
+        wa = warp[alive]
+        has = np.bincount(wa[go], minlength=nw) > 0
+        counts["stage"] += int(((np.bincount(wa, minlength=nw) > 0)
+                                & ~has).sum())
+        return has[wa]
+
+    for b in range(nb):
+        rs = slice(b * RB, (b + 1) * RB)
+        ob, db, skb, lb = o[:, rs], dv[:, rs], sk[rs], ld[rs]
+        live = lb > 0                   # False for ldist <= 0 and NaN
+        for j in range(nj):
+            # the vote: only live rays take part
+            if not (live & (entries[b, :, j] < lb)).any() or k_any[j] == 0:
+                continue
+            tiles[b] += 1
+            for s0 in range(j * RB, (j + 1) * RB, 32):
+                start = np.bincount(warp[live], minlength=nw) > 0
+                for tri in range(s0, s0 + 32):
+                    wl = np.bincount(warp[live], minlength=nw) > 0
+                    counts["decided"] += int(nw - wl.sum())
+                    alive = np.nonzero(wl[warp])[0]
+                    if not len(alive):
+                        continue
+                    g = rec[tri]
+
+                    def dots(p, rays):
+                        od = dd = None
+                        for k in range(d):
+                            x = ob[k][rays] * g[p, k]
+                            y = db[k][rays] * g[p, k]
+                            od = x if k == 0 else od + x
+                            dd = y if k == 0 else dd + y
+                        return od, dd
+
+                    od, dd = dots(0, alive)
+                    num = ci[0, tri] - od
+                    go = live[alive] & (skb[alive] != tri)
+                    go &= ((num > 0) & (dd > 0)) | ((num < 0) & (dd < 0))
+                    k = keep(go, alive)
+                    alive, go, num, dd = alive[k], go[k], num[k], dd[k]
+                    t = num / np.where(go, dd, F32(1))
+                    go &= (t > 0) & (t < lb[alive])
+                    k = keep(go, alive)
+                    alive, go, t = alive[k], go[k], t[k]
+                    tot = None
+                    for i in range(1, d):
+                        if not len(alive):
+                            break
+                        oi, di = dots(i, alive)
+                        a = (ci[i, tri] - oi) - t * di
+                        go &= (a >= -prk.ROUNDING_FUZZ) & (a <= one)
+                        tot = a if i == 1 else tot + a
+                        k = keep(go, alive)
+                        alive, go, t, tot = (alive[k], go[k], t[k], tot[k])
+                    if len(alive):
+                        win = alive[go & (tot <= one)]
+                        blocked[b * RB + win] = True
+                        live[win] = False
+                end = np.bincount(warp[live], minlength=nw) > 0
+                counts["mid"] += int((start & ~end).sum())
+    return blocked, tiles, counts
+
+
+SHADOWS = [("orthoplex9", "point"), ("orthoplex9", "global"),
+           ("orthoplex9", "camera"), ("orthoplex10", "point"),
+           ("orthoplex10", "global"), ("orthoplex10", "camera"),
+           ("random16", "global")]
+
+
+@pytest.fixture(scope="module")
+def shadow_scenes():
+    """Each scene's pool and the primary hits of two blocks of rays from
+    its camera, three in four aimed at seeded points of the simplices."""
+    out = {}
+    for name in sorted({s for s, _l in SHADOWS}):
+        scene = SCENES[name]()
+        cfg, arrs, flat = pwf.get_device_scene(scene, "cpu")
+        d = cfg.d
+        kern = pwf._kern_dict(arrs)
+        rng = np.random.RandomState(7)
+        cam = np.asarray(scene._cam._origin, F32)
+        dirs = _unit(_targets(rng, flat.arrays, N) - cam)
+        free = rng.rand(N) < 0.25
+        dirs[free] = _unit(rng.normal(size=(int(free.sum()), d)))
+        oT = torch.from_numpy(np.broadcast_to(cam, (N, d)).T.copy())
+        dT = torch.from_numpy(dirs.T.copy())
+        skip = torch.full((N,), -1, dtype=torch.int32)
+        t, pid, _v = gk.nearest_hit_ref(kern, oT, dT, skip, d)
+        hit = dict(hit=pid >= 0, pid=pid, pointT=oT + t[None, :] * dT)
+        out[name] = (d, kern, arrs, torch.from_numpy(cam), hit)
+    return out
+
+
+@pytest.mark.parametrize("scene,light", SHADOWS)
+def test_occlusion_rule_gives_the_twins_outputs(shadow_scenes, scene, light):
+    """One and two rays a thread, the live gate (not blocked, ldist > 0),
+    the sign pre-test, the warp-uniform skips and the skip of decided warps
+    give the twin's ``blocked`` and tiles bit for bit, with some ldist set
+    to 0, -1, NaN and inf."""
+    d, kern, arrs, cam, hit = shadow_scenes[scene]
+    smoke = _smoke()
+    pos = dict(point=arrs["pl_pos"][0], camera=cam).get(light)
+    point, dirs, ldist = smoke.grid_shadow_rays(
+        hit, light_pos=pos,
+        light_dir=arrs["gl_dir"][0] if light == "global" else None)
+    act = torch.nonzero(ldist > 0).flatten()
+    assert act.numel() > 200
+    for i, v in enumerate((0.0, -1.0, float("nan"), float("inf"))):
+        ldist[act[i::13]] = v
+    args = (kern, point, dirs, ldist, hit["pid"], d)
+    blocked, tiles = gk.occluded_ref(*args)
+    w = gk._grid_inputs(kern, point, dirs, hit["pid"], d, ldist=ldist)
+    rec = gk.plane_records(w["gt"], d).numpy()
+    for rpt in (1, 2):
+        kb, ktl, counts = occlusion_rule(w, rpt, rec)
+        print(f"{scene} {light} rpt={rpt}: {int(kb.sum())} blocked, "
+              f"tiles {ktl.tolist()}, {counts}")
+        assert np.array_equal(kb, blocked.numpy())
+        assert np.array_equal(ktl, tiles.numpy())
+        assert counts["stage"] > 0
+        assert not kb[~(ldist.numpy() > 0)].any()
+        if scene != "random16":         # rays that cross the body
+            assert kb.any()
+        if scene != "random16" and light != "point":
+            # whole warps end blocked, some inside a sub-tile
+            assert counts["decided"] > 0 and counts["mid"] > 0
 
 
 def test_plane_records_are_the_plane_rows():
