@@ -46,9 +46,12 @@ at 1024x1024, 8-bit RGB:
     simplices, ``NTracer(10, force_generic=True)``) under the same lights.
 
 Each streaming kernel is held against its twin at the mesh's full
-wavefronts, and against its resident sibling (kernels 2.1-2.4) on the same
-inputs (2.1 and 2.4 launch 2.5's and 2.8's bodies: those checks are of
-equality, not of time); the grid kernels against their twins at the orthoplex's full
+wavefronts, and against its sibling for pools under the line (kernels
+2.1-2.4) on the same inputs (2.1, 2.2 and 2.4 launch 2.5's, 2.6's and 2.8's
+bodies: those checks are of equality, not of time; 2.3 launches 2.7's in
+groups of one, so the two share t and the opaque slot, and their times
+compare the group sizes); the grid kernels against their twins at the
+orthoplex's full
 wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
 rays to three lights and a dead wavefront), and at d = 9 (the 9-orthoplex)
 and d = 16 (200 random simplices, rays aimed at them) for other d.  The script checks 64 pixels of each frame against the scalar NumPy
@@ -113,9 +116,8 @@ PEAK_BYTES = 3.35e12       # bytes/s
 # Instructions an IEEE division (div.rn.f32) executes on its fast path in the
 # card's SASS, counted by div_sass_ops() from the same nvcc flags.
 DIV_OPS = 10
-# The four streaming walks and kernels 2.1 and 2.4 run the loop of
-# stream_walk.cuh (compacted rays, the straight-line pair test, per-warp
-# slot release).
+# Kernels 2.1-2.8 run the loop of stream_walk.cuh (compacted rays, the
+# straight-line pair test, per-warp slot release).
 REDESIGNED = "ntracer_tpu_torch/csrc/stream_walk.cuh"
 # Kernels 2.9 and 2.10 run grid_nearest_kernel<D, SHARED, RPT> and
 # grid_occluded_kernel<D, RPT> (exact width, RPT rays a thread, one
@@ -1239,6 +1241,11 @@ def main():
     # same towards a point light from the flagship's hit points, where most
     # blocks are live; then a wavefront without any active ray
     t0 = phase("occluded kernel vs twin")
+    # kernel 2.2 launches 2.6's body (stream_walk.cuh) on any pool: as it
+    # launches at the lit configuration's d and the flagship's
+    occ_info = {d_: rk.stream_info("occluded", d_) for d_ in (lcfg.d, cfg.d)}
+    for d_, info in occ_info.items():
+        print(f"   occluded at d = {d_}: {info}")
 
     def shadow_rays(arrs_, hit_, light_pos=None, light_dir=None):
         point = torch.where(hit_["hit"][None, :], hit_["pointT"], 0.0)
@@ -1314,6 +1321,16 @@ def main():
     _f, gcam_o, _t, goT, gdT, gpctx, gskip, ghit = primary(glass, gcfg, garrs)
     _f, _o, _t, doT, ddT, dpctx, dskip, dhit = primary(d3, dcfg, darrs)
     gres, dres = wf._res_dict(garrs), wf._res_dict(darrs)
+    # kernel 2.3 launches 2.7's body in groups of one (stream_walk.cuh): as
+    # it launches at the glass 120-cell's d and the d=3 scene's
+    t3_info = {}
+    for d_ in (gcfg.d, dcfg.d):
+        for shared in (True, False):
+            t3_info[d_, shared] = rk.stream_info("nearest_hit_transparent",
+                                                 d_, shared)
+            print(f"   nearest_hit_transparent at d = {d_}"
+                  f"{' (shared rows)' if shared else ''}: "
+                  f"{t3_info[d_, shared]}")
     gsine = -wf._dotT(gdT, ghit["normalT"])
     tmodes = {
         "glass primary": (gcfg, garrs, gres, goT, gdT, gskip,
@@ -1445,9 +1462,9 @@ def main():
 
     # The streaming kernels 2.5-2.8 at the mesh's full wavefronts (d = 3,
     # 4,054 chunks through the ring), each against its twin and against its
-    # resident sibling on the same inputs.  A mesh walk takes 0.1-0.4 s and
-    # its twin tens of seconds: three timed kernel calls, and the twin's
-    # one call timed.
+    # sibling for small pools on the same inputs.  A mesh walk takes
+    # 0.1-0.4 s and its twin tens of seconds: three timed kernel calls, and
+    # the twin's one call timed.
     slot_bytes = {opa: 512 * (3 * 3 + 3 + 1 + opa) for opa in (0, 1)}
     props = torch.cuda.get_device_properties(0)
     optin = getattr(props, "shared_memory_per_block_optin", 232448)
@@ -1572,26 +1589,23 @@ def main():
                      visits=int((kv != pv).sum()),
                      blocked_vs_2_2=int((kb != rb).sum()),
                      visits_vs_2_2=int((kv != rv).sum()))
-        # in turns: 2.2, 2.6, 2.6, 2.2
-        res_ms = time_cuda(lambda: rk.occluded(*args), 3)
+        # 2.2 launches 2.6's body: the comparison checks equality, and 2.2
+        # is no yardstick of 2.6's time
         ms = time_cuda(lambda: rk.occluded_hbm(*args), 3)
-        ms = (ms + time_cuda(lambda: rk.occluded_hbm(*args), 3)) / 2
-        res_ms = (res_ms + time_cuda(lambda: rk.occluded(*args), 3)) / 2
         stages, dealt = occlusion_stages(*args, kb, kv)
         bound_ms, bound_by = walk_bound(
             3, False, ldist > 0, ldist > 0, stages, n_chunks, mbytes, 4,
             R + kv.numel() * 4, early=kb)
         occ_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                             bound_by=bound_by, err=float(diffs["blocked"]),
-                            resident_ms=res_ms, ratio_to_2_2=ms / res_ms,
                             live_blocks=int((kv > 0).sum()),
                             work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, live blocks {int((kv > 0).sum())}, "
               f"visits/block {float(kv.float().mean()):.4f}; diffs "
-              f"{json.dumps(diffs)}; kernel 2.6 {ms:.4f} ms, kernel 2.2 on "
-              f"the same inputs {res_ms:.4f} ms, ratio 2.6/2.2 "
-              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
+              f"{json.dumps(diffs)}; kernel 2.6 {ms:.4f} ms (kernel 2.2, "
+              f"equal on the same inputs, launches the same body: no "
+              f"yardstick); twin {twin_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
               f"the bound reached; pair tests dealt out "
               f"{occ_h[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
@@ -2097,7 +2111,7 @@ def main():
                              f"wanted {json.dumps(want)}")
 
     # a pool over the line: one streaming walk and two streaming occlusion
-    # walks a frame, no resident one
+    # walks a frame, none of the small pools' entries
     t0 = phase("mesh frame")
     reset_launches()
     frame_s = orbit(nt3, mesh, mesh_camera, MESH_DISTANCE, LIT_FRAMES,
@@ -2348,10 +2362,14 @@ def main():
                              for (d_, sh_), v in near_info.items()}),
         kernel_entry("occluded", csrc + "occluded.cu", tpu + "1100",
                      "lit 120-cell", occ, "flagship point light",
-                     dead_ms=dead_ms),
+                     dead_ms=dead_ms, redesigned=REDESIGNED,
+                     launch={f"d={d_}": v for d_, v in occ_info.items()}),
         kernel_entry("nearest_hit_transparent",
                      csrc + "nearest_hit_transparent.cu", tpu + "1288",
-                     "glass 120-cell", near_t, "glass primary"),
+                     "glass 120-cell", near_t, "glass primary",
+                     redesigned=REDESIGNED,
+                     launch={f"d={d_}{' shared' if sh_ else ''}": v
+                             for (d_, sh_), v in t3_info.items()}),
         kernel_entry("occluded_transparent",
                      csrc + "occluded_transparent.cu", tpu + "1452",
                      "glass 120-cell", occ_t, "glass point light",

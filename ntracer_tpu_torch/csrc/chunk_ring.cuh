@@ -1,9 +1,8 @@
-// The TMA and mbarrier primitives of the streaming walks (kernels 2.5-2.8,
-// the STREAM variants of the four walk sources, and 2.4), the Hopper
-// counterpart of the TPU kernels' `_hbm_fetch`/`_hbm_wait`
-// (ntracer_tpu/engine/resident_kernels.py).  The loop that drives them is
-// stream_walk.cuh's; grid_walk.cu's kernel 2.9 fills its own ring of
-// triangle sub-tiles with them.
+// The TMA and mbarrier primitives of the chunk walks (kernels 2.1-2.8, all
+// on stream_walk.cuh's loop), the Hopper counterpart of the TPU kernels'
+// `_hbm_fetch`/`_hbm_wait` (ntracer_tpu/engine/resident_kernels.py).  The
+// loop that drives them is stream_walk.cuh's; grid_walk.cu's kernels 2.9
+// and 2.10 fill their own ring of triangle sub-tiles with them.
 //
 // A ring of chunk slots lives in dynamic shared memory.  Each piece of a
 // chunk is one contiguous, 16-byte aligned range in global memory --
@@ -22,7 +21,9 @@
 
 namespace ntr {
 
-constexpr int RING_MAX = 2 * NCAND;   // two groups in flight
+// Ring slots a walk in groups of n candidates can fill: the group under
+// test and the next one, the only chunks it knows.
+__host__ __device__ constexpr int ring_max(int n) { return 2 * n; }
 
 // Floats of one slot: D*D plane rows, D offset rows, the id row and, for
 // the transparent walks, the opacity row, CK entries each.

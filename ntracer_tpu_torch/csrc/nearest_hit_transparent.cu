@@ -2,61 +2,56 @@
 // for Hopper (sm_90a): the nearest opaque hit of each ray and its K nearest
 // transparent hits.
 //
-// Replaces the TPU kernel ntracer_tpu/engine/resident_kernels.py
-// `nearest_hit_transparent` (pallas_call body `_nearest_t_kernel` ->
-// `_nearest_t_live`).  Its plain PyTorch twin is
-// `nearest_hit_transparent_ref` in
-// ntracer_tpu_torch/engine/resident_kernels.py; the two agree bit for bit on
-// t, the winning slot, every one of the K slots position by position, and
-// the visit counts.  The entry pass, the candidate scan, chunk staging and
-// the pair test are pair_test.cuh's, shared with the other walks.
+// Replaces two TPU kernels of ntracer_tpu/engine/resident_kernels.py with
+// one body, `nearest_t_stream_kernel<D, SHARED, N>`:
+// `nearest_hit_transparent` (kernel 2.3, pallas_call body
+// `_nearest_t_kernel` -> `_nearest_t_live`), the walk of pools under the
+// line, launched with N = 1, and `nearest_hit_transparent_hbm` (kernel
+// 2.7, body `_nearest_t_hbm_kernel` -> `_nearest_t_hbm_live`), the walk of
+// pools over it, launched with N = NCAND = 4.  The plain PyTorch twins are
+// `nearest_hit_transparent_ref` and `nearest_hit_transparent_hbm_ref` in
+// ntracer_tpu_torch/engine/resident_kernels.py; kernel and twin agree bit
+// for bit on t, the winning slot, every one of the K slots position by
+// position, and the visit counts.
 //
-// What it computes.  One CUDA block walks one 512-ray block, one thread per
-// ray.  The walk picks ONE candidate chunk a step (the next position whose
-// entry minimum is below the block's largest best t), and picks the next
-// one before it visits the current one, so the bound is the one from before
-// this visit -- the TPU kernel's rule.  The grouped rule of the opaque walks
-// is not used here: a different visit set would interleave far hits into
-// the slots and permute which slot a later near hit lands in, and the
-// stable sort downstream composes exactly tied surfaces in slot order.
-// A visit stages the chunk (plane rows, offset rows, id row, opacity row) in
-// shared memory; each thread tests its ray against the 128 slots in lane
-// order.  Opaque slots (opacity >= 1) compete for the nearest hit: strict <,
-// lowest lane on a tie.  Transparent hits go into a per-visit list kept
-// sorted by t (a later lane goes behind an equal t), which holds the chunk's
-// 8 nearest; after the lane loop its first K entries are offered in turn to
-// the ray's K slots, each replacing the FIRST largest slot if it is nearer
-// (all slots start at +inf, so slot 0 fills first).  Slots are not trimmed
-// by the opaque hit here; the trace's finish does that.
+// What it computes.  One CUDA block walks one 512-ray block.  The walk
+// picks groups of N candidate chunks (the next positions whose entry
+// minimum is below the block's largest best t), each next group with the
+// bound from before the current one.  The two TPU kernels differ in N:
+// 2.3 takes ONE candidate a step, so visit k + 1 is picked with the bound
+// after visit k - 1, while 2.7 takes groups of four.  A stale bound visits
+// more chunks, whose far glass hits take slots and move the slot of later
+// near hits, and the stable sort downstream composes exactly tied surfaces
+// in slot order: so each entry keeps its TPU kernel's N, and 2.7 agrees
+// with 2.3 on t and the opaque slot only.  In a visit each ray is tested
+// against the chunk's 128 slots in lane order.  Opaque slots (opacity >= 1)
+// compete for the nearest hit: strict <, lowest lane on a tie.
+// Transparent hits go into the chunk's list kept sorted by t (a later lane
+// goes behind an equal t), which holds its 8 nearest; its first K entries
+// are then offered in turn to the ray's K slots, each replacing the FIRST
+// largest slot if it is nearer (all slots start at +inf, so slot 0 fills
+// first).  Slots are not trimmed by the opaque hit here; the trace's
+// finish does that.
 //
-// What bounds it.  Pair-test arithmetic, as for the opaque walk: a visit is
-// 512 x 128 pair tests of d*d multiply-adds and one IEEE division; the list
-// insertion and the K*K slot scan are a few compares beside them.  Slots and
-// list live in registers (every loop over them is unrolled with constant
-// indices; K is a run-time count up to KMAX, unused slots hold -inf so they
-// are never the largest), so one instantiation serves every K.  One
-// candidate a step costs two block syncs more per visit than the grouped
-// walk; a dead block costs one load and K + 2 stores per ray.
-//
-// STREAM: kernel 2.7, which replaces `nearest_hit_transparent_hbm`
-// (pallas_call body `_nearest_t_hbm_kernel` -> `_nearest_t_hbm_live`) for
-// pools over the line.  The TPU kernel walks there in groups of four, the
-// next group picked with the bound from before the current one, and so
-// does this variant; against `nearest_hit_transparent_hbm_ref` it agrees
-// bit for bit as the resident variant does against its twin, and against
-// the resident variant on t and the opaque slot (a stale bound may visit
-// more chunks, whose far glass hits take slots and move later hits' slot
-// positions).  Its body is `nearest_t_stream_kernel`, on stream_walk.cuh's
-// loop (TMA ring, compacted live rays, four slot ranges a ray, the
-// straight-line pair test with a cut, per-warp slot release, the staged
-// entry pass).  A ray's state -- best, its slot, the K slots and their
-// largest -- lives in shared memory, and a visit's tasks are dealt
-// statically (warp w takes tasks w, w + 16, ...), so a ray's visits run in
-// walk order in one lane group, which updates that state in place: the K
-// slots' rule depends on the order of the offers, and the chunk lists of
-// four visits would not fit beside the ring (512 x 4 x 8 x 8 B = 128 KiB).
-// A nearest walk never decides a ray, so the live set is fixed for the
-// whole walk and the static deal stays even.  What keeps it exact:
+// What bounds it.  Pair-test arithmetic: a visit is 512 x 128 pair tests
+// of d*d multiply-adds and one IEEE division; the list insertion and the
+// K*K slot scan are a few compares beside them, on the rare held pairs.
+// The design is stream_walk.cuh's loop (TMA ring, compacted live rays,
+// four slot ranges a ray, the straight-line pair test with a cut, per-warp
+// slot release, the staged entry pass).  A ray's state -- best, its slot,
+// the K slots and their largest -- lives in shared memory and is updated
+// in place by the warp that tests the ray: the K slots' rule depends on
+// the order of the offers, and the chunk lists of a group's visits would
+// not fit beside the ring (512 x 4 x 8 x 8 B = 128 KiB).  A nearest walk
+// never decides a ray, so the live set is fixed for the whole walk.  With
+// N = 1 a block-wide group boundary separates any two visits of a ray, so
+// a visit's tasks are drawn from a counter by whichever warp is free; with
+// N = 4 they are dealt statically (warp w takes tasks w, w + 16, ...), so
+// a ray's visits of a group run in walk order in one lane group.  The ring
+// of N = 1 holds two slots (the chunk under test and the next one, the
+// only one the walk knows), so the next chunk's copy runs during a visit's
+// tests, and its group boundaries only reduce the bound (the live set
+// holds).  What keeps it exact:
 //   * the cuts.  An opaque pair matters only below the ray's best, a glass
 //     pair only below the largest of its K slots: both only fall, every
 //     update is strict <, and the chunk's glass list is offered nearest
@@ -64,12 +59,13 @@
 //     is anything behind it;
 //   * the order.  A range marks its slots that hold below their cut in one
 //     bit mask; only where a warp holds one (rare: a ray meets a surface
-//     a few times in hundreds of visits) do the ray's first lane gather
-//     its four masks and the warp retest the held slots in lane order
-//     (pair_test_warp again, so t is the same): opaque ones for the first
-//     lane of the minimum (strict <), glass ones inserted behind every
-//     entry <= t (a later lane sorts behind an equal t), and the chunk's
-//     nearest K are offered to the slots.
+//     in few of its visits; scripts/ring_wait_probe.py counts the cycles
+//     of this path) do the ray's first lane gather its four masks and the
+//     warp retest the held slots in lane order (pair_test_warp again, so t
+//     is the same): opaque ones for the first lane of the minimum (strict
+//     <), glass ones inserted behind every entry <= t (a later lane sorts
+//     behind an equal t), and the chunk's nearest K are offered to the
+//     slots.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
@@ -81,151 +77,18 @@ using namespace ntr;
 
 constexpr int KMAX = 8;          // transparent slots a ray can hold
 
-template <int D, bool SHARED>
-__global__ void __launch_bounds__(RB) nearest_t_kernel(
-    const float* __restrict__ oT, const float* __restrict__ dT,
-    const int* __restrict__ skip, const float* __restrict__ init_t,
-    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
-    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
-    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
-    const int* __restrict__ ids, const float* __restrict__ opa, int pr, int R,
-    int K, float* __restrict__ out_t, int* __restrict__ out_slot,
-    float* __restrict__ out_tt, int* __restrict__ out_tslot,
-    int* __restrict__ visits, float* __restrict__ emin_all) {
-  __shared__ float s_wmin[NW * 32];    // per-warp entry minima
-  __shared__ float s_red[NW];
-  __shared__ int s_cand[NCAND];
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int r = blk * RB + tid;
-  const float it = init_t[r];
-  if (!blive[blk]) {                   // every ray of the block is dead
-    out_t[r] = it;
-    out_slot[r] = -1;
-    for (int k = 0; k < K; ++k) {
-      out_tt[(size_t)k * R + r] = INFINITY;
-      out_tslot[(size_t)k * R + r] = -1;
-    }
-    if (tid == 0) visits[blk] = 0;
-    return;
-  }
-
-  float o[D], dv[D], inv[D];
-  load_ray<D>(oT, dT, R, r, o, dv, inv);
-  const int sk = skip[r];
-  float* emin = emin_all + (size_t)blk * n_eff;
-
-  // 1. min-over-rays slab entry of every chunk position
-  entry_minima<D>(o, dv, inv, klo_t, khi_t, ncp, n_eff, emin, s_wmin);
-
-  float best = it;
-  int best_id = -1;
-  float tt[KMAX];                      // the K slots; -inf beyond K
-  int ts[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    tt[i] = i < K ? INFINITY : -INFINITY;
-    ts[i] = -1;
-  }
-
-  auto bound = [&]() { return block_max(best, s_red); };
-  auto test = [&](int idx, const Chunk& ch) {
-    float cbest = INFINITY;
-    int carg = 0;
-    float ct[KMAX];                    // this chunk's nearest transparent
-    int cl[KMAX];                      // hits, ascending, and their lanes
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      ct[i] = INFINITY;
-      cl[i] = 0;
-    }
-    for (int l = 0; l < CK; ++l) {
-      float t;
-      const bool valid =
-          pair_test<D, SHARED>(ch.g, ch.c, l, o, dv, t) && (ch.id[l] != sk);
-      if (!valid) continue;
-      if (ch.opa[l] >= 1.f) {
-        if (t < cbest) {
-          cbest = t;
-          carg = l;
-        }
-      } else {
-        // insert behind every entry <= t; the last entry falls off
-        float x = t;
-        int xl = l;
-        bool moved = false;
-#pragma unroll
-        for (int i = 0; i < KMAX; ++i) {
-          if (moved || x < ct[i]) {
-            const float ft = ct[i];
-            const int fl = cl[i];
-            ct[i] = x;
-            cl[i] = xl;
-            x = ft;
-            xl = fl;
-            moved = true;
-          }
-        }
-      }
-    }
-    if (cbest < best) {
-      best = cbest;
-      best_id = idx * CK + carg;
-    }
-    // offer the chunk's K nearest to the slots, nearest first
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < K && ct[j] < INFINITY) {
-        float bmax = tt[0];
-        int barg = 0;
-#pragma unroll
-        for (int i = 1; i < KMAX; ++i) {
-          if (tt[i] > bmax) {          // strict: the first largest slot
-            bmax = tt[i];
-            barg = i;
-          }
-        }
-        if (ct[j] < bmax) {
-#pragma unroll
-          for (int i = 0; i < KMAX; ++i) {
-            if (i == barg) {
-              tt[i] = ct[j];
-              ts[i] = idx * CK + cl[j];
-            }
-          }
-        }
-      }
-    }
-  };
-
-  // 2. the walk: one candidate a step, the next one picked with the bound
-  // from before this visit
-  const int nvis = resident_walk<D, 1, true>(gt, ci, ids, opa, pr, order,
-                                             n_eff, emin, s_cand, bound, test);
-
-  out_t[r] = best;
-  out_slot[r] = best_id;
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (i < K) {
-      out_tt[(size_t)i * R + r] = tt[i];
-      out_tslot[(size_t)i * R + r] = ts[i];
-    }
-  }
-  if (tid == 0) visits[blk] = nvis;
-}
-
-// Blocks an SM of kernel 2.7: two (64 registers a thread) while the ring's
-// two slots fit beside the K slots' 32 KiB; at d = 8 they do not, so one
-// block holds its ring and the registers that two blocks would share.
+// Blocks an SM of kernels 2.3 and 2.7: two (64 registers a thread) while
+// the ring's two slots fit beside the K slots' 32 KiB; at d = 8 they do
+// not, so one block holds its ring and the registers that two blocks would
+// share.
 template <int D>
 __host__ __device__ constexpr int t_stream_blocks() {
   return D <= 7 ? STREAM_BLOCKS : 1;
 }
 
-// Kernel 2.7: the streaming K-slot walk (stream_walk.cuh).
-template <int D, bool SHARED>
+// Kernels 2.3 (N = 1) and 2.7 (N = NCAND): the streaming K-slot walk
+// (stream_walk.cuh) in groups of N candidates.
+template <int D, bool SHARED, int N>
 __global__ void __launch_bounds__(RB, t_stream_blocks<D>())
     nearest_t_stream_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
@@ -278,11 +141,28 @@ __global__ void __launch_bounds__(RB, t_stream_blocks<D>())
   const int g = lane / SQ, q = lane % SQ;
   const int r0 = blk * RB;
 
+  // a warp's next task of a visit: in groups of one, drawn from the
+  // visit's counter (a block-wide boundary separates any two visits of a
+  // ray, so whichever warp takes its task updates its state in walk
+  // order); in groups of NCAND, dealt statically (warp, warp + NW, ...: the
+  // live set is fixed, so a ray's visits of a group run in walk order in
+  // one lane group)
+  auto take = [&](int* next, int prev) {
+    if constexpr (N > 1) {
+      return prev < 0 ? warp : prev + NW;
+    } else {
+      int task = 0;
+      if (lane == 0) task = atomicAdd(next, 1);
+      return __shfl_sync(FULL, task, 0);
+    }
+  };
+
   // one visit, one warp: tasks of PER_TASK listed rays, range q each
-  // (lanes q, q + 4, ...), the tasks warp, warp + NW, ...
-  auto test = [&](const Chunk& ch, int idx, int n_live, int*, int) {
+  // (lanes q, q + 4, ...)
+  auto test = [&](const Chunk& ch, int idx, int n_live, int* next, int) {
     const int n_task = (n_live + PER_TASK - 1) / PER_TASK;
-    for (int task = warp; task < n_task; task += NW) {
+    for (int task = take(next, -1); task < n_task;
+         task = take(next, task)) {
       // cb: best, cg: the largest K slot, both as the visit starts
       float ro[RPT][D], rd[RPT][D], cb[RPT], cg[RPT];
       int rr[RPT], rsk[RPT];
@@ -441,7 +321,7 @@ __global__ void __launch_bounds__(RB, t_stream_blocks<D>())
   // is live (glass is collected whatever the ray's best)
   auto state = [&] { return RayState{s_best[tid], can_hit}; };
 
-  const int nvis = stream_walk<D, true>(
+  const int nvis = stream_walk<D, true, N>(
       o, dv, inv, klo_t, khi_t, ncp, gt, ci, ids, opa, pr, order, n_eff,
       emin, n_slots, s_list, state, test, [] {});
   out_t[r] = s_best[tid];
@@ -453,20 +333,7 @@ __global__ void __launch_bounds__(RB, t_stream_blocks<D>())
   if (tid == 0) visits[blk] = nvis;
 }
 
-template <int D, bool SHARED>
-int launch(int grid, cudaStream_t s, const float* oT, const float* dT,
-           const int* skip, const float* init_t, const int* order, int n_eff,
-           const int* blive, const float* klo_t, const float* khi_t, int ncp,
-           const float* gt, const float* ci, const int* ids, const float* opa,
-           int pr, int R, int K, float* out_t, int* out_slot, float* out_tt,
-           int* out_tslot, int* visits, float* emin) {
-  nearest_t_kernel<D, SHARED><<<grid, RB, 0, s>>>(
-      oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci,
-      ids, opa, pr, R, K, out_t, out_slot, out_tt, out_tslot, visits, emin);
-  return (int)cudaGetLastError();
-}
-
-template <int D, bool SHARED>
+template <int D, bool SHARED, int N>
 int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
                   const int* skip, const float* init_t, const int* order,
                   int n_eff, const int* blive, const float* klo_t,
@@ -474,9 +341,10 @@ int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
                   const float* ci, const int* ids, const float* opa, int pr,
                   int R, int K, float* out_t, int* out_slot, float* out_tt,
                   int* out_tslot, int* visits, float* emin) {
-  auto kernel = nearest_t_stream_kernel<D, SHARED>;
+  auto kernel = nearest_t_stream_kernel<D, SHARED, N>;
   int n_slots = 0, smem = 0;
-  const cudaError_t err = stream_ring_config<D, true>(kernel, &n_slots, &smem);
+  const cudaError_t err =
+      stream_ring_config<D, true, N>(kernel, &n_slots, &smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, RB, smem, s>>>(oT, dT, skip, init_t, order, n_eff, blive,
                                 klo_t, khi_t, ncp, gt, ci, ids, opa, pr, R, K,
@@ -485,7 +353,7 @@ int launch_stream(int grid, cudaStream_t s, const float* oT, const float* dT,
   return (int)cudaGetLastError();
 }
 
-template <bool STREAM>
+template <int N>
 int launch_d(const float* oT, const float* dT, const int* skip,
              const float* init_t, const int* order, int n_eff,
              const int* blive, const float* klo_t, const float* khi_t,
@@ -497,17 +365,14 @@ int launch_d(const float* oT, const float* dT, const int* skip,
   if (R % RB || grid == 0 || K < 1 || K > KMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define NTR_LAUNCH(FN, DD, SH)                                               \
-  FN<DD, SH>(grid, s, oT, dT, skip, init_t, order, n_eff, blive, klo_t,      \
-             khi_t, ncp, gt, ci, ids, opa, pr, R, K, out_t, out_slot,        \
-             out_tt, out_tslot, visits, emin)
+#define NTR_LAUNCH(DD, SH)                                                   \
+  launch_stream<DD, SH, N>(grid, s, oT, dT, skip, init_t, order, n_eff,      \
+                           blive, klo_t, khi_t, ncp, gt, ci, ids, opa, pr,   \
+                           R, K, out_t, out_slot, out_tt, out_tslot, visits, \
+                           emin)
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    if (STREAM)                                                              \
-      return shared ? NTR_LAUNCH(launch_stream, DD, true)                    \
-                    : NTR_LAUNCH(launch_stream, DD, false);                  \
-    return shared ? NTR_LAUNCH(launch, DD, true)                             \
-                  : NTR_LAUNCH(launch, DD, false);
+    return shared ? NTR_LAUNCH(DD, true) : NTR_LAUNCH(DD, false);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(4)
@@ -522,52 +387,16 @@ int launch_d(const float* oT, const float* dT, const int* skip,
 #undef NTR_LAUNCH
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch the transparent walk on `stream`.  Arguments as ntr_nearest_hit,
-// plus opa (nc, 8, 128) f32 (row 0 = the slots' opacities) and K in 1..8;
-// out_tt / out_tslot are (K, R), lane-major.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a K the kernel cannot hold.
-int ntr_nearest_t(const float* oT, const float* dT, const int* skip,
-                  const float* init_t, const int* order, int n_eff,
-                  const int* blive, const float* klo_t, const float* khi_t,
-                  int ncp, const float* gt, const float* ci, const int* ids,
-                  const float* opa, int pr, int R, int d, int shared, int K,
-                  float* out_t, int* out_slot, float* out_tt, int* out_tslot,
-                  int* visits, float* emin, void* stream) {
-  return launch_d<false>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
-                         out_t, out_slot, out_tt, out_tslot, visits, emin,
-                         stream);
-}
-
-// The streaming walk (kernel 2.7, groups of four): arguments and outputs as
-// ntr_nearest_t; gt, ci, ids and opa must be 16-byte aligned.
-int ntr_nearest_t_hbm(const float* oT, const float* dT, const int* skip,
-                      const float* init_t, const int* order, int n_eff,
-                      const int* blive, const float* klo_t,
-                      const float* khi_t, int ncp, const float* gt,
-                      const float* ci, const int* ids, const float* opa,
-                      int pr, int R, int d, int shared, int K, float* out_t,
-                      int* out_slot, float* out_tt, int* out_tslot,
-                      int* visits, float* emin, void* stream) {
-  return launch_d<true>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
-                        khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
-                        out_t, out_slot, out_tt, out_tslot, visits, emin,
-                        stream);
-}
-
-// Kernel 2.7 at dimension d (shared: the primary rays' variant) as it
-// launches: info as ntr_nearest_hit_hbm_info.
-int ntr_nearest_t_hbm_info(int d, int shared, int* info) {
+// The walk in groups of N at dimension d (shared: the primary rays'
+// variant) as it launches: info as ntr_nearest_hit_hbm_info.
+template <int N>
+int info_d(int d, int shared, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
-    return (int)(shared ? stream_kernel_info<DD, true>(                      \
-                              nearest_t_stream_kernel<DD, true>, info)       \
-                        : stream_kernel_info<DD, true>(                      \
-                              nearest_t_stream_kernel<DD, false>, info));
+    return (int)(shared ? stream_kernel_info<DD, true, N>(                   \
+                              nearest_t_stream_kernel<DD, true, N>, info)    \
+                        : stream_kernel_info<DD, true, N>(                   \
+                              nearest_t_stream_kernel<DD, false, N>, info));
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(4)
@@ -579,6 +408,55 @@ int ntr_nearest_t_hbm_info(int d, int shared, int* info) {
       return (int)cudaErrorInvalidValue;
   }
 #undef NTR_CASE
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the transparent walk (kernel 2.3, one candidate a step) on
+// `stream`.  Arguments as ntr_nearest_hit, plus opa (nc, 8, 128) f32 (row
+// 0 = the slots' opacities; 16-byte aligned like gt, ci and ids) and K in
+// 1..8; out_tt / out_tslot are (K, R), lane-major.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a K the
+// kernel cannot hold.
+int ntr_nearest_t(const float* oT, const float* dT, const int* skip,
+                  const float* init_t, const int* order, int n_eff,
+                  const int* blive, const float* klo_t, const float* khi_t,
+                  int ncp, const float* gt, const float* ci, const int* ids,
+                  const float* opa, int pr, int R, int d, int shared, int K,
+                  float* out_t, int* out_slot, float* out_tt, int* out_tslot,
+                  int* visits, float* emin, void* stream) {
+  return launch_d<1>(oT, dT, skip, init_t, order, n_eff, blive, klo_t, khi_t,
+                     ncp, gt, ci, ids, opa, pr, R, d, shared, K, out_t,
+                     out_slot, out_tt, out_tslot, visits, emin, stream);
+}
+
+// The walk for a pool over the line (kernel 2.7, groups of four):
+// arguments and outputs as ntr_nearest_t.
+int ntr_nearest_t_hbm(const float* oT, const float* dT, const int* skip,
+                      const float* init_t, const int* order, int n_eff,
+                      const int* blive, const float* klo_t,
+                      const float* khi_t, int ncp, const float* gt,
+                      const float* ci, const int* ids, const float* opa,
+                      int pr, int R, int d, int shared, int K, float* out_t,
+                      int* out_slot, float* out_tt, int* out_tslot,
+                      int* visits, float* emin, void* stream) {
+  return launch_d<NCAND>(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, shared, K,
+                         out_t, out_slot, out_tt, out_tslot, visits, emin,
+                         stream);
+}
+
+// Kernel 2.3 at dimension d (shared: the primary rays' variant) as it
+// launches: info as ntr_nearest_hit_hbm_info.
+int ntr_nearest_t_info(int d, int shared, int* info) {
+  return info_d<1>(d, shared, info);
+}
+
+// Kernel 2.7 likewise.
+int ntr_nearest_t_hbm_info(int d, int shared, int* info) {
+  return info_d<NCAND>(d, shared, info);
 }
 
 }  // extern "C"

@@ -1,49 +1,45 @@
 // Any-hit occlusion walk over a chunked triangle pool, for Hopper (sm_90a):
 // is there an opaque hit with 0 < t < ldist along each shadow ray?
 //
-// Replaces the TPU kernel ntracer_tpu/engine/resident_kernels.py `occluded`
-// (pallas_call body `_occlusion_kernel` -> `_occlusion_walk`, candidate scan
-// `_candidate_walk`).  Its plain PyTorch twin is `occluded_ref` in
-// ntracer_tpu_torch/engine/resident_kernels.py; the two agree on `blocked`
-// and on `visits`, ray for ray and block for block.
+// Replaces two TPU kernels of ntracer_tpu/engine/resident_kernels.py with
+// one body, `occluded_stream_kernel`: `occluded` (kernel 2.2, pallas_call
+// body `_occlusion_kernel` -> `_occlusion_walk`, candidate scan
+// `_candidate_walk`), the walk of pools under the line, and `occluded_hbm`
+// (kernel 2.6, body `_occl_hbm_kernel` -> `_occl_hbm_live`), the walk of
+// pools over it (resident_kernels.STREAM_POOL_BYTES).  Both C entries
+// launch the body; the plain PyTorch twins are `occluded_ref` and
+// `occluded_hbm_ref` in ntracer_tpu_torch/engine/resident_kernels.py, and
+// kernel and twins agree on `blocked` and on `visits`, ray for ray and
+// block for block.
 //
-// What it computes.  One CUDA block walks one 512-ray block, one thread per
-// ray; a ray with ldist <= 0 is inactive.  A block without an active ray
-// writes blocked = 0, visits = 0 and returns.  Otherwise every thread takes
-// its slab entry into every chunk's box and the block keeps the minimum per
-// chunk position (`emin`, global scratch), as the nearest-hit walk does.
-// The walk's bound is the largest ldist among the block's rays that are not
-// blocked yet; it picks the next four positions with emin below the bound,
-// with the bound from before the previous group's updates (the TPU kernel's
-// default grouping, so visit counts stay comparable), and visits them.  A
-// visit stages the chunk in shared memory; a thread whose ray is still
-// undecided tests it against the 128 slots and stops at the first valid hit
-// with t < ldist.  `blocked` is a monotone OR over visits: any superset of
-// the necessary chunks gives the same answer, so the grouping changes
-// `visits` only.
+// What it computes.  One CUDA block walks one 512-ray block; a ray with
+// ldist <= 0 is inactive.  A block without an active ray writes blocked =
+// 0, visits = 0 and returns.  Otherwise every ray's slab entry into every
+// chunk's box is taken and the block keeps the minimum per chunk position
+// (`emin`, global scratch), as the nearest-hit walk does.  The walk's bound
+// is the largest ldist among the block's rays that are not blocked yet; it
+// picks the next four positions with emin below the bound, with the bound
+// from before the previous group's updates (the TPU kernel's grouped rule,
+// so visit counts are the twin's), and visits them: each undecided ray is
+// tested against the chunk's 128 slots until a valid hit with t < ldist.
+// `blocked` is a monotone OR over visits, so the order in which a visit's
+// rays are tested changes nothing.
 //
-// What bounds it.  Pair-test arithmetic, like the nearest-hit walk: a visit
-// is up to 512 x 128 tests of 2*d*d multiply-adds (shadow rays have their
-// own origins, so the origin dots are not shared) and one IEEE division.
-// The pool (20 KB a chunk at d = 6) sits in L2.  The design spends nothing
-// on decided rays (blocked or inactive threads skip the slot loop, and a
-// blocked ray lowers the block's bound), exits a slot loop at the first
-// hit, and skips dead blocks at the cost of one load per ray.
-//
-// STREAM: kernel 2.6, which replaces `occluded_hbm` (pallas_call body
-// `_occl_hbm_kernel` -> `_occl_hbm_live`) for pools over the line: the same
-// walk, `blocked` and visits, with each visited chunk copied into a ring of
-// shared-memory slots while the previous group is tested.  Its body is
-// `occluded_stream_kernel`, on stream_walk.cuh's loop: the undecided rays
-// of a group are compacted, each ray's 128 slots are split into four
-// ranges of 32 on neighbouring lanes (any-hit is order-free: the ranges'
-// hits are ORed with two shuffles), a lane holds rays_a_lane<D>() rays so
-// one shared load serves several tests, the pair test is one straight line
-// with warp-uniform skips (pair_test_warp), a visit's tasks are drawn by
-// whichever warp is free, slots are released per warp through mbarriers,
-// two blocks share an SM, and the entry pass stages the chunk boxes in
-// shared memory.  What bounds it is the same pair-test arithmetic, on the
-// undecided rays only.
+// What bounds it.  Pair-test arithmetic: a visit is up to 512 x 128 tests
+// of 2*d*d multiply-adds (shadow rays have their own origins, so the
+// origin dots are not shared) and one IEEE division.  A pool under the
+// line (20 KB a chunk at d = 6) sits in L2.  The design is stream_walk.cuh's
+// loop, and spends nothing on decided rays: each visited chunk is copied
+// into a ring of shared-memory slots by TMA while the previous one is
+// tested, the undecided rays of a group are compacted, each ray's 128
+// slots are split into four ranges of 32 on neighbouring lanes (any-hit is
+// order-free: the ranges' hits are ORed with two shuffles), a lane holds
+// rays_a_lane<D>() rays so one shared load serves several tests, the pair
+// test is one straight line with warp-uniform skips (pair_test_warp), a
+// visit's tasks are drawn by whichever warp is free, slots are released
+// per warp through mbarriers, two blocks share an SM, the entry pass
+// stages the chunk boxes in shared memory, and a dead block costs one load
+// per ray.
 //
 // Build: nvcc --fmad=false, IEEE division (see engine/_build.py).
 
@@ -53,66 +49,7 @@ namespace {
 
 using namespace ntr;
 
-template <int D>
-__global__ void __launch_bounds__(RB) occluded_kernel(
-    const float* __restrict__ oT, const float* __restrict__ dT,
-    const int* __restrict__ skip, const float* __restrict__ ldist,
-    const int* __restrict__ order, int n_eff, const int* __restrict__ blive,
-    const float* __restrict__ klo_t, const float* __restrict__ khi_t,
-    int ncp, const float* __restrict__ gt, const float* __restrict__ ci,
-    const int* __restrict__ ids, int pr, int R,
-    unsigned char* __restrict__ out_blocked, int* __restrict__ visits,
-    float* __restrict__ emin_all) {
-  __shared__ float s_wmin[NW * 32];    // per-warp entry minima
-  __shared__ float s_red[NW];
-  __shared__ int s_cand[NCAND];
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int r = blk * RB + tid;
-  if (!blive[blk]) {                   // no ray of the block is active
-    out_blocked[r] = 0;
-    if (tid == 0) visits[blk] = 0;
-    return;
-  }
-
-  float o[D], dv[D], inv[D];
-  load_ray<D>(oT, dT, R, r, o, dv, inv);
-  const int sk = skip[r];
-  const float ld = ldist[r];
-  float* emin = emin_all + (size_t)blk * n_eff;
-
-  // 1. min-over-rays slab entry of every chunk position
-  entry_minima<D>(o, dv, inv, klo_t, khi_t, ncp, n_eff, emin, s_wmin);
-
-  bool blocked = false;
-
-  // largest ldist among the block's rays that are not blocked yet
-  auto lmax = [&]() -> float { return block_max(blocked ? 0.f : ld, s_red); };
-
-  auto test = [&](int, const Chunk& ch) {
-    // no t < ld can hold for ld <= 0 (valid needs t > 0) or NaN
-    if (!blocked && ld > 0.f) {
-      for (int l = 0; l < CK; ++l) {
-        float t;
-        if (pair_test<D, false>(ch.g, ch.c, l, o, dv, t) &&
-            (ch.id[l] != sk) && (t < ld)) {
-          blocked = true;
-          break;
-        }
-      }
-    }
-  };
-
-  // 2. the walk
-  const int nvis = resident_walk<D, NCAND, false>(
-      gt, ci, ids, nullptr, pr, order, n_eff, emin, s_cand, lmax, test);
-
-  out_blocked[r] = blocked ? 1 : 0;
-  if (tid == 0) visits[blk] = nvis;
-}
-
-// Kernel 2.6: the streaming occlusion walk (stream_walk.cuh).
+// Kernels 2.2 and 2.6: the streaming occlusion walk (stream_walk.cuh).
 template <int D>
 __global__ void __launch_bounds__(RB, STREAM_BLOCKS) occluded_stream_kernel(
     const float* __restrict__ oT, const float* __restrict__ dT,
@@ -212,35 +149,6 @@ __global__ void __launch_bounds__(RB, STREAM_BLOCKS) occluded_stream_kernel(
   if (tid == 0) visits[blk] = nvis;
 }
 
-int launch_d(const float* oT, const float* dT, const int* skip,
-             const float* ldist, const int* order, int n_eff,
-             const int* blive, const float* klo_t, const float* khi_t,
-             int ncp, const float* gt, const float* ci, const int* ids,
-             int pr, int R, int d, unsigned char* blocked, int* visits,
-             float* emin, void* stream) {
-  const int grid = R / RB;
-  if (R % RB || grid == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NTR_CASE(DD)                                                         \
-  case DD:                                                                   \
-    occluded_kernel<DD><<<grid, RB, 0, s>>>(                                 \
-        oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t, ncp, gt, ci, \
-        ids, pr, R, blocked, visits, emin);                                  \
-    break;
-  switch (d) {
-    NTR_CASE(3)
-    NTR_CASE(4)
-    NTR_CASE(5)
-    NTR_CASE(6)
-    NTR_CASE(7)
-    NTR_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NTR_CASE
-  return (int)cudaGetLastError();
-}
-
 int launch_stream_d(const float* oT, const float* dT, const int* skip,
                     const float* ldist, const int* order, int n_eff,
                     const int* blive, const float* klo_t, const float* khi_t,
@@ -280,23 +188,25 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
 
 extern "C" {
 
-// Launch the occlusion walk on `stream`.  Rays are lane-major (d, R) with
-// 3 <= d <= 8 and R a multiple of 512; ldist (R,), <= 0 for inactive rays;
-// gt (nc, pr, 128), ci (nc, 8, 128), ids (nc, 8, 128) i32; klo_t/khi_t
-// (8, ncp) in visit order; blocked (R,) bytes (0 or 1); emin scratch holds
-// (R / 512) * n_eff floats.  Returns cudaGetLastError() after the launch.
+// Launch the occlusion walk (kernel 2.2) on `stream`.  Rays are lane-major
+// (d, R) with 3 <= d <= 8 and R a multiple of 512; ldist (R,), <= 0 for
+// inactive rays; gt (nc, pr, 128), ci (nc, 8, 128), ids (nc, 8, 128) i32,
+// all 16-byte aligned; klo_t/khi_t (8, ncp) in visit order; blocked (R,)
+// bytes (0 or 1); emin scratch holds (R / 512) * n_eff floats.  Returns
+// cudaGetLastError() after the launch.
 int ntr_occluded(const float* oT, const float* dT, const int* skip,
                  const float* ldist, const int* order, int n_eff,
                  const int* blive, const float* klo_t, const float* khi_t,
                  int ncp, const float* gt, const float* ci, const int* ids,
                  int pr, int R, int d, unsigned char* blocked, int* visits,
                  float* emin, void* stream) {
-  return launch_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t, khi_t,
-                  ncp, gt, ci, ids, pr, R, d, blocked, visits, emin, stream);
+  return launch_stream_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
+                         khi_t, ncp, gt, ci, ids, pr, R, d, blocked, visits,
+                         emin, stream);
 }
 
-// The streaming walk (kernel 2.6): arguments and outputs as ntr_occluded;
-// gt, ci and ids must be 16-byte aligned.
+// The same walk for a pool over the line (kernel 2.6): arguments and
+// outputs as ntr_occluded.
 int ntr_occluded_hbm(const float* oT, const float* dT, const int* skip,
                      const float* ldist, const int* order, int n_eff,
                      const int* blive, const float* klo_t, const float* khi_t,
@@ -309,9 +219,9 @@ int ntr_occluded_hbm(const float* oT, const float* dT, const int* skip,
                          emin, stream);
 }
 
-// Kernel 2.6 at dimension d as it launches: info[0..4] = registers a
-// thread, local (spill) bytes a thread, blocks per SM, ring slots, shared
-// bytes a block.
+// Kernels 2.2 and 2.6 at dimension d as they launch: info[0..4] =
+// registers a thread, local (spill) bytes a thread, blocks per SM, ring
+// slots, shared bytes a block.
 int ntr_occluded_hbm_info(int d, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \

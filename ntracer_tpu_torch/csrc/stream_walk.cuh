@@ -1,9 +1,9 @@
-// The streaming walks' loop for Hopper, shared by the STREAM variants of
-// the four walk sources: kernels 2.5 (nearest_hit.cu), 2.6 (occluded.cu),
-// 2.7 (nearest_hit_transparent.cu) and 2.8 (occluded_transparent.cu, whose
-// body kernel 2.4 launches too, on pools under the line).  The resident
-// walks 2.1-2.3 keep pair_test.cuh's loop; this one visits exactly what
-// they visit, and spends its work on the rays that are still live.
+// The chunk walks' loop for Hopper, shared by the four walk sources:
+// kernels 2.1 and 2.5 (nearest_hit.cu, one body), 2.2 and 2.6
+// (occluded.cu, one body), 2.3 and 2.7 (nearest_hit_transparent.cu, one
+// body in groups of one and of four) and 2.4 and 2.8
+// (occluded_transparent.cu, one body).  It visits exactly what the TPU
+// kernels visit, and spends its work on the rays that are still live.
 //
 // One CUDA block of 512 threads serves one 512-ray block; thread r owns ray
 // r for the entry pass, the bound and the outputs.  A visit's work is dealt
@@ -28,17 +28,20 @@
 //     a "full" mbarrier (the TMA copies' bytes) and an "empty" one that
 //     every warp arrives on after its tests.  The elected producer (thread
 //     0) waits on "empty" before it refills a slot.  A visit's tasks are a
-//     counter that every warp draws from until they run out (2.5, 2.6,
-//     2.8), or are dealt statically, warp w taking tasks w, w + NW, ...
-//     (2.7: a ray's visits then run in walk order in one lane group).  The
-//     walk's only block-wide syncs are the three of each group boundary.
+//     counter that every warp draws from until they run out (2.1-2.6, 2.8,
+//     and 2.3, whose groups of one put a block-wide boundary between any
+//     two visits of a ray), or are dealt statically, warp w taking tasks
+//     w, w + NW, ... (2.7: a ray's visits of a group then run in walk
+//     order in one lane group).  The walk's only block-wide syncs are the
+//     three of each group boundary (two in groups of one, whose live set
+//     holds).
 //   * Results that need walk order across visits wait for the group
 //     boundary (`fold`) or are kept in visit order by the static deal.
 //
-// The visit set is the resident walk's: the block's entry minima over all
-// 512 rays, groups of NCAND candidates, each next group picked with the
-// bound from before this group's tests (NaN-propagating), chunk q of the
-// visit order in ring slot q % S.
+// The visit set is the TPU kernels': the block's entry minima over all
+// 512 rays, groups of N candidates (NCAND = 4, or 1 for 2.3), each next
+// group picked with the bound from before this group's tests
+// (NaN-propagating), chunk q of the visit order in ring slot q % S.
 
 #pragma once
 
@@ -89,7 +92,8 @@ __device__ __forceinline__ float slab_entry_clean(
 // EW positions for its ray, then a transpose-min over the warp (8 + 4 + 2 +
 // 1 + 1 shuffles) leaves lanes 2p and 2p + 1 the warp's minimum of
 // position p, and one block step takes the minimum over warps.  fminf is
-// exact and order-free, so `emin` equals entry_minima's bit for bit.  A
+// exact and order-free (slab_entry is never NaN), so `emin` equals the
+// twin's `_entry_minima` bit for bit.  A
 // warp whose rays are all clean (slab_entry_clean) takes the short form,
 // and a batch runs only the rounds that hold a position below n_eff (a
 // pool of 27 chunks: two of eight).
@@ -155,8 +159,8 @@ __device__ __forceinline__ void entry_minima_t(
   }
 }
 
-// The next N positions >= k0 with emin < bound, ascending, SENT fills: the
-// calling warp's lanes all get the list (find_cands without its syncs).
+// The next N positions >= k0 with emin < bound, ascending, SENT fills (the
+// twin's `_find_cands`): the calling warp's lanes all get the list.
 template <int N>
 __device__ __forceinline__ void warp_cands(int k0, float bound, int n_eff,
                                            const float* __restrict__ emin,
@@ -185,12 +189,12 @@ __device__ __forceinline__ void warp_cands(int k0, float bound, int n_eff,
 // registers a thread, and the walks spill there.
 constexpr int STREAM_BLOCKS = 2;
 
-// Ring depth, dynamic shared memory and carveout of a streaming kernel: as
-// many slots (at most RING_MAX) as let STREAM_BLOCKS blocks share an SM
-// beside the kernel's static shared memory; where that leaves fewer than
-// two slots (2.7 at d = 8, whose K slots take 32 KiB), one block an SM and
-// its ring.
-template <int D, bool OPA, class Kernel>
+// Ring depth, dynamic shared memory and carveout of a streaming kernel
+// whose walk takes groups of N: as many slots (at most ring_max(N)) as let
+// STREAM_BLOCKS blocks share an SM beside the kernel's static shared
+// memory; where that leaves fewer than two slots (2.3 and 2.7 at d = 8,
+// whose K slots take 32 KiB), one block an SM and its ring.
+template <int D, bool OPA, int N = NCAND, class Kernel>
 cudaError_t stream_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
   int dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -209,7 +213,7 @@ cudaError_t stream_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
     blocks = 1;
     s = (per_sm - fixed) / slot;
   }
-  if (s > RING_MAX) s = RING_MAX;
+  if (s > ring_max(N)) s = ring_max(N);
   if (s < 2) return cudaErrorInvalidConfiguration;
   *n_slots = s;
   *smem_bytes = s * slot;
@@ -226,10 +230,10 @@ cudaError_t stream_ring_config(Kernel kernel, int* n_slots, int* smem_bytes) {
 
 // Registers, local (spill) bytes a thread, blocks per SM, ring slots and
 // shared bytes a block of a streaming kernel, as it launches.
-template <int D, bool OPA, class Kernel>
+template <int D, bool OPA, int N = NCAND, class Kernel>
 cudaError_t stream_kernel_info(Kernel kernel, int* info) {
   int n_slots = 0, smem = 0;
-  cudaError_t err = stream_ring_config<D, OPA>(kernel, &n_slots, &smem);
+  cudaError_t err = stream_ring_config<D, OPA, N>(kernel, &n_slots, &smem);
   cudaFuncAttributes fa;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
   int blocks = 0;
@@ -272,10 +276,18 @@ struct RayState {
 //     landed; `s_list[0, n_live)` are the rays live at the group's
 //     boundary, and `*next` is the visit's task counter (0 when the slot
 //     was filled).
-// The `n_slots` ring slots of slot_floats<D, OPA>() floats each are the
+// Groups of N candidates: NCAND, the TPU kernels' grouped rule, or 1, the
+// rule of the TPU kernel `nearest_hit_transparent` (`_nearest_t_live`):
+// visit k + 1 is picked at the boundary before visit k, with the bound
+// after visit k - 1.  A walk in groups of one must keep its live set (2.3:
+// every ray that can hit): after the first boundary, which compacts it,
+// a boundary only reduces the bound, and every warp picks the next visit
+// itself (two block syncs, not three).  The `n_slots` (at most
+// ring_max(N)) ring slots of slot_floats<D, OPA>() floats each are the
 // dynamic shared memory, and hold the entry pass's scratch before the walk
 // starts.  Returns the number of visits.
-template <int D, bool OPA, class State, class Test, class Fold>
+template <int D, bool OPA, int N = NCAND, class State, class Test,
+          class Fold>
 __device__ __forceinline__ int stream_walk(
     const float (&o)[D], const float (&dv)[D], const float (&inv)[D],
     const float* __restrict__ klo_t, const float* __restrict__ khi_t, int ncp,
@@ -284,12 +296,12 @@ __device__ __forceinline__ int stream_walk(
     const int* __restrict__ order, int n_eff, float* __restrict__ emin,
     int n_slots, int* s_list, State state, Test test, Fold fold) {
   extern __shared__ __align__(128) float s_ring[];
-  __shared__ uint64_t s_full[RING_MAX];
-  __shared__ uint64_t s_empty[RING_MAX];
+  __shared__ uint64_t s_full[ring_max(N)];
+  __shared__ uint64_t s_empty[ring_max(N)];
   __shared__ float s_wmax[NW];
   __shared__ int s_wcnt[NW];
-  __shared__ int s_cand[2 * NCAND];
-  __shared__ int s_next[RING_MAX];     // next task of each slot's visit
+  __shared__ int s_cand[2 * N];
+  __shared__ int s_next[ring_max(N)];  // next task of each slot's visit
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   static_assert(2 * slot_floats<D, OPA>() >= (NW + 2 * D) * EB,
                 "the entry pass's scratch fits in two ring slots");
@@ -303,7 +315,7 @@ __device__ __forceinline__ int stream_walk(
   }
   mbar_fence_init();
 
-  int cur[NCAND], nxt[NCAND];
+  int cur[N], nxt[N];
   int n_cur = 0, n_nxt = 0, n_live = 0;
   int base = 0;                        // visit number of cur[0]
   int q_fill = 0;                      // chunks whose copies are started
@@ -321,6 +333,24 @@ __device__ __forceinline__ int stream_walk(
 #pragma unroll
     for (int off = 16; off; off >>= 1)
       v = nan_max(v, __shfl_xor_sync(FULL, v, off));
+    if (N == 1 && !first) {
+      // groups of one: the list holds, and every warp picks the next
+      // visit (s_wmax is written again only after the next boundary's
+      // first sync, when every warp has read it)
+      if (lane == 0) s_wmax[warp] = v;
+      __syncthreads();
+      float bound = s_wmax[0];
+      for (int w = 1; w < NW; ++w) bound = nan_max(bound, s_wmax[w]);
+      const int kn = cur[N - 1] == SENT ? n_eff : cur[N - 1] + 1;
+      warp_cands<N>(kn, bound, n_eff, emin, nxt);
+      n_cur = n_nxt = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        n_cur += cur[j] != SENT;
+        n_nxt += nxt[j] != SENT;
+      }
+      return;
+    }
     const unsigned bal = __ballot_sync(FULL, st.live);
     if (lane == 0) {
       s_wmax[warp] = v;
@@ -338,25 +368,25 @@ __device__ __forceinline__ int stream_walk(
     if (warp == 0) {
       float bound = s_wmax[0];
       for (int w = 1; w < NW; ++w) bound = nan_max(bound, s_wmax[w]);
-      if (first) warp_cands<NCAND>(0, bound, n_eff, emin, cur);
-      const int kn = cur[NCAND - 1] == SENT ? n_eff : cur[NCAND - 1] + 1;
+      if (first) warp_cands<N>(0, bound, n_eff, emin, cur);
+      const int kn = cur[N - 1] == SENT ? n_eff : cur[N - 1] + 1;
       // the next group, with the bound from before this group's tests
-      warp_cands<NCAND>(kn, bound, n_eff, emin, nxt);
-      if (lane < NCAND) {
+      warp_cands<N>(kn, bound, n_eff, emin, nxt);
+      if (lane < N) {
 #pragma unroll
-        for (int j = 0; j < NCAND; ++j)
+        for (int j = 0; j < N; ++j)
           if (j == lane) {
             s_cand[j] = cur[j];
-            s_cand[NCAND + j] = nxt[j];
+            s_cand[N + j] = nxt[j];
           }
       }
     }
     __syncthreads();
     n_cur = n_nxt = 0;
 #pragma unroll
-    for (int j = 0; j < NCAND; ++j) {
+    for (int j = 0; j < N; ++j) {
       cur[j] = s_cand[j];
-      nxt[j] = s_cand[NCAND + j];
+      nxt[j] = s_cand[N + j];
       n_cur += cur[j] != SENT;
       n_nxt += nxt[j] != SENT;
     }
@@ -392,7 +422,7 @@ __device__ __forceinline__ int stream_walk(
     }
     base += n_cur;
 #pragma unroll
-    for (int j = 0; j < NCAND; ++j) cur[j] = nxt[j];
+    for (int j = 0; j < N; ++j) cur[j] = nxt[j];
     n_cur = n_nxt;
     n_nxt = 0;
     if (!n_cur) break;
@@ -404,16 +434,17 @@ __device__ __forceinline__ int stream_walk(
 }
 
 // The pair test of RPT rays against slot l of a chunk, for every lane of a
-// warp at once: the Hopper form of pair_test (pair_test.cuh) that every
-// streaming walk uses.  `go[c]` comes in true where ray c still wants this
-// slot (live, slot id != its skip id) and leaves true where the slot is a
-// valid hit with 0 < t < cut[c], t[c] its distance: the outcome of
-// pair_test && t < cut, and pair_test's t, with every value that decides
-// them rounded as pair_test rounds it.  SHARED: the offset rows carry the
-// origin dots (primary rays), and `o` is not read.
+// warp at once (tracer.hpp:411-440), that every chunk walk uses: the twin's
+// `_chunk_hits_vals` (resident_kernels.py), whose plane dots accumulate
+// coordinate by coordinate.  `go[c]` comes in true where ray c still wants
+// this slot (live, slot id != its skip id) and leaves true where the slot
+// is a valid hit with 0 < t < cut[c], t[c] its distance: the twin's valid
+// && t < cut, and the twin's t, with every value that decides them rounded
+// as the twin rounds it.  SHARED: the offset rows carry the origin dots
+// (primary rays), and `o` is not read.
 //   * PRE: the numerator (SHARED: the row value s_c[l] itself; else
-//     c - o.n) and `dn` must be nonzero, of one sign and not NaN for
-//     pair_test's (dn != 0) && (t > 0): a zero dn fails the first, and a
+//     c - o.n) and `dn` must be nonzero, of one sign and not NaN for the
+//     twin's (dn != 0) && (t > 0): a zero dn fails the first, and a
 //     zero numerator, a NaN or opposite signs give t = +-0, NaN or t < 0.
 //     A warp none of whose rays passes that pre-test skips the division
 //     and the edges.  Without PRE only dn != 0 is tested and the warp
@@ -424,7 +455,7 @@ __device__ __forceinline__ int stream_walk(
 //     it: edge 1 alone rejects nearly every pair whose t is in range.
 //   * Sums start at their first product, not at +0: the two differ only in
 //     the sign of a zero sum.  A zero numerator gives t = +-0 and a zero
-//     `dn` fails either way, so t is pair_test's wherever it can hold
+//     `dn` fails either way, so t is the twin's wherever it can hold
 //     (SHARED sums no numerator at all); a zero edge dot changes only the
 //     sign of a zero `a` or total, which compare alike.
 // The skips are warp-uniform (__any_sync), so the lanes' code stays one

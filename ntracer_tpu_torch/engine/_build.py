@@ -55,7 +55,7 @@ _OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
 _GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
 _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
 # the launch queries: the streaming occlusion walks' (kernels 2.6 and 2.8)
-# take (d, int[5]), the streaming nearest-hit walks' (2.5 and 2.7) (d,
+# take (d, int[5]), the streaming nearest-hit walks' (2.5, 2.7 and 2.3) (d,
 # shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6]),
 # the occlusion grid walk's (2.10) (d, int[6])
 _INFO_ARGS = [_I, _P]
@@ -163,8 +163,9 @@ def load():
             lib.ntr_grid_nearest_hit.restype = ctypes.c_int
             lib.ntr_grid_occluded.argtypes = _GRID_OCCLUDED_ARGS
             lib.ntr_grid_occluded.restype = ctypes.c_int
-            # the streaming walks (the STREAM variants in the same
-            # sources) take their resident sibling's arguments
+            # the streaming walks take the arguments of the walks that
+            # share their bodies, and the launch queries a d (and the
+            # nearest-hit walks' shared flag) and five ints
             stream = (
                 ("ntr_nearest_hit_hbm", _NEAREST_ARGS),
                 ("ntr_occluded_hbm", _OCCLUDED_ARGS),
@@ -172,6 +173,7 @@ def load():
                 ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
                 ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
                 ("ntr_occluded_hbm_info", _INFO_ARGS),
+                ("ntr_nearest_t_info", _NEAREST_INFO_ARGS),
                 ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
                 ("ntr_occluded_t_hbm_info", _INFO_ARGS),
                 ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS),

@@ -48,16 +48,18 @@ kernel's association; ``filt`` is 1 where ``blocked``.
 
 Pools over ``STREAM_POOL_BYTES`` take the streaming walks
 (``nearest_hit_hbm``, ``occluded_hbm``, ``nearest_hit_transparent_hbm``,
-``occluded_transparent_hbm``; the kernels are the STREAM variants of the
-same CUDA sources): each visited chunk is copied into a ring of slots in
-shared memory while the previous group is tested.  They compute what their
-resident siblings compute, with one exception that is the TPU kernels':
-the streaming K-slot walk picks its candidates in groups of four, so its
-slot positions (and visits) may differ from ``nearest_hit_transparent``'s
-on the same inputs.  The nearest-hit walks share one CUDA body, and so do
-the filtered occlusion walks: the kernels of ``nearest_hit`` and
-``occluded_transparent`` are the streaming ones of ``nearest_hit_hbm`` and
-``occluded_transparent_hbm``, on pools of any size.
+``occluded_transparent_hbm``), as the JAX package does.  They compute what
+the walks for pools under the line compute, with one exception that is
+the TPU kernels': the streaming K-slot walk picks its candidates in groups
+of four, so its slot positions (and visits) may differ from
+``nearest_hit_transparent``'s on the same inputs.  On the card every walk
+copies each visited chunk into a ring of slots in shared memory while the
+previous one is tested, and each walk and its streaming sibling share one
+CUDA body on the streaming loop, whatever the pool's size: the kernels of
+``nearest_hit``, ``occluded`` and ``occluded_transparent`` are those of
+``nearest_hit_hbm``, ``occluded_hbm`` and ``occluded_transparent_hbm``, and
+``nearest_hit_transparent`` launches ``nearest_hit_transparent_hbm``'s body
+in groups of one candidate.
 """
 
 from __future__ import annotations
@@ -795,11 +797,11 @@ def _device(name, dev):
 
 
 # the C entries whose kernel fills a ring of chunk slots by TMA bulk copies
-# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.1 and 2.4, which run
-# 2.5's and 2.8's bodies on any pool
+# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.1-2.4, which run
+# their bodies on any pool
 _RING_ENTRIES = ("ntr_nearest_hit_hbm", "ntr_occluded_hbm",
                  "ntr_nearest_t_hbm", "ntr_occluded_t_hbm", "ntr_occluded_t",
-                 "ntr_nearest_hit")
+                 "ntr_nearest_hit", "ntr_occluded", "ntr_nearest_t")
 
 
 def _check_stream(w):
@@ -935,7 +937,8 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
 
     Returns (blocked (R,) bool, visits (R // RAY_BLOCK,) i32 chunks visited
     per block).  On CUDA tensors the CUDA kernel runs (and
-    ``occluded.launches`` counts it); on CPU tensors the plain twin
+    ``occluded.launches`` counts it): the body of ``occluded_hbm``'s, so
+    the pool's rows must be 16-byte aligned; on CPU tensors the plain twin
     ``occluded_ref`` does.  A block without an active ray costs the kernel
     one load per ray and no walk."""
     if not _device("occluded", oT.device):
@@ -975,8 +978,9 @@ def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
     are the K slots in the walk's own (unsorted) order, +inf and -1 where
     empty, NOT trimmed by ``t``; slots are chunk*CK + lane.  On CUDA tensors
     the CUDA kernel runs (and ``nearest_hit_transparent.launches`` counts
-    it); on CPU tensors the plain twin ``nearest_hit_transparent_ref``
-    does."""
+    it): the body of ``nearest_hit_transparent_hbm``'s in groups of one
+    candidate, so the pool's rows must be 16-byte aligned; on CPU tensors
+    the plain twin ``nearest_hit_transparent_ref`` does."""
     _check_k(K)
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
     if not _device("nearest_hit_transparent", oT.device):
@@ -1063,19 +1067,21 @@ _INFO_ENTRIES = {"nearest_hit_hbm": "ntr_nearest_hit_hbm_info",
                  "occluded_hbm": "ntr_occluded_hbm_info",
                  "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
                  "occluded_transparent_hbm": "ntr_occluded_t_hbm_info",
-                 # kernels 2.1 and 2.4 launch 2.5's and 2.8's bodies
+                 # kernels 2.1, 2.2 and 2.4 launch 2.5's, 2.6's and
+                 # 2.8's bodies; 2.3 launches 2.7's in groups of one
                  "nearest_hit": "ntr_nearest_hit_hbm_info",
+                 "occluded": "ntr_occluded_hbm_info",
+                 "nearest_hit_transparent": "ntr_nearest_t_info",
                  "occluded_transparent": "ntr_occluded_t_hbm_info"}
 
 
 def stream_info(name, d, shared=False):
-    """The streaming walk ``name`` (one of the four ``*_hbm`` wrappers:
-    kernels 2.5-2.8, or ``nearest_hit`` and ``occluded_transparent``:
-    kernels 2.1 and 2.4, which launch 2.5's and 2.8's bodies) at dimension
-    ``d`` as it launches on the current card, for the nearest-hit walks in
-    their ``shared`` (primary rays) variant or not: registers and local
-    (spill) bytes a thread, blocks per SM, ring slots and shared bytes a
-    block (``STREAM_INFO``)."""
+    """The chunk walk ``name`` (one of the eight wrappers of kernels
+    2.1-2.8, all on the streaming loop) at dimension ``d`` as it launches
+    on the current card, for the nearest-hit walks in their ``shared``
+    (primary rays) variant or not: registers and local (spill) bytes a
+    thread, blocks per SM, ring slots and shared bytes a block
+    (``STREAM_INFO``)."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(STREAM_INFO),), dtype=torch.int32)

@@ -2,8 +2,8 @@
 """Time hand-written walks of ntracer_tpu_torch from several CUDA source
 trees against each other on one card.
 
-    python3 scripts/torch_stream_ab.py [--kernels 2.1,2.4,2.5,2.7,2.9,2.10] \
-        NAME=CSRC_DIR [NAME=CSRC_DIR ...]
+    python3 scripts/torch_stream_ab.py [--kernels 2.1,2.2,2.3,2.4,2.5,...] \
+        [--reps 3] [--rounds 1] NAME=CSRC_DIR [NAME=CSRC_DIR ...]
 
 Each CSRC_DIR holds the sources of the chosen kernels and the headers they
 include: ntracer_tpu_torch/csrc of this tree, of another commit unpacked
@@ -16,6 +16,17 @@ each at 1024x1024 (1,048,576 rays):
     (every other block active), the lit configuration's primary rays
     (d = 6) -- and the entry pass alone on the flagship pool (every block
     live, no chunk within any ray's start distance: no visit);
+  * 2.2, ``ntr_occluded`` (occluded.cu): shadow rays from the primary hits
+    of the lit 120-cell (chip_smoke.py's "lit 120-cell" path; its point
+    light is the "flagship point light" of the "occluded kernel vs twin"
+    phase: most blocks live) and of ``lit_config`` (d = 6, 348 rays hit:
+    nearly dead), to the point light and along the global light, and the
+    ``lit_config`` wavefront with every ray inactive;
+  * 2.3, ``ntr_nearest_t`` (nearest_hit_transparent.cu): chip_smoke.py's
+    wavefronts of its "nearest_hit_transparent kernel vs twin" phase --
+    the glass 120-cell's primary rays (shared rows, front-to-back order)
+    and bounce rays (every other block active), the "transparent d=3"
+    scene's primary rays -- with K = 8;
   * 2.4, ``ntr_occluded_t`` (occluded_transparent.cu): chip_smoke.py's
     shadow wavefronts of the glass 120-cell and of the "transparent d=3"
     scene, towards the point light and along the global light;
@@ -40,12 +51,14 @@ the plane records (``grid_kernels.plane_records``).  The script compiles
 the chosen sources of every tree with this tree's nvcc flags (the
 wavefronts are made with this tree's own library), checks that every tree
 gives the first tree's outputs bit for bit, and times each kernel in turns
-(A, B, ..., B, A; three launches a turn), on the card (CUDA events) and on
+(A, B, ..., B, A, ``--rounds`` times; ``--reps`` launches a turn, three by
+default: more for the short launches), on the card (CUDA events) and on
 the host (three calls back to back, no synchronisation between them: a
 launch that waits for an earlier one shows the kernel's time there).  It
 prints, for each tree, ptxas's registers and spills of the kernels at d =
-3 (2.5, 2.7), 4 (2.1, 2.4), 10 and 16 (2.9, 2.10) and, for each wavefront,
-the mean times in ms with the card's name and power limit.
+3 (2.3, 2.5, 2.7), 4 (2.1, 2.2, 2.3, 2.4), 6 (2.2), 10 and 16 (2.9, 2.10)
+and, for each wavefront, the mean times in ms with the card's name and
+power limit.
 Needs one CUDA card; the port never imports it.
 """
 
@@ -75,6 +88,10 @@ from ntracer_tpu_torch.engine import wavefront as wf  # noqa: E402
 KERNELS = {
     "2.1": ("nearest_hit.cu", "ntr_nearest_hit", _build._NEAREST_ARGS,
             r"nearest_\w*kernelILi4E"),
+    "2.2": ("occluded.cu", "ntr_occluded", _build._OCCLUDED_ARGS,
+            r"occluded_(stream_)?kernelILi[46]E"),
+    "2.3": ("nearest_hit_transparent.cu", "ntr_nearest_t",
+            _build._NEAREST_T_ARGS, r"nearest_t_(stream_)?kernelILi[34]E"),
     "2.4": ("occluded_transparent.cu", "ntr_occluded_t",
             _build._OCCLUDED_T_ARGS, r"occluded_t\w*kernelILi4E"),
     "2.5": ("nearest_hit.cu", "ntr_nearest_hit_hbm", _build._NEAREST_ARGS,
@@ -267,6 +284,77 @@ def grid_shadow_cases(dev):
     return cases
 
 
+def light_rays(arrs, hit, light_pos=None, light_dir=None):
+    """Shadow rays from the hit points ``hit`` to a point light or along a
+    global light, as chip_smoke.py makes them: (point, dirs, ldist), the
+    misses inactive."""
+    point = torch.where(hit["hit"][None, :], hit["pointT"], 0.0)
+    if light_pos is not None:
+        lv = point - light_pos[:, None]
+        dist = rk._sqrt(wf._dotT(lv, lv))
+        return point, (lv / dist[None, :]).contiguous(), \
+            torch.where(hit["hit"], dist, 0.0)
+    gl = (-light_dir)[:, None].expand_as(point).contiguous()
+    exit_t = rk._scene_exit_T(point, gl, arrs["res_blo"], arrs["res_bhi"])
+    return point, gl, torch.where(hit["hit"], exit_t, 0.0)
+
+
+def occlusion_cases(dev):
+    """Kernel 2.2's inputs: shadow rays from the primary hits of the lit
+    120-cell and of ``lit_config``, to the first point light and along the
+    global light (each ray skipping the surface it lies on), and
+    ``lit_config``'s with every ray inactive."""
+    lit120, _cam, _n = cs.cell120_scene(NTracer(4), Material((1, 0.5, 0.5)),
+                                        -4.0, lit=True)
+    lit, _cam = cs.lit_scene(NTracer(6), Material)
+    cases = {}
+    for label, scene in (("lit 120-cell", lit120), ("lit_config", lit)):
+        cfg, arrs, _o, _oT, _dT, _p, hit = primary_hits(scene, dev)
+        res = wf._res_dict(arrs)
+        for light, kw in (("point light", dict(light_pos=arrs["pl_pos"][0])),
+                          ("global light", dict(light_dir=arrs["gl_dir"][0]))):
+            point, dirs, ldist = light_rays(arrs, hit, **kw)
+            cases[f"{label} {light}"] = ("2.2", rk._occlusion_inputs(
+                res, point, dirs, ldist, hit["pid"], cfg.d, None))
+    cases["lit_config dead"] = ("2.2", rk._occlusion_inputs(
+        res, point, dirs, torch.zeros_like(ldist), hit["pid"], cfg.d, None))
+    return cases
+
+
+def transparent_cases(dev):
+    """Kernel 2.3's inputs, chip_smoke.py's: the glass 120-cell's primary
+    wavefront (shared rows, front-to-back order) and bounce wavefront
+    (reflections off the primary hits, every other block active, each ray
+    skipping the surface it leaves), and the "transparent d=3" scene's
+    primary wavefront, K = 8."""
+    solid, glass_m = Material((0.3, 0.8, 0.5)), \
+        Material((1, 0.7, 0.7), opacity=0.4)
+    glass, _cam, _n = cs.cell120_scene(
+        NTracer(4), lambda i: glass_m if i % 2 else solid, -4.0, lit=True)
+    with cs.unbatched(kdtree):
+        d3 = cs.mesh_d3_scene(NTracer(3), Material((0.7, 0.8, 1.0),
+                                                   opacity=0.45), 500)
+    cases = {}
+    for label, scene in (("glass", glass), ("d3", d3)):
+        cfg, arrs, _o, oT, dT, pctx, hit = primary_hits(scene, dev)
+        K = cfg.max_transparent_hits
+        res = wf._res_dict(arrs)
+        res["opa"] = arrs["res_opa"]
+        skip = torch.full((dT.shape[1],), -1, dtype=torch.int32, device=dev)
+        cases[f"{label} primary"] = ("2.3", rk._walk_inputs(
+            res, oT, dT, skip, cfg.d, pctx["order"], None, pctx["sh_res"],
+            K=K))
+        if label != "glass":
+            continue
+        sine = -wf._dotT(dT, hit["normalT"])
+        blk = torch.arange(dT.shape[1], device=dev) // rk.RAY_BLOCK
+        cases["glass bounce"] = ("2.3", rk._walk_inputs(
+            res, hit["pointT"], wf._unitT(dT - hit["normalT"] *
+                                          (-2 * sine)[None, :]),
+            hit["pid"], cfg.d, None, hit["hit"] & (blk % 2 == 0), None, K=K))
+    return cases
+
+
 def shadow_cases(dev):
     """Kernel 2.4's inputs: chip_smoke.py's shadow wavefronts of the glass
     120-cell (from the opaque hits) and of the "transparent d=3" scene
@@ -395,10 +483,12 @@ def host_ms(fn, reps):
 
 def main():
     args = sys.argv[1:]
-    kernels = list(KERNELS)
-    if args and args[0].startswith("--kernels"):
+    opts = {"--kernels": ",".join(KERNELS), "--reps": "3", "--rounds": "1"}
+    while args and args[0].split("=", 1)[0] in opts:
         spec = args.pop(0).split("=", 1)
-        kernels = (spec[1] if len(spec) == 2 else args.pop(0)).split(",")
+        opts[spec[0]] = spec[1] if len(spec) == 2 else args.pop(0)
+    kernels = opts["--kernels"].split(",")
+    reps, rounds = int(opts["--reps"]), int(opts["--rounds"])
     trees = [a.split("=", 1) for a in args]
     if not trees or any(len(t) != 2 for t in trees) or \
             any(k not in KERNELS for k in kernels):
@@ -417,6 +507,10 @@ def main():
         cases = {}
         if "2.1" in kernels:
             cases.update(nearest_cases(dev))
+        if "2.2" in kernels:
+            cases.update(occlusion_cases(dev))
+        if "2.3" in kernels:
+            cases.update(transparent_cases(dev))
         if "2.4" in kernels:
             cases.update(shadow_cases(dev))
         cases.update(mesh_cases(dev, kernels))
@@ -440,7 +534,7 @@ def main():
                 err, got = grid_call(lib, w, plane_records)
             elif kernel == "2.10":
                 err, got = grid_occluded_call(lib, w, plane_records)
-            elif kernel == "2.4":
+            elif kernel in ("2.2", "2.4"):
                 err, got = rk._occlusion_kernel(KERNELS[kernel][1], w,
                                                 w["oT"].device)
             else:
@@ -462,9 +556,9 @@ def main():
                                          f"on the {label}")
             times = {n: [] for n in names}
             host = {n: [] for n in names}
-            for name in names + names[::-1]:
+            for name in (names + names[::-1]) * rounds:
                 times[name].append(cs.time_cuda(
-                    lambda: run(name, kernel, w), 3))
+                    lambda: run(name, kernel, w), reps))
                 host[name].append(host_ms(lambda: run(name, kernel, w), 3))
             for name in names:
                 print(f"{kernel} {label}: {name} "

@@ -105,6 +105,8 @@ def test_transparent_ctypes_signatures_match_the_c_entry_points(
     ("ntr_occluded_t_hbm_info", "_INFO_ARGS", "occluded_transparent.cu"),
     ("ntr_nearest_hit_hbm_info", "_NEAREST_INFO_ARGS", "nearest_hit.cu"),
     ("ntr_nearest_t_hbm_info", "_NEAREST_INFO_ARGS",
+     "nearest_hit_transparent.cu"),
+    ("ntr_nearest_t_info", "_NEAREST_INFO_ARGS",
      "nearest_hit_transparent.cu")])
 def test_streaming_ctypes_signatures_match_the_c_entry_points(
         fn, argtypes, source):
@@ -179,7 +181,7 @@ def test_one_streaming_loop_for_the_four_streaming_walks(fn):
                 "occluded_transparent.cu"):
         text = open(os.path.join(_build.CSRC_DIR, src)).read()
         assert '#include "stream_walk.cuh"' in text
-        assert re.search(r"stream_walk<D, (true|false)>\(", text), src
+        assert re.search(r"stream_walk<D, (true|false)(, N)?>\(", text), src
 
 
 def test_filtered_occlusion_walks_share_the_streaming_body():
@@ -305,3 +307,78 @@ def test_nearest_walks_share_the_streaming_body():
     from ntracer_tpu_torch.engine import resident_kernels as rk
     assert "ntr_nearest_hit" in rk._RING_ENTRIES
     assert rk._INFO_ENTRIES["nearest_hit"] == "ntr_nearest_hit_hbm_info"
+
+
+def test_occlusion_walks_share_the_streaming_body():
+    """Kernel 2.2 runs 2.6's body on stream_walk.cuh: both C entries launch
+    the one launcher of `occluded_stream_kernel`, the resident body
+    `occluded_kernel` is gone, the wrapper checks the ring's alignment and
+    `stream_info("occluded", d)` reports the launch."""
+    src = open(os.path.join(_build.CSRC_DIR, "occluded.cu")).read()
+    assert not re.search(r"\boccluded_kernel\b", src)
+    assert "resident_walk" not in src and "pair_test<" not in src
+    assert len(re.findall(r"__global__", src)) == 1
+    for entry in ("ntr_occluded", "ntr_occluded_hbm"):
+        assert "return launch_stream_d(" in _entry_body(src, entry), entry
+    assert "occluded_stream_kernel<DD>" in src
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    assert "ntr_occluded" in rk._RING_ENTRIES
+    assert rk._INFO_ENTRIES["occluded"] == "ntr_occluded_hbm_info"
+
+
+def test_transparent_walks_share_one_body_in_groups_of_one_and_four():
+    """Kernel 2.3 runs 2.7's body on stream_walk.cuh in groups of one
+    candidate (the TPU kernel's `_nearest_t_live` rule), 2.7 in groups of
+    four: one `__global__` template on N, launched with N = 1 by
+    `ntr_nearest_t` and N = NCAND by `ntr_nearest_t_hbm`, and the launch
+    queries likewise; the resident body `nearest_t_kernel` is gone."""
+    src = open(os.path.join(_build.CSRC_DIR,
+                            "nearest_hit_transparent.cu")).read()
+    assert not re.search(r"\bnearest_t_kernel\b", src)
+    assert "resident_walk" not in src and "pair_test<" not in src
+    assert len(re.findall(r"__global__", src)) == 1
+    assert re.search(r"template <int D, bool SHARED, int N>\s*__global__ "
+                     r"void __launch_bounds__\(RB, t_stream_blocks<D>\(\)\)"
+                     r"\s*nearest_t_stream_kernel\(", src)
+    assert "stream_walk<D, true, N>(" in src
+    assert "stream_ring_config<D, true, N>(" in src
+    for entry, n in (("ntr_nearest_t", "1"), ("ntr_nearest_t_hbm", "NCAND")):
+        assert f"return launch_d<{n}>(" in _entry_body(src, entry), entry
+    for entry, n in (("ntr_nearest_t_info", "1"),
+                     ("ntr_nearest_t_hbm_info", "NCAND")):
+        assert f"return info_d<{n}>(" in _entry_body(src, entry), entry
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    assert "ntr_nearest_t" in rk._RING_ENTRIES
+    assert rk._INFO_ENTRIES["nearest_hit_transparent"] == \
+        "ntr_nearest_t_info"
+    assert '("ntr_nearest_t_info", _NEAREST_INFO_ARGS)' in \
+        open(_build.__file__).read()
+
+
+def test_ring_of_a_walk_in_groups_of_one_holds_two_slots():
+    """The ring holds at most the chunks a walk knows, its group and the
+    next one: `ring_max(N)` slots, which caps the ring's configuration and
+    sizes the loop's barriers, so a walk in groups of one gets two."""
+    ring = open(os.path.join(_build.CSRC_DIR, "chunk_ring.cuh")).read()
+    walk = open(os.path.join(_build.CSRC_DIR, "stream_walk.cuh")).read()
+    assert "constexpr int ring_max(int n) { return 2 * n; }" in ring
+    assert "RING_MAX" not in ring + walk
+    assert "if (s > ring_max(N)) s = ring_max(N);" in walk
+    for arr in ("s_full", "s_empty", "s_next"):
+        assert re.search(r"__shared__ \w+ %s\[ring_max\(N\)\];" % arr, walk)
+    assert re.search(r"template <int D, bool OPA, int N = NCAND, class State",
+                     walk)
+
+
+@pytest.mark.parametrize("fn", ["resident_walk", "find_cands", "stage_chunk",
+                                "stage_opacity", "block_max", "entry_minima",
+                                "pair_test"])
+def test_the_resident_loop_is_gone(fn):
+    """No source or header of the CUDA library defines the resident walks'
+    loop or its pieces any more: every chunk walk runs stream_walk.cuh's
+    (`pair_test_warp`, `entry_minima_t`, `warp_cands`), and pair_test.cuh
+    keeps only the ground they share."""
+    for path in _build.sources() + _build.headers():
+        src = open(path).read()
+        assert not _defines(os.path.basename(path), fn), (path, fn)
+        assert not re.search(r"\b%s(<[^<>]*>)?\(" % fn, src), (path, fn)

@@ -668,7 +668,9 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
     """The redesigned kernels 2.6 and 2.8 on the corner cases of
     ``_occlusion_cases`` (a pool over the line at d = 3, 6 and 8: the ring
     holds 8, then fewer slots): each equals its twin bit for bit (blocked,
-    filt, visits) and the resident kernel 2.2 / 2.4 on the same inputs."""
+    filt, visits) and the entry of kernel 2.2 / 2.4 on the same inputs;
+    2.2's entry (``occluded``, which launches 2.6's body on this small
+    pool) equals its own twin ``occluded_ref``."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, (oT, dT, ld, sk), facts = _occlusion_cases(d, cuda)
     print(f"d = {d}: {facts}")
@@ -688,6 +690,11 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
         torch.cuda.synchronize()
         _equal(got, ref(*args))
         _equal(got, resident(*args))
+    before = prk.occluded.launches
+    got = prk.occluded(*args)
+    assert prk.occluded.launches == before + 1
+    torch.cuda.synchronize()
+    _equal(got, prk.occluded_ref(*args))
 
 
 @pytest.mark.parametrize("d", [3, 6, 8])
@@ -915,11 +922,71 @@ def test_streaming_nearest_walks_corner_cases(cuda, d, monkeypatch):
                                                     **kw)[:2])
 
 
-# pair_test_warp (stream_walk.cuh, kernels 2.5-2.8) and pair_test
-# (pair_test.cuh, the resident walks) side by side: every ray x slot of a
-# chunk from global memory, a lane's slot rotated by its lane, some pairs
-# not wanted on the way in (as a decided ray or the skip id leaves them);
-# the verdict, and t where it holds
+@pytest.mark.parametrize("d", [3, 4, 6, 8])
+def test_transparent_walk_corner_cases(cuda, d, monkeypatch):
+    """Kernel 2.3 (``nearest_hit_transparent``: 2.7's body in groups of one
+    candidate) on the corner cases of ``_nearest_cases`` -- rays along the
+    256-layer glass stack, which cross more glass than K slots hold; 300
+    exactly tied coplanar glass copies and 300 opaque ones, across lanes
+    and visits; the winner skipped; NaN origins; a dead block; a live block
+    without hits -- with every live ray active and with every other one,
+    and on the frame's primary wavefront with the shared rows, for K = 1, 3
+    and 8: it equals its twin ``nearest_hit_transparent_ref`` bit for bit
+    (t, the slot, every K slot by position, visits)."""
+    monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
+    res, (oT, dT, sk), actives, facts = _nearest_cases(d, cuda)
+    assert facts["glass_ties"] >= 2 and facts["dead_visits"] == 0
+    assert facts["glass_only_chunks"] >= 1 and facts["layers_filled"]
+    scene = _stack_scene(d, ties=300)
+    cfg, arrs, cam_o, poT, pdT = _primary(scene, cuda)
+    pctx = pwf.primary_ctx(arrs, cfg, cam_o)
+    pres = pwf._res_dict(arrs)
+    pskip = torch.full((poT.shape[1],), -1, dtype=torch.int32, device=cuda)
+    runs = [(res, oT, dT, sk, dict(active=a)) for a in actives] + \
+        [(pres, poT, pdT, pskip, dict(order=pctx["order"],
+                                      sh=pctx["sh_res"]))]
+    for K in (1, 3, 8):
+        for res_, o_, d_, s_, kw in runs:
+            before = prk.nearest_hit_transparent.launches
+            got = prk.nearest_hit_transparent(res_, o_, d_, s_, d, K, **kw)
+            assert prk.nearest_hit_transparent.launches == before + 1
+            torch.cuda.synchronize()
+            ref = prk.nearest_hit_transparent_ref(res_, o_, d_, s_, d, K,
+                                                  **kw)
+            print(f"d = {d}, K = {K}, {sorted(kw)}: "
+                  f"{prk.nearest_hit_transparent_ref.replaced} slots "
+                  f"replaced, {int((ref[3] >= 0).sum())} filled")
+            if "active" in kw:
+                # block 1's rays cross the stack's 256 glass layers: more
+                # glass than the K slots hold
+                assert int((ref[3][:, 512:1024] >= 0).all(dim=0).sum())
+            _equal(got, ref)
+
+
+def test_resident_entries_launch_info(cuda):
+    """Kernels 2.2 and 2.3 as they launch at every d: 2.2 as 2.6 (two
+    512-thread blocks an SM of at most 64 registers a thread, a ring of at
+    least two slots); 2.3 with the ring of its groups of one, two slots,
+    and 2.7's blocks: two of at most 64 registers a thread but at d = 8,
+    whose K slots take 32 KiB, one of at most 128."""
+    for d in range(3, 9):
+        info = prk.stream_info("occluded", d)
+        print(f"2.2 d = {d}: {info}")
+        assert info == prk.stream_info("occluded_hbm", d)
+        assert info["blocks_per_sm"] >= 2 and info["registers"] <= 64
+        assert info["ring_slots"] >= 2
+        for shared in (False, True):
+            info = prk.stream_info("nearest_hit_transparent", d, shared)
+            print(f"2.3 shared={shared} d = {d}: {info}")
+            assert info["ring_slots"] == 2
+            assert info["blocks_per_sm"] >= (1 if d == 8 else 2)
+            assert info["registers"] <= (128 if d == 8 else 64)
+
+
+# pair_test_warp (stream_walk.cuh, every chunk walk) against its twin
+# `_chunk_hits_vals`: every ray x slot of a chunk from global memory, a
+# lane's slot rotated by its lane, some pairs not wanted on the way in (as a
+# decided ray or the skip id leaves them); the verdict, and t where it holds
 _PAIR_PROBE = r"""
 #include "stream_walk.cuh"
 
@@ -929,8 +996,7 @@ using namespace ntr;
 template <int D, int RPT, bool SHARED, bool PRE>
 __global__ void pair_probe(const float* gt, const float* ci, const int* ids,
                            const float* oT, const float* dT, const float* ld,
-                           int R, unsigned char* got, unsigned char* want,
-                           float* tgot, float* twant) {
+                           int R, unsigned char* got, float* tgot) {
   const int base = (blockIdx.x * blockDim.x + threadIdx.x) * RPT;
   const int lane = threadIdx.x & 31;
   float o[RPT][D], dv[RPT][D], rl[RPT];
@@ -945,21 +1011,16 @@ __global__ void pair_probe(const float* gt, const float* ci, const int* ids,
   const Chunk ch{gt, ci, ids, nullptr};
   for (int j = 0; j < CK; ++j) {
     const int l = (j + lane) % CK;
-    bool go[RPT], in[RPT];
+    bool go[RPT];
     float tw[RPT];
     for (int c = 0; c < RPT; ++c)
-      go[c] = in[c] = base + c < R && (base + c + l) % 5 != 0;
+      go[c] = base + c < R && (base + c + l) % 5 != 0;
     pair_test_warp<D, RPT, SHARED, PRE>(ch, l, o, dv, rl, go, tw);
     for (int c = 0; c < RPT; ++c) {
       if (base + c >= R) continue;
-      float t;
-      const bool v = pair_test<D, SHARED>(gt, ci, l, o[c], dv[c], t);
-      const bool w = in[c] && v && t < rl[c];
       const size_t at = (size_t)(base + c) * CK + l;
       got[at] = go[c];
-      want[at] = w;
       tgot[at] = go[c] ? tw[c] : 0.f;
-      twant[at] = w ? t : 0.f;
     }
   }
 }
@@ -967,38 +1028,36 @@ __global__ void pair_probe(const float* gt, const float* ci, const int* ids,
 template <int D, int RPT, bool SHARED, bool PRE>
 int launch(const float* gt, const float* ci, const int* ids, const float* oT,
            const float* dT, const float* ld, int R, unsigned char* got,
-           unsigned char* want, float* tgot, float* twant) {
+           float* tgot) {
   const int per = 128 * RPT;
   pair_probe<D, RPT, SHARED, PRE><<<(R + per - 1) / per, 128>>>(
-      gt, ci, ids, oT, dT, ld, R, got, want, tgot, twant);
+      gt, ci, ids, oT, dT, ld, R, got, tgot);
   return (int)cudaDeviceSynchronize();
 }
 
 template <int D, bool SHARED, bool PRE>
 int launch_rpt(int rpt, const float* gt, const float* ci, const int* ids,
                const float* oT, const float* dT, const float* ld, int R,
-               unsigned char* got, unsigned char* want, float* tgot,
-               float* twant) {
+               unsigned char* got, float* tgot) {
   return rpt == 2 ? launch<D, 2, SHARED, PRE>(gt, ci, ids, oT, dT, ld, R,
-                                              got, want, tgot, twant)
+                                              got, tgot)
                   : launch<D, 1, SHARED, PRE>(gt, ci, ids, oT, dT, ld, R,
-                                              got, want, tgot, twant);
+                                              got, tgot);
 }
 
 template <int D>
 int launch_d(int rpt, int shared, int pre, const float* gt, const float* ci,
              const int* ids, const float* oT, const float* dT,
-             const float* ld, int R, unsigned char* got, unsigned char* want,
-             float* tgot, float* twant) {
+             const float* ld, int R, unsigned char* got, float* tgot) {
   if (shared)
     return pre ? launch_rpt<D, true, true>(rpt, gt, ci, ids, oT, dT, ld, R,
-                                           got, want, tgot, twant)
+                                           got, tgot)
                : launch_rpt<D, true, false>(rpt, gt, ci, ids, oT, dT, ld, R,
-                                            got, want, tgot, twant);
+                                            got, tgot);
   return pre ? launch_rpt<D, false, true>(rpt, gt, ci, ids, oT, dT, ld, R,
-                                          got, want, tgot, twant)
+                                          got, tgot)
              : launch_rpt<D, false, false>(rpt, gt, ci, ids, oT, dT, ld, R,
-                                           got, want, tgot, twant);
+                                           got, tgot);
 }
 }  // namespace
 
@@ -1006,12 +1065,11 @@ extern "C" int ntr_pair_probe(int d, int rpt, int shared, int pre,
                               const float* gt, const float* ci,
                               const int* ids, const float* oT,
                               const float* dT, const float* ld, int R,
-                              unsigned char* got, unsigned char* want,
-                              float* tgot, float* twant) {
+                              unsigned char* got, float* tgot) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
     return launch_d<DD>(rpt, shared, pre, gt, ci, ids, oT, dT, ld, R, got,   \
-                        want, tgot, twant);
+                        tgot);
   switch (d) {
     NTR_CASE(3)
     NTR_CASE(6)
@@ -1043,33 +1101,40 @@ def pair_probe(tmp_path_factory):
                    capture_output=True)
     fn = ctypes.CDLL(lib).ntr_pair_probe
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] + [ctypes.c_void_p] * 4
+        [ctypes.c_int] + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
 def _pair_probe_all(pair_probe, d, shared, gt, ci, ids, oT, dT, ld):
     """Run the probe on every chunk for one and two rays a lane, with and
-    without the pre-test, and hold pair_test_warp to pair_test: the
-    verdicts equal, and t bit for bit where the pair holds.  Returns the
-    pairs that hold."""
+    without the pre-test, and hold pair_test_warp to its twin
+    `_chunk_hits_vals` on the card: the verdicts (the twin's valid, t <
+    cut, and the pairs the probe wants) equal, and t bit for bit where the
+    pair holds.  Returns the pairs that hold."""
     R = oT.shape[1]
+    dev = oT.device
+    skip = torch.full((1, R, 1), -1, dtype=torch.int32, device=dev)
+    lanes = torch.arange(prk.CK, device=dev)
+    rays = torch.arange(R, device=dev)
+    wanted = (rays[:, None] + lanes[None, :]) % 5 != 0
     hits = 0
-    for rpt, pre in ((1, 1), (2, 1), (1, 0), (2, 0)):
-        for k in range(gt.shape[0]):
-            got = torch.zeros((R, prk.CK), dtype=torch.uint8,
-                              device=oT.device)
-            want = torch.ones_like(got)
-            tgot = torch.zeros((R, prk.CK), device=oT.device)
-            twant = torch.ones_like(tgot)
+    for k in range(gt.shape[0]):
+        t, valid = prk._chunk_hits_vals(
+            d, shared, gt[k][None], ci[k][None], ids[k, 0][None],
+            oT[:, None, :, None], dT[:, None, :, None], skip)
+        want = wanted & valid[0] & (t[0] < ld[:, None])
+        twant = torch.where(want, t[0], 0.0)
+        for rpt, pre in ((1, 1), (2, 1), (1, 0), (2, 0)):
+            got = torch.zeros((R, prk.CK), dtype=torch.uint8, device=dev)
+            tgot = torch.ones((R, prk.CK), device=dev)
             err = pair_probe(d, rpt, int(shared), pre, gt[k].data_ptr(),
                              ci[k].data_ptr(), ids[k].data_ptr(),
                              oT.data_ptr(), dT.data_ptr(), ld.data_ptr(), R,
-                             got.data_ptr(), want.data_ptr(),
-                             tgot.data_ptr(), twant.data_ptr())
+                             got.data_ptr(), tgot.data_ptr())
             assert err == 0
-            assert torch.equal(got, want), (rpt, pre, k,
-                                            int((got != want).sum()))
+            assert torch.equal(got.bool(), want), (
+                rpt, pre, k, int((got.bool() != want).sum()))
             assert torch.equal(tgot.view(torch.int32),
                                twant.view(torch.int32)), (rpt, pre, k)
             hits += int(got.sum())
@@ -1078,11 +1143,11 @@ def _pair_probe_all(pair_probe, d, shared, gt, ci, ids, oT, dT, ld):
 
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_pair_test_warp_equals_pair_test(cuda, pair_probe, d, monkeypatch):
-    """The streaming walks' pair test (with or without the pre-test before
-    the division, edges only while a lane can pass, sums from the first
-    product, a cut) decides
-    every pair as pair_test && t < cut does and gives pair_test's t, for
-    one and two rays a lane, on every chunk of ``_occlusion_cases(d)`` (NaN
+    """The chunk walks' pair test (with or without the pre-test before the
+    division, edges only while a lane can pass, sums from the first
+    product, a cut) decides every pair as its twin ``_chunk_hits_vals``
+    with t < cut does and gives the twin's t, for one and two rays a lane,
+    on every chunk of ``_occlusion_cases(d)`` (NaN
     origins, ldist equal to a hit's t, glass stacks) with its shadow rays,
     and in the shared form (offset rows holding the origin dots) on every
     chunk of ``_stack_scene(d, ties=300)`` with its primary rays, cut at

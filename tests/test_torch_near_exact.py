@@ -1,6 +1,7 @@
 """The exactness arguments of the redesigned streaming nearest-hit walks
-(kernels 2.5 and 2.7, csrc/nearest_hit.cu, csrc/nearest_hit_transparent.cu
-and csrc/stream_walk.cuh), held here to the plain twins' rules on the CPU in
+(kernels 2.5 and 2.7, and 2.1 and 2.3, which launch their bodies;
+csrc/nearest_hit.cu, csrc/nearest_hit_transparent.cu and
+csrc/stream_walk.cuh), held here to the plain twins' rules on the CPU in
 float32 numpy; the kernels themselves are held to the twins on the card
 (tests/test_torch_gpu.py).
 
