@@ -43,7 +43,23 @@ at 1024x1024, 8-bit RGB:
     ``grid_kernels.nearest_hit`` and ``occluded``): one 2.9 and two 2.10
     launches a frame;
   * one frame of scripts/tpu_parity.py's "generic d=10" (40 random 10-D
-    simplices, ``NTracer(10, force_generic=True)``) under the same lights.
+    simplices, ``NTracer(10, force_generic=True)``) under the same lights;
+  * solids, each scene hand-built into one k-d leaf (``leaf_scene``; the
+    reference's build misplaces solids, PARITY.md defects 6 and 9):
+    "solids d=4", scripts/tpu_parity.py's cube, sphere and 12 triangles
+    under the two lights (kernels 2.1 and 2.2, a 4-frame orbit); "glass
+    solids d=3", tests/test_engine.py's 600 triangles (one in ten of glass),
+    glass cube and opaque sphere under a point light, K = 8 (kernels 2.3
+    and 2.4, the cube in the K slots, a 4-frame orbit); "solid orthoplex
+    d=10", the orthoplex and an opaque 10-cube beside it (kernels 2.9 and
+    2.10, a 4-frame orbit); and one frame of the "glass orthoplex d=10", by
+    turns opaque and glass, with a glass 10-sphere: a transparent pool of
+    d > 8 takes the chunk scan (``wavefront.trace_scan`` and
+    ``occlusion_scan``, plain torch, no kernel) for its trace and its 18
+    shadow queries.  Their stage times add ``solids`` (every solid's test
+    on the primary wavefront) and, for the scan, ``scan``; each path's
+    primary walk is held against its twin on the frame's wavefront, and the
+    scan on the card against the scan on the CPU for one group of rays.
 
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its sibling for pools under the line (kernels
@@ -64,7 +80,9 @@ glass.  Both 120-cell frames are checked from a camera turned 0.6 rad off
 the axis view: that view is a mirror hyperplane of the polytope, its rays
 meet mirrored simplices on their common boundary, and there the last bit
 decides (tests/test_torch_mirror_view.py); so are both mesh frames (the
-axis camera looks through the sphere's polar holes) and the orthoplex.
+axis camera looks through the sphere's polar holes), the orthoplex and the
+four solid scenes (their pixels drawn a third or more from those whose ray
+meets a solid).
 Each kernel's launch count is set to 0 before a path is driven and read
 after it; one more glass 120-cell frame counts kernel 2.4's live launches
 (a block visited a chunk).  The script prints the launch of 2.1 at d = 4
@@ -103,6 +121,8 @@ MESH_TRIS = 500000         # scripts/bench_mesh.py --tris 500000
 MESH_DISTANCE = -3.0       # scripts/bench_mesh.py's camera
 # processes that compute the oracle's pixels (the card's host has 8 cores)
 ORACLE_WORKERS = min(8, len(os.sched_getaffinity(0)))
+# the solid types, ntracer_tpu_torch.CUBE and SPHERE (the reference's values)
+CUBE, SPHERE = 1, 2
 
 # The card's rates.  The kernels are built with --fmad=false, so a lane
 # starts one float32 add or one multiply a clock, never a fused pair: the
@@ -286,6 +306,103 @@ def generic_scene(nt, material):
     camera.translate(nt.Vector.axis(2, -9))
     scene.set_camera(camera)
     return two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+
+
+def leaf_scene(nt, protos, extent):
+    """``protos`` hand-built into one k-d leaf in the box [-extent,
+    extent]^d, always visited.  The reference's build places solids off
+    their position (PARITY.md defects 6 and 9), so a scene with solids is
+    held to the oracle only in this form (scripts/tpu_parity.py:88-117)."""
+    d = nt.dimension
+    return nt.CompositeScene(nt.AABB((-extent,) * d, (extent,) * d),
+                             nt.KDLeaf([p.primitive for p in protos]))
+
+
+def solids_d4_scene(nt, Material):
+    """scripts/tpu_parity.py's "solids+tris d=4": a cube scaled by 0.8 at
+    (1.2, 0, 0, 0), a unit sphere at (-1.2, 0, 0, 0) and 12 random
+    triangles above them, in one leaf (``leaf_scene``), camera at -7 on
+    axis 2, here under ``two_lights`` (the point light at (0, 3, -3, 1)).
+    Returns (scene, camera)."""
+    mat = Material((0.9, 0.9, 0.5))
+    protos = [
+        nt.SolidPrototype(CUBE, nt.Vector(1.2, 0, 0, 0), nt.Matrix.scale(0.8),
+                          mat),
+        nt.SolidPrototype(SPHERE, nt.Vector(-1.2, 0, 0, 0),
+                          nt.Matrix.identity(), Material((0.4, 0.9, 0.6))),
+    ]
+    rng = np.random.RandomState(11)
+    for _ in range(12):
+        base = rng.uniform(-2, 2, 4) + np.array([0, 2.5, 0, 0])
+        pts = [nt.Vector(*(base + rng.uniform(-0.5, 0.5, 4)))
+               for _ in range(4)]
+        protos.append(nt.TrianglePrototype(pts, mat))
+    scene = leaf_scene(nt, protos, 4.0)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -7))
+    scene.set_camera(camera)
+    return two_lights(nt, scene, (0, 3, -3, 1)), camera
+
+
+def glass_solids_d3_scene(nt, Material):
+    """tests/test_engine.py:960-985's scene: 600 random triangles, one in
+    ten of glass (opacity 0.45), a glass cube (opacity 0.5) at (0.5, 0, -2)
+    and an opaque unit sphere at (-1.5, 0.5, -1), in one leaf, camera at -8
+    on axis 2, a point light at (0, 4, -4), shadows on.  Its triangles are
+    single primitives, so the oracle keeps every glass surface.  Returns
+    (scene, camera)."""
+    glass = Material((0.9, 0.7, 0.4), opacity=0.45)
+    opaque = Material((1, 0.5, 0.5))
+    rng = np.random.RandomState(41)
+    protos = []
+    for i in range(600):
+        base = rng.uniform(-2, 2, 3)
+        pts = [nt.Vector(*(base + rng.uniform(-0.8, 0.8, 3)))
+               for _ in range(3)]
+        protos.append(nt.TrianglePrototype(pts, glass if i % 10 == 0
+                                           else opaque))
+    protos.append(nt.SolidPrototype(
+        CUBE, nt.Vector(0.5, 0, -2), nt.Matrix.identity(),
+        Material((0.4, 0.9, 0.6), opacity=0.5)))
+    protos.append(nt.SolidPrototype(
+        SPHERE, nt.Vector(-1.5, 0.5, -1), nt.Matrix.identity(),
+        Material((0.9, 0.4, 0.6))))
+    scene = leaf_scene(nt, protos, 6.0)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -8))
+    scene.set_camera(camera)
+    scene.add_light(nt.PointLight(nt.Vector(0, 4, -4), (1, 0.8, 0.6)))
+    scene.set_shadows(True)
+    return scene, camera
+
+
+def solid_orthoplex_scene(nt, material, solid_material, glass=None):
+    """The orthoplex {3,...,3,4} of ``nt``'s dimension with a solid beside
+    it in the view, in one leaf: without ``glass`` an opaque cube scaled by
+    0.35 at (-1.2, 0.8, 0, ...); with it every other simplex is of
+    ``glass`` and the solid a sphere of radius 0.4 at (1.3, -0.3, 0, ...)
+    of ``solid_material``.  The simplices are single triangles (the oracle
+    keeps every glass surface).  Camera, fov and lights as
+    ``orthoplex_scene``.  Returns (scene, camera, simplices)."""
+    d = nt.dimension
+    pts = hull_simplices(polytope_vertices([3] * (d - 2) + [4]))
+    # single prototypes, made from the vectorized batch constructor
+    protos = list(nt.TrianglePrototype.batch_from_points(
+        pts, [glass if glass is not None and i % 2 else material
+              for i in range(len(pts))]))
+    place = np.zeros(d)
+    place[:2] = (1.3, -0.3) if glass is not None else (-1.2, 0.8)
+    protos.append(nt.SolidPrototype(
+        SPHERE if glass is not None else CUBE, nt.Vector(*place),
+        nt.Matrix.scale(0.4 if glass is not None else 0.35),
+        solid_material))
+    scene = leaf_scene(nt, protos, 2.0)
+    camera = nt.Camera()
+    camera.translate(nt.Vector.axis(2, -4.0))
+    scene.set_camera(camera)
+    scene.set_fov(0.8)
+    two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    return scene, camera, len(pts)
 
 
 def random_pool(nt, material, n, seed=3):
@@ -1113,6 +1230,43 @@ def main():
     if not all("kern_gt" in a and not any(k.startswith("res_") for k in a)
                for a in (oarrs, o9arrs, p16arrs)):
         raise SystemExit("a d > 8 scene has no grid layout")
+    done(t0)
+
+    # solids among the triangles of each kind of pool, each scene in one
+    # k-d leaf (the oracle's build misplaces solids), and a transparent
+    # pool of d > 8 (the chunk scan)
+    t0 = phase("solid scenes")
+    t1 = time.perf_counter()
+    nt4 = NTracer(4)
+    sol4, sol4_camera = solids_d4_scene(nt4, Material)
+    s4cfg, s4arrs, _flat = wf.get_device_scene(sol4, dev)
+    gsol3, gsol3_camera = glass_solids_d3_scene(nt3, Material)
+    gs3cfg, gs3arrs, _flat = wf.get_device_scene(gsol3, dev)
+    sorth, sorth_camera, _n = solid_orthoplex_scene(
+        nt10, opaque, Material((0.4, 0.9, 0.6)))
+    socfg, soarrs, _flat = wf.get_device_scene(sorth, dev)
+    gorth, gorth_camera, _n = solid_orthoplex_scene(
+        nt10, solid, Material((0.5, 0.9, 0.9), opacity=0.4), glass=glass_m)
+    gocfg, goarrs, _flat = wf.get_device_scene(gorth, dev)
+    for label, cfg_, arrs_ in (("solids d=4", s4cfg, s4arrs),
+                               ("glass solids d=3", gs3cfg, gs3arrs),
+                               ("solid orthoplex d=10", socfg, soarrs),
+                               ("glass orthoplex d=10", gocfg, goarrs)):
+        pool = "grid" if wf._grid(arrs_) else "scan" if wf._scan(arrs_) \
+            else "chunk walk"
+        kinds = ["cube" if int(t_) == CUBE else "sphere"
+                 for t_ in arrs_["sol_type"][:cfg_.n_solids].tolist()]
+        opacity = [float(arrs_["mat_pack"][int(m_), 6])
+                   for m_ in arrs_["sol_mat"].tolist()]
+        print(f"   {label}: {cfg_.n_tris} pool slots ({pool}), solids "
+              f"{kinds}, opacity {opacity}, transparency "
+              f"{cfg_.has_transparency}, "
+              f"{cfg_.n_point_lights} point and {cfg_.n_global_lights} "
+              f"global light")
+    if not ("res_gt" in s4arrs and "res_opa" in gs3arrs and
+            wf._grid(soarrs) and wf._scan(goarrs)):
+        raise SystemExit("a solid scene took another pool layout")
+    print(f"   built in {time.perf_counter() - t1:.2f} s")
     done(t0)
 
     fmt = ImageFormat(W, H, [Channel(8, 1, 0, 0), Channel(8, 0, 1, 0),
@@ -1945,23 +2099,29 @@ def main():
         another ``walk``."""
         fov_, cam_o_, cam_t_, oT_, dT_, pctx_, skip_, hit_ = primary(
             sc, cfg_, arrs_)
-        grid = "kern_gt" in arrs_
-        res_ = wf._kern_dict(arrs_) if grid else wf._res_dict(arrs_)
+        grid, scan = wf._grid(arrs_), wf._scan(arrs_)
+        res_ = wf._kern_dict(arrs_) if grid else \
+            None if scan else wf._res_dict(arrs_)
         dyn = wf._scene_dyn(sc, dev)
         colorsT = wf._ray_colors_T(arrs_, cfg_, dyn, oT_, dT_, pctx=pctx_)
         ctx = dict(hit=hit_, oT=oT_, dT=dT_, skip=skip_, pctx=pctx_, dyn=dyn,
                    res=res_)
         if grid:
-            walk = lambda: gk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
-                                          sh=pctx_["sh_kern"])
+            walk = {"walk": lambda: gk.nearest_hit(res_, oT_, dT_, skip_,
+                                                   cfg_.d,
+                                                   sh=pctx_["sh_kern"])}
+        elif scan:
+            # the chunk scan has no kernel: its stage is "scan"
+            walk = {}
         else:
-            walk = lambda: rk.nearest_hit(res_, oT_, dT_, skip_, cfg_.d,
-                                          order=pctx_["order"],
-                                          sh=pctx_["sh_res"])
+            walk = {"walk": lambda: rk.nearest_hit(res_, oT_, dT_, skip_,
+                                                   cfg_.d,
+                                                   order=pctx_["order"],
+                                                   sh=pctx_["sh_res"])}
         stages = {
             "raygen": lambda: wf.make_rays(cam_o_, cam_t_, *fov_, xs, ys),
             "frame_prep": lambda: wf.primary_ctx(arrs_, cfg_, cam_o_),
-            "walk": walk,
+            **walk,
             **extra(ctx),
             "trace_shade": lambda: wf._ray_colors_T(arrs_, cfg_, dyn, oT_,
                                                     dT_, pctx=pctx_),
@@ -2198,6 +2358,203 @@ def main():
             raise SystemExit(f"the {path} path launched a grid walk")
     done(t0)
 
+    def solid_stage(arrs_, cfg_):
+        """The solids of one trace: ``_solid_test`` of every solid on the
+        primary wavefront (each trace and each shadow query of a frame
+        runs them once)."""
+        def stage(c):
+            return {"solids": lambda: [
+                wf._solid_test(arrs_, s_, c["oT"], c["dT"], cfg_.d)
+                for s_ in range(cfg_.n_solids)]}
+        return stage
+
+    def walk_equals_twin(label, launch, ref, args, kw):
+        """The path's primary walk on the card against its twin on the same
+        inputs: every output bit for bit."""
+        got, want = launch(*args, **kw), ref(*args, **kw)
+        diffs = [int((a != b).sum()) if a.dtype != torch.float32
+                 else bit_diffs(a, b) for a, b in zip(got, want)]
+        print(f"   {label} primary walk vs its twin: {diffs} entries differ "
+              f"in {len(got)} outputs of {args[1].shape[1]} rays")
+        if any(diffs):
+            raise SystemExit(f"the {label} walk differs from its twin")
+
+    # solids on the chunk walks: kernels 2.1 and 2.2, each trace and shadow
+    # query followed by the two solids' tests
+    t0 = phase("solids d=4 frame")
+    reset_launches()
+    frame_s = orbit(nt4, sol4, sol4_camera, -7.0, LIT_FRAMES, renderer, buf,
+                    fmt)
+    launches["solids d=4"] = read_launches()
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['solids d=4'])}")
+    only("solids d=4", {"nearest_hit": LIT_FRAMES + 1,
+                        "occluded": 2 * (LIT_FRAMES + 1)})
+    report_frames("solids d=4", frame_s, buf, name_limit)
+
+    def sol4_stages(c):
+        return {**shadow_stage(s4arrs, s4cfg)(c),
+                **solid_stage(s4arrs, s4cfg)(c)}
+
+    stage_ms = stage_times(sol4, s4cfg, s4arrs, sol4_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    _f, _co, _ct, s4oT, s4dT, s4pctx, s4skip, _h = primary(sol4, s4cfg,
+                                                           s4arrs)
+    walk_equals_twin("solids d=4", rk.nearest_hit, rk.nearest_hit_ref,
+                     (wf._res_dict(s4arrs), s4oT, s4dT, s4skip, 4),
+                     dict(order=s4pctx["order"], sh=s4pctx["sh_res"]))
+    done(t0)
+
+    # a glass solid in the K slots: kernels 2.3 and 2.4
+    t0 = phase("glass solids d=3 frame")
+    reset_launches()
+    frame_s = orbit(nt3, gsol3, gsol3_camera, -8.0, LIT_FRAMES, renderer,
+                    buf, fmt)
+    launches["glass solids d=3"] = read_launches()
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['glass solids d=3'])}")
+    only("glass solids d=3",
+         {"nearest_hit_transparent": LIT_FRAMES + 1,
+          "occluded_transparent": (K + 1) * (LIT_FRAMES + 1)})
+    report_frames("glass solids d=3", frame_s, buf, name_limit)
+
+    def gsol3_stages(c):
+        base = torch.zeros_like(c["oT"][:3])
+        return {
+            "walk": lambda: rk.nearest_hit_transparent(
+                c["res"], c["oT"], c["dT"], c["skip"], 3, K,
+                order=c["pctx"]["order"], sh=c["pctx"]["sh_res"]),
+            **shadow_stage(gs3arrs, gs3cfg)(c),
+            **solid_stage(gs3arrs, gs3cfg)(c),
+            "compose": lambda: wf._compose_transparent_T(
+                gs3arrs, gs3cfg, c["dyn"], c["oT"], c["dT"], c["hit"], base,
+                0),
+        }
+
+    stage_ms = stage_times(gsol3, gs3cfg, gs3arrs, gsol3_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    _f, _co, _ct, g3oT, g3dT, g3pctx, g3skip, g3hit = primary(
+        gsol3, gs3cfg, gs3arrs)
+    print(f"   glass solids d=3 primary: {int(g3hit['hit'].sum())} opaque "
+          f"hits, {int((g3hit['pid'] >= gs3cfg.n_tris).sum())} on the "
+          f"sphere; {int((g3hit['tidT'] >= 0).sum())} valid slots, "
+          f"{int((g3hit['tidT'] >= gs3cfg.n_tris).sum())} the glass cube's")
+    if not (g3hit["tidT"] >= gs3cfg.n_tris).any():
+        raise SystemExit("the glass cube entered no K slot")
+    walk_equals_twin("glass solids d=3", rk.nearest_hit_transparent,
+                     rk.nearest_hit_transparent_ref,
+                     (wf._res_dict(gs3arrs), g3oT, g3dT, g3skip, 3, K),
+                     dict(order=g3pctx["order"], sh=g3pctx["sh_res"]))
+    done(t0)
+
+    # a solid beside a d > 8 body: kernels 2.9 and 2.10
+    t0 = phase("solid orthoplex d=10 frame")
+    reset_launches()
+    frame_s = orbit(nt10, sorth, sorth_camera, -4.0, LIT_FRAMES, renderer,
+                    buf, fmt)
+    launches["solid orthoplex d=10"] = read_launches()
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['solid orthoplex d=10'])}")
+    only("solid orthoplex d=10", {"grid_nearest_hit": LIT_FRAMES + 1,
+                                  "grid_occluded": 2 * (LIT_FRAMES + 1)})
+    report_frames("solid orthoplex d=10", frame_s, buf, name_limit)
+
+    def sorth_stages(c):
+        point, ld, ldist = grid_shadow_rays(c["hit"],
+                                            light_dir=soarrs["gl_dir"][0])
+        return {"shadow": lambda: wf.occlusion(soarrs, socfg, point, ld,
+                                               ldist, c["hit"]["pid"]),
+                **solid_stage(soarrs, socfg)(c)}
+
+    stage_ms = stage_times(sorth, socfg, soarrs, sorth_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    _f, _co, _ct, sooT, sodT, sopctx, soskip, _h = primary(sorth, socfg,
+                                                           soarrs)
+    walk_equals_twin("solid orthoplex d=10", gk.nearest_hit,
+                     gk.nearest_hit_ref,
+                     (wf._kern_dict(soarrs), sooT, sodT, soskip, 10),
+                     dict(sh=sopctx["sh_kern"]))
+    done(t0)
+
+    # a transparent pool of d > 8: the chunk scan (plain torch, no
+    # kernel) for the trace and the shadow queries, a glass sphere in it
+    t0 = phase("glass orthoplex d=10 frame")
+    scans = {"trace": [], "shadow": []}
+
+    def counting(fn, log):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            log.append(int(out[-1].sum()))
+            return out
+        return run
+
+    trace_scan, occlusion_scan = wf.trace_scan, wf.occlusion_scan
+    wf.trace_scan = counting(trace_scan, scans["trace"])
+    wf.occlusion_scan = counting(occlusion_scan, scans["shadow"])
+    try:
+        launches["glass orthoplex d=10"], ms = one_frame(gorth)
+    finally:
+        wf.trace_scan, wf.occlusion_scan = trace_scan, occlusion_scan
+    print(f"   glass orthoplex d=10: one frame {ms:.3f} ms (first render of "
+          f"the scene), launches "
+          f"{json.dumps(launches['glass orthoplex d=10'])} [{name_limit}]")
+    only("glass orthoplex d=10", {})
+    print(f"   chunk scans in the frame: {len(scans['trace'])} traces "
+          f"({sum(scans['trace'])} chunk runs), {len(scans['shadow'])} shadow "
+          f"queries ({sum(scans['shadow'])} chunk runs), in groups of "
+          f"{wf.SCAN_RAYS} rays")
+    if len(scans["trace"]) != 1 or len(scans["shadow"]) != 2 * (K + 1):
+        raise SystemExit("the glass orthoplex frame did not take the chunk "
+                         "scan for its trace and its shadows")
+    px = np.frombuffer(bytes(buf), np.uint8).reshape(H, W, 3)
+    print(f"   the frame: {int((px.max(axis=2) > 0).sum())} lit pixels, "
+          f"mean byte {px.mean():.3f}")
+
+    def gorth_stages(c):
+        point, ld, ldist = grid_shadow_rays(c["hit"],
+                                            light_dir=goarrs["gl_dir"][0])
+        base = torch.zeros_like(c["oT"][:3])
+        return {
+            "scan": lambda: wf.trace_scan(goarrs, gocfg, c["oT"], c["dT"],
+                                          c["skip"]),
+            "shadow": lambda: wf.occlusion(goarrs, gocfg, point, ld, ldist,
+                                           c["hit"]["pid"]),
+            **solid_stage(goarrs, gocfg)(c),
+            "compose": lambda: wf._compose_transparent_T(
+                goarrs, gocfg, c["dyn"], c["oT"], c["dT"], c["hit"], base,
+                0),
+        }
+
+    stage_ms = stage_times(gorth, gocfg, goarrs, gorth_stages, reps=1)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
+    # the card's scan against the CPU's on the frame's group of rays with
+    # the most hits: the matrix products sum in another order (cuBLAS's,
+    # TF32 off), so t may differ by ulps and a fuzz test at a simplex's
+    # edge may flip
+    _f, _co, _ct, gooT, godT, _p, goskip, gohit = primary(gorth, gocfg,
+                                                          goarrs)
+    g0 = wf.SCAN_RAYS * int(gohit["hit"].reshape(-1, wf.SCAN_RAYS)
+                            .sum(dim=1).argmax())
+    g = slice(g0, g0 + wf.SCAN_RAYS)
+    cpu_arrs = {k: v.cpu() if torch.is_tensor(v) else v
+                for k, v in goarrs.items()}
+    on_card = wf.trace_scan(goarrs, gocfg, gooT[:, g], godT[:, g],
+                            goskip[g])
+    on_host = wf.trace_scan(cpu_arrs, gocfg, gooT[:, g].cpu(),
+                         godT[:, g].cpu(), goskip[g].cpu())
+    flips = int(((on_card[1].cpu() != on_host[1])
+                 | (on_card[3].cpu() != on_host[3]).any(dim=0)).sum())
+    hits = on_host[1] >= 0
+    rel = float(((on_card[0].cpu() - on_host[0]).abs()
+                 / on_host[0])[hits].max())
+    print(f"   scan on the card vs the CPU, {wf.SCAN_RAYS} rays from ray "
+          f"{g0}: {int(hits.sum())} hits, {flips} rays with another pid or "
+          f"slot, t within {rel:.3e} relative, visits "
+          f"{on_card[4].tolist()} / {on_host[4].tolist()}")
+    if hits.sum() < 1000 or flips > wf.SCAN_RAYS // 1000 or rel > 1e-5:
+        raise SystemExit("the card's chunk scan differs from the CPU's")
+    done(t0)
+
     t0 = phase("oracle")
     rng = np.random.RandomState(0)
     oracle_check(scene, wf.frame_colors(scene, W, H, dev),
@@ -2332,6 +2689,43 @@ def main():
               None: ORACLE_PIXELS - hit_px["hit"]}, masks))
     print(f"   orthoplex oracle {t2 - t1:.2f} s, generic oracle "
           f"{time.perf_counter() - t2:.2f} s ({ORACLE_WORKERS} processes)")
+
+    def solid_pixels(sc, cfg_, arrs_):
+        """(H, W): pixels whose primary ray's nearest hit, or one of its K
+        slots, is a solid's."""
+        hit_ = primary(sc, cfg_, arrs_)[-1]
+        on = hit_["pid"] >= cfg_.n_tris
+        if "tidT" in hit_:
+            on = on | (hit_["tidT"] >= cfg_.n_tris).any(dim=0)
+        return _unswz(on)[:W * H].reshape(H, W).cpu().numpy()
+
+    # the solid scenes from the turned camera, a third or more of the
+    # pixels on a solid; the glass ones without the pixels whose rays fill
+    # all K slots
+    for label, sc_, nt_, dist_, cfg_, arrs_, quotas, tol in (
+            ("solids d=4", sol4, nt4, -7.0, s4cfg, s4arrs,
+             {"solid": 32, "hit": 16, None: 16}, ORACLE_TOL),
+            ("glass solids d=3", gsol3, nt3, -8.0, gs3cfg, gs3arrs,
+             {"solid": 20, "layered": 16, "filtered": 8, "shadowed": 8,
+              None: 12}, ORACLE_TOL_GLASS),
+            ("solid orthoplex d=10", sorth, nt10, -4.0, socfg, soarrs,
+             {"solid": 24, "hit": 24, None: 16}, ORACLE_TOL),
+            ("glass orthoplex d=10", gorth, nt10, -4.0, gocfg, goarrs,
+             {"solid": 16, "layered": 16, "filtered": 8, "hit": 8,
+              None: 16}, ORACLE_TOL_GLASS)):
+        turn(nt_, sc_, nt_.Camera(), dist_, OBLIQUE)
+        t1 = time.perf_counter()
+        colors, masks = wf.frame_colors(sc_, W, H, dev, masks=True)
+        masks["solid"] = solid_pixels(sc_, cfg_, arrs_)
+        t2 = time.perf_counter()
+        print(f"   {label} frame ({t2 - t1:.2f} s): "
+              + ", ".join(f"{int(v.sum())} {k}" for k, v in masks.items()))
+        oracle_check(sc_, colors, pick_pixels(
+            rng, quotas, masks,
+            exclude=masks["full"] if cfg_.has_transparency else None),
+            tol=tol)
+        print(f"   {label} oracle {time.perf_counter() - t2:.2f} s "
+              f"({ORACLE_WORKERS} processes)")
     done(t0)
 
     bad = [m for m in sys.modules

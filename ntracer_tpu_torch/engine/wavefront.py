@@ -1,31 +1,34 @@
 """PyTorch wavefront renderer: a whole frame of rays advances in lockstep.
 
-The counterpart of ``ntracer_tpu/engine/wavefront.py`` for triangle
-``CompositeScene``s (lights, shadows, reflections, and for d <= 8
-transparent materials) and for ``BoxScene``: rays are generated in
-32x16-pixel tile order, traced by the nearest-hit walk
-(``resident_kernels.nearest_hit``), shaded -- with one occlusion walk
-(``resident_kernels.occluded``) per light when the scene casts shadows --
-bounced, packed to pixel bytes on the device, and pulled into the caller's
-buffer.  A scene with a transparent material takes the transparent walks
-instead (``nearest_hit_transparent``: the nearest opaque hit and the K
-nearest transparent hits; ``occluded_transparent``: shadows filtered by the
-glass they cross) and composes the K hits far to near over the opaque
-color.  A pool whose layouts take more than ``rk.STREAM_POOL_BYTES`` (the
-JAX package's line) takes the streaming variants of the same four walks
-(``*_hbm``), as the JAX package does.  A scene of more than 8 dimensions
-(``d > rk.C_PAD``) has no chunked layout: its opaque pool takes the grid
-walks of ``grid_kernels`` (``nearest_hit``, ``occluded``) over 512-triangle
-tiles in flatten order, as the JAX package's Pallas grid kernels do, and
-the rest of the frame is the same.  Function names follow the JAX module so
-each has a visible counterpart.
+The counterpart of ``ntracer_tpu/engine/wavefront.py`` for triangle and
+solid ``CompositeScene``s (lights, shadows, reflections, transparent
+materials) and for ``BoxScene``: rays are generated in 32x16-pixel tile
+order, traced by the nearest-hit walk (``resident_kernels.nearest_hit``),
+shaded -- with one occlusion walk (``resident_kernels.occluded``) per light
+when the scene casts shadows -- bounced, packed to pixel bytes on the
+device, and pulled into the caller's buffer.  A scene with a transparent
+material takes the transparent walks instead (``nearest_hit_transparent``:
+the nearest opaque hit and the K nearest transparent hits;
+``occluded_transparent``: shadows filtered by the glass they cross) and
+composes the K hits far to near over the opaque color.  A pool whose
+layouts take more than ``rk.STREAM_POOL_BYTES`` (the JAX package's line)
+takes the streaming variants of the same four walks (``*_hbm``), as the JAX
+package does.  A scene of more than 8 dimensions (``d > rk.C_PAD``) has no
+chunked layout: its opaque pool takes the grid walks of ``grid_kernels``
+(``nearest_hit``, ``occluded``) over 512-triangle tiles in flatten order,
+as the JAX package's Pallas grid kernels do, and its transparent pool the
+chunk scan (``trace_scan``, ``occlusion_scan``: plain torch over the same
+512-triangle chunks, the JAX package's XLA scan).  Solids (``CUBE``,
+``SPHERE``) are tested after every walk, one by one (``_solid_test``).  The
+rest of the frame is the same for every pool.  Function names follow the
+JAX module so each has a visible counterpart.
 
 Layouts stay lane-major as in the JAX package's transposed pipeline: rays
 are (d, R), colors (3, R).  Every function takes tensors on one explicit
 device; nothing falls back to another device.
 
-Scenes this port does not cover yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Formats this port does not cover yet raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -49,6 +52,10 @@ TILE_W = 32
 TILE_H = rk.RAY_BLOCK // TILE_W
 
 REAL_MAX = float(np.finfo(np.float32).max)
+INF = float("inf")
+# rays of one chunk scan group (the JAX package scans a dispatch group):
+# a chunk runs when a ray of the group may meet it
+SCAN_RAYS = TILE
 # point lights dimmer than this cast no shadow ray (tracer.hpp:31)
 LIGHT_THRESHOLD = 1.0 / 512.0
 ROUNDING_FUZZ = float(np.float32(np.finfo(np.float32).eps * 10))
@@ -234,13 +241,20 @@ def device_arrays(flat):
     (the JAX package falls back to its XLA scan at 16,383 chunks).
 
     A scene of more than ``rk.C_PAD`` dimensions gets no chunked layout:
-    its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and the grid
-    walks' layouts ``kern_*`` (``grid_kernels.prepare_tri_arrays``)."""
+    its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and, for an opaque
+    pool, the grid walks' layouts ``kern_*``
+    (``grid_kernels.prepare_tri_arrays``), for a transparent one the chunk
+    scan's (``_scan_arrays``).  A scene with solids gets their rows
+    ``sol_*`` and ``sol_base``, the pool id of the first solid."""
     a = flat.arrays
     d = flat.config.d
     n_tris = flat.config.n_tris
     arrs = {k: a[k] for k in ("bound_start", "bound_end", "pl_pos",
                               "pl_color", "gl_dir", "gl_color")}
+    if flat.config.n_solids:
+        arrs.update({k: a[k] for k in ("sol_type", "sol_orient", "sol_inv",
+                                       "sol_pos", "sol_mat")})
+        arrs["sol_base"] = np.int32(n_tris)
     arrs["mat_pack"] = np.concatenate([
         np.asarray(a["mat_color"], np.float32),
         np.asarray(a["mat_specular"], np.float32),
@@ -251,15 +265,18 @@ def device_arrays(flat):
     ], axis=1)
     arrs["tri_base"] = np.int32(0)
     if d > rk.C_PAD:
+        if flat.config.has_transparency:
+            return _scan_arrays(a, d, n_tris, arrs)
         return _grid_arrays(a, d, n_tris, arrs)
 
     fn_norm = np.linalg.norm(a["tri_fn"], axis=1)
     bins = rk.centroid_bins(a["cull_lo"], a["cull_hi"], fn_norm, rk.CK)
     if not bins:
-        # no real triangle: one empty chunk keeps every layout non-empty
-        # (its slots never hit, so every ray misses)
+        # no real triangle: one chunk of the first pool row, a padding
+        # triangle, keeps every layout non-empty (its zero face normal
+        # never hits, so every ray misses the pool)
         zero = np.zeros(d, np.float32)
-        bins = [(zero, zero, [])]
+        bins = [(zero, zero, [0])]
     res = rk.prepare_resident_cells(
         bins, a["tri_p1"], a["tri_fn"], a["tri_en"], a["tri_dc"],
         a["cull_lo"], a["cull_hi"], d, tri_mat=a["tri_mat"])
@@ -295,13 +312,7 @@ def _grid_arrays(a, d, n_tris, arrs):
     """``device_arrays`` of a scene with d > ``rk.C_PAD`` (the JAX
     package's ``get_device_scene`` for an opaque pool without a chunked
     layout): ``tri_pack`` and the grid walks' ``kern_*`` arrays."""
-    # pool ids and material ids are carried as float32: exact below 2^24
-    if n_tris >= 2 ** 24:
-        raise ValueError("tri_pack stores ids as float32, exact only below "
-                         "2^24 triangles")
-    arrs["tri_pack"] = np.concatenate([
-        np.asarray(a["tri_fn"], np.float32),
-        np.asarray(a["tri_mat"], np.float32)[:, None]], axis=1)
+    _tri_pack(a, n_tris, arrs)
     kern = gk.prepare_tri_arrays(a["tri_p1"], a["tri_fn"], a["tri_en"],
                                  a["tri_dc"], a["cull_lo"], a["cull_hi"], d)
     for k, name in (("gt", "gt"), ("ci", "ci"), ("k_lo", "klo"),
@@ -314,21 +325,55 @@ def _grid_arrays(a, d, n_tris, arrs):
     return arrs
 
 
+def _tri_pack(a, n_tris, arrs):
+    """The pool id-indexed rows ``tri_pack`` = [fn(d), mat]."""
+    # pool ids and material ids are carried as float32: exact below 2^24
+    if n_tris >= 2 ** 24:
+        raise ValueError("tri_pack stores ids as float32, exact only below "
+                         "2^24 triangles")
+    arrs["tri_pack"] = np.concatenate([
+        np.asarray(a["tri_fn"], np.float32),
+        np.asarray(a["tri_mat"], np.float32)[:, None]], axis=1)
+
+
+def _scan_arrays(a, d, n_tris, arrs):
+    """``device_arrays`` of a transparent scene with d > ``rk.C_PAD`` (the
+    JAX package's ``get_device_scene`` for a pool it traces with its XLA
+    chunk scan): ``tri_pack``, the triangle rows, their opacity
+    ``tri_opacity``, and the boxes ``ck_lo``/``ck_hi`` of the real
+    triangles of every CHUNK-triangle chunk in flatten order, with
+    ``ck_nonempty`` False for a chunk of padding only."""
+    _tri_pack(a, n_tris, arrs)
+    for k in ("tri_p1", "tri_fn", "tri_en", "tri_dc"):
+        arrs[k] = a[k]
+    arrs["tri_opacity"] = np.asarray(a["mat_opacity"],
+                                     np.float32)[a["tri_mat"]]
+    nc = n_tris // CHUNK
+    lo = np.zeros((nc, d), np.float32)
+    hi = np.zeros((nc, d), np.float32)
+    nonempty = np.zeros((nc,), bool)
+    fn_norms = np.linalg.norm(a["tri_fn"], axis=1)
+    for c in range(nc):
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        real = fn_norms[sl] > 0
+        if real.any():
+            lo[c] = a["cull_lo"][sl][real].min(axis=0)
+            hi[c] = a["cull_hi"][sl][real].max(axis=0)
+            nonempty[c] = True
+    arrs.update(ck_lo=lo, ck_hi=hi, ck_nonempty=nonempty)
+    return arrs
+
+
 def get_device_scene(scene, device):
     """Flatten a CompositeScene and move its layouts to ``device``, cached
     on the scene as ``_torch_cache`` (keyed on ``scene._version`` and the
-    device).  Render flags are re-read from the scene on every call.  A
-    scene with d > 8 and a transparent material is refused: the JAX
-    package traces it with its XLA chunk scan, which is not ported."""
+    device).  Render flags are re-read from the scene on every call."""
     check_scene(scene, CompositeScene)
     device = torch.device(device)
     key = (scene._version, str(device))
     cache = scene._torch_cache
     if cache is None or cache[0] != key:
         flat = flatten_composite(scene, chunk=CHUNK)
-        if flat.config.d > rk.C_PAD and flat.config.has_transparency:
-            raise _unsupported(f"a transparent {flat.config.d}-D scene "
-                               f"(d > 8)", 10)
         cache = (key, flat.config,
                  tensors_from_arrays(device_arrays(flat), device), flat)
         scene._torch_cache = cache
@@ -341,13 +386,6 @@ def get_device_scene(scene, device):
         bg_axis=int(scene.bg_gradient_axis),
     )
     return cfg, arrs, flat
-
-
-def check_supported(cfg: SceneConfig):
-    """Raise NotImplementedError for scene features outside this port
-    (transparency at d > 8 is refused earlier, by get_device_scene)."""
-    if cfg.n_solids:
-        raise _unsupported("solids", 8)
 
 
 def _scene_dyn(scene, device):
@@ -385,17 +423,26 @@ def _streams(arrs):
 
 
 def _grid(arrs):
-    """Whether the scene's pool takes the grid walks (d > 8)."""
+    """Whether the scene's pool takes the grid walks (d > 8, opaque)."""
     return "kern_gt" in arrs
+
+
+def _scan(arrs):
+    """Whether the scene's pool takes the chunk scan (d > 8, transparent):
+    it has no layout for a walk, only the scan's chunk boxes ``ck_*``."""
+    return "res_gt" not in arrs and not _grid(arrs)
 
 
 def primary_ctx(arrs, cfg, origin):
     """Per-frame context of the shared-origin (primary) trace: the
     front-to-back chunk order and the hoisted origin-dot rows; for the
-    grid walks (d > 8) the hoisted rows alone (``sh_kern``)."""
+    grid walks (d > 8) the hoisted rows alone (``sh_kern``); nothing for
+    the chunk scan."""
     if _grid(arrs):
         return {"sh_kern": gk.shared_rows(arrs["kern_gt"], arrs["kern_ci"],
                                           origin, cfg.d)}
+    if _scan(arrs):
+        return {}
     res = _res_dict(arrs)
     order, dmin = rk.chunk_order(res["klo"], res["khi"], origin)
     return {"order": order, "dmin": dmin,
@@ -403,26 +450,140 @@ def primary_ctx(arrs, cfg, origin):
                                          cfg.d)}
 
 
-def _trace_finish_T(arrs, cfg, dT, res, K):
-    """The (k, R) finish of a trace on one device.  With K transparent
-    slots (``ttT``/``tslotT`` (K, R), sorted ascending by t): the slots'
-    view-facing normals ``tnormT`` (d, K, R), materials ``tmatT`` and pool
-    ids ``tidT`` (K, R) in one gather of the slot rows, then the trim: a
-    slot counts only in front of the opaque hit.  Solids are not ported."""
-    if cfg.n_solids:
-        raise _unsupported("solids", 8)
+# ---------------------------------------------------------------------------
+# Solids
+# ---------------------------------------------------------------------------
+
+def _matvecT(m, vT):
+    """(d, R) columns ``m @ v`` -- the JAX package's ``v @ m.T`` -- each
+    sum taken left to right, the same on every device."""
+    return rk._sum_rows((m[:, :, None] * vT[None]).transpose(0, 1))
+
+
+def _solid_test(arrs, s, oT, dT, d):
+    """Solid ``s`` against (d, R) rays (tracer.hpp:251-276; cube 126-152,
+    sphere 154-173): the ray enters the solid's frame by its inverse
+    orientation; the cube is hit at the first axis in order whose near
+    face is met within 1 + ROUNDING_FUZZ, the sphere at the smaller root.
+    Returns t (R,), point and normal (d, R) in the scene's frame; t = inf
+    on a miss.  The cube's normal is the orientation's image of its axis,
+    not re-unitized, as in the reference."""
+    inv = arrs["sol_inv"][s]
+    orient = arrs["sol_orient"][s]
+    pos = arrs["sol_pos"][s]
+    to = _matvecT(inv, oT) - pos[:, None]
+    td = _matvecT(inv, dT)
+
+    R = oT.shape[1]
+    cube_t = torch.full((R,), INF, dtype=f32, device=oT.device)
+    cube_n = torch.zeros_like(to)
+    found = torch.zeros((R,), dtype=torch.bool, device=oT.device)
+    for i in range(d):
+        ni = torch.where(td[i] < 0, 1.0, -1.0)
+        dist = (ni - to[i]) / td[i]
+        ok = (td[i] != 0) & (dist > 0)
+        p = to + dist[None, :] * td
+        for j in range(d):
+            if j != i:
+                ok = ok & (torch.abs(p[j]) <= 1 + ROUNDING_FUZZ)
+        take = ok & ~found
+        cube_t = torch.where(take, dist, cube_t)
+        n_axis = torch.zeros_like(to)
+        n_axis[i] = ni
+        cube_n = torch.where(take[None, :], n_axis, cube_n)
+        found = found | ok
+
+    a = _dotT(td, td)
+    b = 2 * _dotT(td, to)
+    c = _dotT(to, to) - 1
+    disc = b * b - 4 * a * c
+    sph_t = (-b - rk._sqrt(torch.clamp(disc, min=0.0))) / (2 * a)
+    sph_t = torch.where((disc >= 0) & (sph_t > 0), sph_t, INF)
+
+    is_cube = arrs["sol_type"][s] == 1
+    t = torch.where(is_cube, cube_t, sph_t)
+    p_obj = to + t[None, :] * td
+    n_obj = torch.where(is_cube, cube_n, p_obj)
+    return (t, _matvecT(orient, p_obj + pos[:, None]),
+            _matvecT(orient, n_obj))
+
+
+def _solid_opacity(arrs, s):
+    return arrs["mat_pack"][arrs["sol_mat"][s].long(), 6]
+
+
+# ---------------------------------------------------------------------------
+# Trace
+# ---------------------------------------------------------------------------
+
+def _slot_rows(arrs, cfg, key):
+    """Face normals (d, K, R), materials and pool ids (K, R) of the K slot
+    keys ``key``: a walk's keys are slots of ``res_slot_pack``, the chunk
+    scan's pool ids into ``tri_pack``; -1 for none."""
     d = cfg.d
+    if _scan(arrs):
+        rows = arrs["tri_pack"][torch.clamp(key, 0, cfg.n_tris - 1).long()] \
+            .permute(2, 0, 1)                               # (d + 1, K, R)
+        return rows[:d], rows[d].to(torch.int32), key
+    rows = arrs["res_slot_pack"][torch.clamp(key, min=0).long()] \
+        .permute(2, 0, 1)                                   # (d + 2, K, R)
+    tid = torch.where(key >= 0,
+                      rows[d + 1].to(torch.int32) + arrs["tri_base"], -1)
+    return rows[:d], rows[d].to(torch.int32), tid
+
+
+def _trace_finish_T(arrs, cfg, oT, dT, skip, res, K):
+    """Solids and the K-slot payload, the (k, R) finish of a trace (the
+    JAX package's ``_trace_finish_T``, and at d > 8 its row
+    ``_trace_finish`` and ``_hit_geometry``: the same float32 operations).
+
+    Each solid in turn takes the opaque hit where it is nearer (t, pid,
+    pointT, normalT, mat), and with K transparent slots (``ttT`` sorted
+    ascending by t, ``tkeyT`` their keys, see ``_slot_rows``) a glass solid
+    enters them by a stable sort of the slots with the solid's hit
+    appended last, keeping the first K: as in the JAX package, a slot tied
+    with the solid keeps its place.  Then the slots' view-facing normals
+    ``tnormT`` (d, K, R), materials ``tmatT`` and pool ids ``tidT`` (K, R)
+    come from the slot rows, or from the solid's test for a solid's slot,
+    and the trim: a slot counts only in front of the opaque hit."""
+    d = cfg.d
+    R = oT.shape[1]
+    dev = oT.device
+    solids = [_solid_test(arrs, s, oT, dT, d) for s in range(cfg.n_solids)]
     if K:
-        tslot = res.pop("tslotT")
-        rows = arrs["res_slot_pack"][torch.clamp(tslot, min=0).long()] \
-            .permute(2, 0, 1)                               # (d + 2, K, R)
-        fnk = rows[:d]
+        key = res.pop("tkeyT")
+        # the solid in a slot, -1 for a triangle's or an empty slot
+        tsol = torch.full_like(key, -1)
+    for s, (st, sp, sn) in enumerate(solids):
+        sid = arrs["sol_base"] + s
+        s_opaque = _solid_opacity(arrs, s) >= 1
+        svalid = (st > 0) & (skip != sid)
+        so_valid = svalid & s_opaque & (st < res["t"])
+        res["t"] = torch.where(so_valid, st, res["t"])
+        res["pid"] = torch.where(so_valid, sid, res["pid"])
+        res["pointT"] = torch.where(so_valid[None, :], sp, res["pointT"])
+        res["normalT"] = torch.where(so_valid[None, :], sn, res["normalT"])
+        res["mat"] = torch.where(so_valid, arrs["sol_mat"][s], res["mat"])
+        if K:
+            tins = torch.where(svalid & ~s_opaque, st, INF)
+            allt = torch.cat([res["ttT"], tins[None, :]])
+            order = torch.argsort(allt, dim=0, stable=True)[:K]
+            res["ttT"] = torch.gather(allt, 0, order)
+            key = torch.gather(torch.cat([key, torch.full(
+                (1, R), -1, dtype=key.dtype, device=dev)]), 0, order)
+            tsol = torch.gather(torch.cat([tsol, torch.full(
+                (1, R), s, dtype=tsol.dtype, device=dev)]), 0, order)
+    if K:
+        fnk, tmat, tid = _slot_rows(arrs, cfg, key)
         denomk = _dotT(fnk, dT[:, None, :])
-        res["tnormT"] = _unitT(fnk) \
-            * torch.where(denomk > 0, -1.0, 1.0)[None, :, :]
-        res["tmatT"] = rows[d].to(torch.int32)
-        tid = torch.where(tslot >= 0,
-                          rows[d + 1].to(torch.int32) + arrs["tri_base"], -1)
+        tnorm = _unitT(fnk) * torch.where(denomk > 0, -1.0, 1.0)[None, :, :]
+        for s, (st, sp, sn) in enumerate(solids):
+            sel = tsol == s
+            tnorm = torch.where(sel[None, :, :], sn[:, None, :], tnorm)
+            tmat = torch.where(sel, arrs["sol_mat"][s], tmat)
+            tid = torch.where(sel, arrs["sol_base"] + s, tid)
+        res["tnormT"] = tnorm
+        res["tmatT"] = tmat
     res["hit"] = res["pid"] >= 0
     if K:
         tvalid = (tid >= 0) & (res["ttT"] < res["t"][None, :])
@@ -432,9 +593,9 @@ def _trace_finish_T(arrs, cfg, dT, res, K):
 
 def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
                active=None, pctx=None):
-    """Nearest opaque hit of (d, R) rays over the triangle pool and, for a
-    scene with a transparent material, the K = ``cfg.max_transparent_hits``
-    nearest transparent hits in front of it.
+    """Nearest opaque hit of (d, R) rays over the triangle pool and the
+    solids and, for a scene with a transparent material, the K =
+    ``cfg.max_transparent_hits`` nearest transparent hits in front of it.
 
     ``shared_origin`` (d,) selects the front-to-back order and shared rows of
     primary rays (``pctx`` from primary_ctx, computed here when absent);
@@ -442,10 +603,11 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
     (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty.
 
-    A pool of d > 8 takes the grid walk and gathers its hit rows by pool id
-    from ``tri_pack``; as in the JAX package's grid branch it traces every
-    ray, the bounce loop's dead ones too (``active`` does not reach it:
-    their results are masked downstream)."""
+    A pool of d > 8 takes the grid walk, or with a transparent material the
+    chunk scan, and gathers its hit rows by pool id from ``tri_pack``; as in
+    the JAX package's grid branch the grid walk traces every ray, the bounce
+    loop's dead ones too (``active`` does not reach it: their results are
+    masked downstream)."""
     K = cfg.max_transparent_hits if cfg.has_transparency else 0
     d = cfg.d
     skip_local = skip - arrs["tri_base"]
@@ -453,12 +615,20 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         pctx = primary_ctx(arrs, cfg, shared_origin)
     shared = shared_origin is not None
     res = {}
-    if _grid(arrs):
-        kt, kid, _tiles = gk.nearest_hit(
-            _kern_dict(arrs), oT, dT, skip_local, d,
-            sh=pctx["sh_kern"] if shared else None)
-        rowT = arrs["tri_pack"][torch.clamp(kid, 0, cfg.n_tris - 1).long()].T
-        found, gidl = kid >= 0, kid
+    if _grid(arrs) or _scan(arrs):
+        if _grid(arrs):
+            kt, kid, _tiles = gk.nearest_hit(
+                _kern_dict(arrs), oT, dT, skip_local, d,
+                sh=pctx["sh_kern"] if shared else None)
+            t = torch.where(kid >= 0, kt, REAL_MAX)
+            pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
+        else:
+            t, pid, ttT, tidT, _vis = trace_scan(arrs, cfg, oT, dT, skip,
+                                                 active=active)
+            if K:
+                res.update(ttT=ttT, tkeyT=tidT)
+        rowT = arrs["tri_pack"][torch.clamp(pid - arrs["tri_base"], 0,
+                                            cfg.n_tris - 1).long()].T
     else:
         res_k = _res_dict(arrs)
         order, sh = (pctx["order"], pctx["sh_res"]) if shared else (None, None)
@@ -472,22 +642,177 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
             # order
             order_k = torch.argsort(ktt, dim=0, stable=True)
             res["ttT"] = torch.gather(ktt, 0, order_k)
-            res["tslotT"] = torch.gather(ktslot, 0, order_k)
+            res["tkeyT"] = torch.gather(ktslot, 0, order_k)
         else:
             nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
             kt, slot, _vis = nearest(res_k, oT, dT, skip_local, d,
                                      order=order, active=active, sh=sh)
         rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
-        found, gidl = slot >= 0, rowT[d + 1].to(torch.int32)
-    t = torch.where(found, kt, REAL_MAX)
-    pid = torch.where(found, gidl + arrs["tri_base"], -1)
+        t = torch.where(slot >= 0, kt, REAL_MAX)
+        pid = torch.where(slot >= 0,
+                          rowT[d + 1].to(torch.int32) + arrs["tri_base"], -1)
     pointT = oT + t[None, :] * dT
     fnT = rowT[:d]
     denom = _dotT(fnT, dT)
     normalT = _unitT(fnT) * torch.where(denom > 0, -1.0, 1.0)[None, :]
     res.update(t=t, pid=pid, pointT=pointT, normalT=normalT,
                mat=rowT[d].to(torch.int32))
-    return _trace_finish_T(arrs, cfg, dT, res, K)
+    return _trace_finish_T(arrs, cfg, oT, dT, skip, res, K)
+
+
+# ---------------------------------------------------------------------------
+# Chunk scan (transparent pools of d > 8)
+# ---------------------------------------------------------------------------
+
+def _chunk_planes(p1, fn, en):
+    """Face and edge plane normals of a chunk: (C, d), (C, d), (C, d-1, d)
+    -> (C, d, d), ``planes[:, 0]`` the face normal, ``planes[:, 1:]`` the
+    edge normals."""
+    return torch.cat([fn[:, None, :], en], dim=1)
+
+
+def _tri_chunk_test(oT, dT, p1, fn, en, dc, d):
+    """(d, R) rays against a chunk of C triangles (tracer.hpp:411-440 /
+    551-599) -> t, valid, denom, each (C, R).
+
+    The 2d plane dots of every pair come from products with contraction d,
+    one (C, R) slab a plane: (C, d) @ (d, R).  They are taken in float64
+    and rounded once, the same on every device and never in TF32 (the JAX
+    package's ``dot_general`` at ``Precision.HIGHEST`` sums in float32:
+    ulps apart)."""
+    planes = _chunk_planes(p1, fn, en)                       # (C, d, d)
+    planes64, o64, d64 = planes.double(), oT.double(), dT.double()
+
+    def dots(i):
+        """Plane i's dots with the origins and the directions."""
+        return ((planes64[:, i] @ o64).to(f32),
+                (planes64[:, i] @ d64).to(f32))
+
+    o0, denom = dots(0)
+    t = -(o0 + dc[:, None]) / denom
+    valid = (denom != 0) & (t > 0)
+    # edge areas a_i = e_i.p1 - e_i.o - t * e_i.dir, one (C, R) slab each
+    ci = rk._sum_rows((planes[:, 1:, :] * p1[:, None, :]).permute(2, 0, 1))
+    tot = torch.zeros_like(t)
+    for i in range(1, d):
+        oi, di = dots(i)
+        a = ci[:, i - 1:i] - oi - t * di
+        valid = valid & (a >= -ROUNDING_FUZZ) & (a <= 1 + ROUNDING_FUZZ)
+        tot = tot + a
+    valid = valid & (tot <= 1 + ROUNDING_FUZZ)
+    return t, valid, denom
+
+
+def _chunk_arrays(arrs, cfg):
+    """The pool as (chunks, CHUNK, ...) rows, with the chunk boxes."""
+    d = cfg.d
+    nc = cfg.n_tris // CHUNK
+    return dict(
+        p1=arrs["tri_p1"].reshape(nc, CHUNK, d),
+        fn=arrs["tri_fn"].reshape(nc, CHUNK, d),
+        en=arrs["tri_en"].reshape(nc, CHUNK, max(d - 1, 1), d),
+        dc=arrs["tri_dc"].reshape(nc, CHUNK),
+        opacity=arrs["tri_opacity"].reshape(nc, CHUNK),
+        lo=arrs["ck_lo"],
+        hi=arrs["ck_hi"],
+        nonempty=arrs["ck_nonempty"].tolist(),
+    )
+
+
+def _slab_entry(oT, dT, lo, hi):
+    """Conservative ray/box entry distance of (d, R) rays: (R,), inf when
+    the box is missed.  NaN-safe for zero direction components."""
+    big = float(np.float32(3e37))
+    inv = torch.where(dT != 0, 1.0 / torch.where(dT != 0, dT, 1.0), 0.0)
+    a = (lo[:, None] - oT) * inv
+    b = (hi[:, None] - oT) * inv
+    par = dT == 0
+    inside = (oT >= lo[:, None]) & (oT <= hi[:, None])
+    t0 = torch.where(par, torch.where(inside, -big, big), torch.minimum(a, b))
+    t1 = torch.where(par, torch.where(inside, big, -big), torch.maximum(a, b))
+    tn = torch.amax(t0, dim=0)
+    tf = torch.amin(t1, dim=0)
+    entry = torch.clamp(tn, min=0.0)
+    hit = (tf >= entry) & (tf >= 0)
+    return torch.where(hit, entry, INF)
+
+
+def _chunk_k_nearest(tm, K):
+    """The K smallest of each column of ``tm`` (C, R) -- positive distances,
+    inf where none -- ties to the lowest row, as ``lax.top_k`` breaks them:
+    (distances, rows), each (K, R), ascending.  The float's bits order
+    non-negative floats, so (bits, row) is one integer key a column, every
+    key distinct."""
+    C = tm.shape[0]
+    rows = torch.arange(C, dtype=torch.int64, device=tm.device)
+    keys = tm.view(torch.int32).to(torch.int64) * C + rows[:, None]
+    low = torch.topk(keys, K, dim=0, largest=False, sorted=True).values
+    return (torch.div(low, C, rounding_mode="floor").to(torch.int32)
+            .view(torch.float32), low % C)
+
+
+def trace_scan(arrs, cfg: SceneConfig, oT, dT, skip, active=None):
+    """The JAX package's XLA chunk scan (``trace_pool``'s scan branch) in
+    plain torch: (d, R) rays against the pool's CHUNK-triangle chunks in
+    flatten order, in groups of ``SCAN_RAYS`` rays.  A chunk runs for a
+    group when it holds a real triangle and some ray of the group enters its
+    box before that ray's nearest hit so far; it then takes the nearest
+    opaque hit (strict ``<``, the lowest triangle of a tie) and the chunk's
+    K nearest glass hits (``_chunk_k_nearest``), merged with the carried K
+    by a stable sort, carry first.  The chunk tests every active ray of the
+    group, as the JAX package does: a ray whose hit lies on the chunk box's
+    boundary, rounded out of it, still finds it when the group runs the
+    chunk.  Rays of ``active`` False start at t = 0 and are not tested (the
+    JAX package tests them and trims their slots).
+
+    Returns t (R,) (REAL_MAX without a hit), pid (R,), ttT and tidT (K, R)
+    (sorted, inf and -1 where empty; untrimmed; None when the pool is
+    opaque) and the visits, the chunks run by each group (n_groups,)."""
+    K = cfg.max_transparent_hits if cfg.has_transparency else 0
+    d = cfg.d
+    dev = oT.device
+    ck = _chunk_arrays(arrs, cfg)
+    R = oT.shape[1]
+    t = torch.full((R,), REAL_MAX, dtype=f32, device=dev)
+    if active is not None:
+        t = torch.where(active, t, 0.0)
+    pid = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    tt = torch.full((K, R), INF, dtype=f32, device=dev)
+    tid = torch.full((K, R), -1, dtype=torch.int32, device=dev)
+    visits = []
+    for g0 in range(0, R, SCAN_RAYS):
+        g = slice(g0, min(R, g0 + SCAN_RAYS))
+        run = torch.nonzero(t[g] > 0).squeeze(1) + g0
+        nvis = 0
+        for c, nonempty in enumerate(ck["nonempty"]):
+            entry = _slab_entry(oT[:, g], dT[:, g], ck["lo"][c], ck["hi"][c])
+            if not (nonempty and bool((entry < t[g]).any())):
+                continue
+            nvis += 1
+            tc, valid, _ = _tri_chunk_test(oT[:, run], dT[:, run],
+                                           ck["p1"][c], ck["fn"][c],
+                                           ck["en"][c], ck["dc"][c], d)
+            ids = arrs["tri_base"] + c * CHUNK + torch.arange(
+                CHUNK, dtype=torch.int32, device=dev)
+            valid = valid & (ids[:, None] != skip[run][None, :])
+            opaque = (ck["opacity"][c] >= 1)[:, None]
+            tm = torch.where(valid & opaque, tc, INF)
+            ct = torch.amin(tm, dim=0)
+            upd = ct < t[run]
+            t[run] = torch.where(upd, ct, t[run])
+            pid[run] = torch.where(upd, ids[torch.argmin(tm, dim=0)],
+                                   pid[run])
+            if K:
+                ctt, cargs = _chunk_k_nearest(
+                    torch.where(valid & ~opaque, tc, INF), K)
+                allt = torch.cat([tt[:, run], ctt])
+                alli = torch.cat([tid[:, run], ids[cargs]])
+                order = torch.argsort(allt, dim=0, stable=True)[:K]
+                tt[:, run] = torch.gather(allt, 0, order)
+                tid[:, run] = torch.gather(alli, 0, order)
+        visits.append(nvis)
+    return (t, pid, tt if K else None, tid if K else None,
+            torch.tensor(visits, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -534,46 +859,97 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     semantics): is there an opaque hit with 0 < t < ``ldist`` along each
     (d, R) ray, and how much light do the transparent hits in that range let
     through?  -> (blocked (R,) bool, filt): ``filt`` (R,) f32 is the product
-    of (1 - opacity) over those hits, 1 where ``blocked``; None in a scene
-    without a transparent material (nothing filters, and the caller skips
-    the multiply).
+    of (1 - opacity) over those hits (meaningful where not ``blocked``);
+    None in a scene without a transparent material (nothing filters, and
+    the caller skips the multiply).
 
     Rays with ``ldist <= 0`` are inactive; the walk skips ray blocks without
     an active ray, so a wholly inactive batch costs one short launch and no
     host sync.  ``clamp_exit`` cuts ``ldist`` to the ray's exit from the
     pool's box, which bounds a global light's infinite distance (no pool hit
     lies beyond it); point-light queries arrive finite and skip it.  The
-    grid walk (d > 8) takes ``ldist`` unclamped, as the JAX package's grid
-    kernel branch does.  ``skip`` is the pool id of the surface the ray
-    leaves."""
+    grid walk and the chunk scan (d > 8) take ``ldist`` unclamped, as the
+    JAX package's grid kernel and scan branches do, and the solids always
+    do.  ``skip`` is the pool id of the surface the ray leaves."""
     skip_local = skip - arrs["tri_base"]
     if _grid(arrs):
         blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
                                       skip_local, cfg.d)
-        return _occlusion_finish(cfg, blocked, None)
-    res_k = _res_dict(arrs)
-    if clamp_exit:
-        pool_ldist = torch.minimum(
-            ldist, rk._scene_exit_T(oT, dT, res_k["b_lo"], res_k["b_hi"]))
-    else:
-        pool_ldist = ldist
-    if cfg.has_transparency:
-        occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
-            else rk.occluded_transparent
-        blocked, filt, _vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
-                                    cfg.d)
-    else:
-        occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
-        blocked, _vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
         filt = None
-    return _occlusion_finish(cfg, blocked, filt)
+    elif _scan(arrs):
+        blocked, filt, _vis = occlusion_scan(arrs, cfg, oT, dT, ldist, skip)
+    else:
+        res_k = _res_dict(arrs)
+        pool_ldist = torch.minimum(ldist, rk._scene_exit_T(
+            oT, dT, res_k["b_lo"], res_k["b_hi"])) if clamp_exit else ldist
+        if cfg.has_transparency:
+            occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
+                else rk.occluded_transparent
+            blocked, filt, _vis = occ_t(res_k, oT, dT, pool_ldist,
+                                        skip_local, cfg.d)
+        else:
+            occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
+            blocked, _vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+            filt = None
+    return _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt)
 
 
-def _occlusion_finish(cfg, blocked, filt):
-    """What the pool walk does not cover: solids are tested here, against
-    the unclamped ``ldist`` (not ported)."""
-    if cfg.n_solids:
-        raise _unsupported("solids", 8)
+def occlusion_scan(arrs, cfg: SceneConfig, oT, dT, ldist, skip):
+    """The JAX package's XLA chunk scan for shadow rays (``occlusion``'s
+    scan branch) in plain torch, in groups of ``SCAN_RAYS`` rays: a chunk
+    runs for a group when it holds a real triangle and some unblocked ray of
+    the group enters its box before ``ldist``; its opaque hits before
+    ``ldist`` block, its glass hits multiply ``filt`` by their (1 -
+    opacity).  It tests the group's unblocked rays of ``ldist`` > 0 (see
+    ``trace_scan``): the others cannot change, but for a blocked ray's
+    ``filt``, which the JAX package goes on multiplying.  Returns blocked,
+    filt (R,) (None when the pool is opaque) and the chunks run by each
+    group (n_groups,)."""
+    d = cfg.d
+    dev = oT.device
+    ck = _chunk_arrays(arrs, cfg)
+    R = oT.shape[1]
+    blocked = torch.zeros((R,), dtype=torch.bool, device=dev)
+    filt = torch.ones((R,), dtype=f32, device=dev)
+    visits = []
+    for g0 in range(0, R, SCAN_RAYS):
+        g = slice(g0, min(R, g0 + SCAN_RAYS))
+        nvis = 0
+        for c, nonempty in enumerate(ck["nonempty"]):
+            entry = _slab_entry(oT[:, g], dT[:, g], ck["lo"][c], ck["hi"][c])
+            if not (nonempty and
+                    bool(((entry < ldist[g]) & ~blocked[g]).any())):
+                continue
+            nvis += 1
+            run = torch.nonzero((ldist[g] > 0) & ~blocked[g]).squeeze(1) + g0
+            tc, valid, _ = _tri_chunk_test(oT[:, run], dT[:, run],
+                                           ck["p1"][c], ck["fn"][c],
+                                           ck["en"][c], ck["dc"][c], d)
+            ids = arrs["tri_base"] + c * CHUNK + torch.arange(
+                CHUNK, dtype=torch.int32, device=dev)
+            valid = valid & (ids[:, None] != skip[run][None, :]) \
+                & (tc < ldist[run][None, :])
+            opacity = ck["opacity"][c][:, None]
+            blocked[run] = blocked[run] | torch.any(valid & (opacity >= 1),
+                                                    dim=0)
+            if cfg.has_transparency:
+                filt[run] = filt[run] * torch.prod(torch.where(
+                    valid & (opacity < 1), 1 - opacity, 1.0), dim=0)
+        visits.append(nvis)
+    return (blocked, filt if cfg.has_transparency else None,
+            torch.tensor(visits, dtype=torch.int32))
+
+
+def _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt):
+    """The solids of a shadow query, tested against the unclamped
+    ``ldist``: an opaque one blocks, a glass one multiplies ``filt``."""
+    for s in range(cfg.n_solids):
+        st, _sp, _sn = _solid_test(arrs, s, oT, dT, cfg.d)
+        svalid = (st > 0) & (st < ldist) & (skip != arrs["sol_base"] + s)
+        s_op = _solid_opacity(arrs, s)
+        blocked = blocked | (svalid & (s_op >= 1))
+        if filt is not None:
+            filt = filt * torch.where(svalid & (s_op < 1), 1 - s_op, 1.0)
     return blocked, filt
 
 
@@ -718,7 +1094,6 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
     ``ray_colors_packable`` on its transposed pipeline).  A dict passed as
     ``masks`` is filled with the frame's diagnostic masks (see
     ``frame_colors``)."""
-    check_supported(cfg)
     R = oT.shape[1]
     dev = oT.device
     out = torch.zeros((3, R), dtype=f32, device=dev)

@@ -148,10 +148,11 @@ class _Stand:
 
 
 def orthoplex_scene(d=10, pkg=PORT, reflectivity=0.0, companion=None,
-                    angle=0.6):
+                    angle=0.6, glass=False):
     """chip_smoke.py's orthoplex of dimension ``d`` (its camera at -4 on
     axis 2, fov 0.8, its two lights, shadows on) seen from the camera turned
     by ``angle`` (the axis view is a mirror hyperplane of the polytope).
+    ``glass`` makes every other simplex of glass (``_alternating``).
     ``reflectivity`` > 0 makes every surface a mirror and the reflection
     depth 2.  ``companion`` adds a second body: ``"shade"`` an orthoplex of
     0.4 the size in the view beside the first, along the global light's
@@ -183,8 +184,10 @@ def orthoplex_scene(d=10, pkg=PORT, reflectivity=0.0, companion=None,
         assert companion is None
     pts = np.concatenate(simplices).astype(np.float32)
     mat = a.Material((1, 0.5, 0.5), reflectivity=reflectivity)
+    mats = [_alternating(a, reflectivity)(i) for i in range(len(pts))] \
+        if glass else [mat] * len(pts)
     scene = nt.build_composite_scene(
-        nt.TrianglePrototype.batch_from_points(pts, [mat] * len(pts)))
+        nt.TrianglePrototype.batch_from_points(pts, mats))
     scene.set_camera(camera)
     scene.set_fov(0.8)
     smoke.two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
@@ -199,6 +202,67 @@ def generic_scene(pkg=PORT):
     a = api(pkg)
     return _smoke().generic_scene(a.NTracer(10, force_generic=True),
                                   a.Material((0.8, 0.5, 0.9)))
+
+
+def solids_d4_scene(pkg=PORT):
+    """chip_smoke.py's "solids d=4": scripts/tpu_parity.py's cube, sphere
+    and 12 triangles in one leaf, under the two lights with shadows."""
+    a = api(pkg)
+    return _smoke().solids_d4_scene(a.NTracer(4), a.Material)[0]
+
+
+def glass_solids_d3_scene(pkg=PORT):
+    """chip_smoke.py's "glass solids d=3": tests/test_engine.py's 600
+    triangles (one in ten of glass), glass cube and opaque sphere in one
+    leaf, a point light, shadows on."""
+    a = api(pkg)
+    return _smoke().glass_solids_d3_scene(a.NTracer(3), a.Material)[0]
+
+
+def solids_only_scene(pkg=PORT, glass=False):
+    """tests/test_engine.py's solids-only scene (a unit cube at the origin
+    and a unit sphere at (2.5, 0, 0), no triangle) hand-built into one
+    leaf; ``glass`` makes the cube of glass (opacity 0.5) and adds a global
+    light along +x with shadows, so that the cube filters the light on the
+    sphere."""
+    smoke = _smoke()
+    a = api(pkg)
+    nt = a.NTracer(3)
+    mat = a.Material((1, 0.5, 0.2))
+    cube = a.Material((0.4, 0.9, 0.6), opacity=0.5) if glass else mat
+    protos = [
+        nt.SolidPrototype(smoke.CUBE, nt.Vector(0, 0, 0),
+                          nt.Matrix.identity(), cube),
+        nt.SolidPrototype(smoke.SPHERE, nt.Vector(2.5, 0, 0),
+                          nt.Matrix.identity(), mat)]
+    scene = smoke.leaf_scene(nt, protos, 4.0)
+    cam = nt.Camera()
+    cam.translate(nt.Vector(0.2, 0.1, -9))
+    scene.set_camera(cam)
+    if glass:
+        scene.add_light(nt.GlobalLight(nt.Vector(1, 0.1, 0.2), (1, 0.8, 0.6)))
+        scene.set_shadows(True)
+    return scene
+
+
+def solid_orthoplex_scene(d=10, pkg=PORT, glass=False, angle=0.6):
+    """chip_smoke.py's "solid orthoplex" (``glass`` False: an opaque cube
+    beside the orthoplex) or "glass orthoplex" (every other simplex of glass
+    and a glass sphere beside it) of dimension ``d``, seen from the camera
+    turned by ``angle``."""
+    smoke = _smoke()
+    a = api(pkg)
+    nt = a.NTracer(d)
+    if glass:
+        scene, camera, _n = smoke.solid_orthoplex_scene(
+            nt, a.Material((0.3, 0.8, 0.5)),
+            a.Material((0.5, 0.9, 0.9), opacity=0.4),
+            glass=a.Material((1, 0.7, 0.7), opacity=0.4))
+    else:
+        scene, camera, _n = smoke.solid_orthoplex_scene(
+            nt, a.Material((1, 0.5, 0.5)), a.Material((0.4, 0.9, 0.6)))
+    smoke.turn(nt, scene, camera, -4.0, angle)
+    return scene
 
 
 def reflective_scene(seed=9, shadows=False, pkg=PORT):

@@ -209,25 +209,30 @@ def test_powf_matches_jax():
     assert got[1] < 0 and np.isnan(got[2])
 
 
-def _scene_with(feature):
+def _scene_with(feature, pkg=PORT):
+    a = api(pkg)
     if feature == "d9":
         return random_scene(9, n=4, seed=1,
-                            material=Material((1, 1, 1), opacity=0.5))
+                            material=a.Material((1, 1, 1), opacity=0.5),
+                            pkg=pkg)
     if feature == "transparency":
         return random_scene(3, n=20, seed=1,
-                            material=Material((1, 1, 1), opacity=0.5))
-    nt = NTracer(3)
+                            material=a.Material((1, 1, 1), opacity=0.5),
+                            pkg=pkg)
+    nt = a.NTracer(3)
     if feature == "shadows_transparent":
         scene = random_scene(3, n=20, seed=1,
-                             material=Material((1, 1, 1), opacity=0.5))
+                             material=a.Material((1, 1, 1), opacity=0.5),
+                             pkg=pkg)
         scene.add_light(nt.PointLight(nt.Vector(0, 4, -4), (1, 1, 1)))
         scene.set_shadows(True)
         return scene
     assert feature == "solid"
     protos = [nt.TrianglePrototype([nt.Vector(0, 0, 0), nt.Vector(1, 0, 0),
-                                    nt.Vector(0, 1, 0)], Material((1, 1, 1))),
+                                    nt.Vector(0, 1, 0)],
+                                   a.Material((1, 1, 1))),
               nt.SolidPrototype(CUBE, nt.Vector(0, 0, 2),
-                                nt.Matrix.identity(), Material((1, 1, 1)))]
+                                nt.Matrix.identity(), a.Material((1, 1, 1)))]
     scene = nt.build_composite_scene(protos)
     cam = nt.Camera()
     cam.translate(nt.Vector.axis(2, -8))
@@ -238,21 +243,32 @@ def _scene_with(feature):
 @pytest.mark.parametrize("feature,item", [("shadows_transparent", None),
                                           ("transparency", None),
                                           ("solid", 8), ("d9", 10)])
-def test_unsupported_scenes_raise(feature, item):
-    """Solids and a transparent scene with d > 8 ("d9") name the ROADMAP
-    item that brings them; the transparent scenes of d <= 8 (item None)
-    render: the glass changes the frame and the scene is unlocked
-    afterwards."""
+def test_unsupported_scenes_raise(feature, item, monkeypatch):
+    """Scenes the port once refused render.  Solids and a transparent scene
+    with d > 8 ("d9"), which ROADMAP items 8 and 10 brought, equal the JAX
+    package's frame of the same scene (colors to rtol 2e-6, bytes within
+    one code); the transparent scenes of d <= 8 (item None): the glass
+    changes the frame.  The scene is unlocked afterwards."""
     scene = _scene_with(feature)
     fmt = rgb8(32, 32)
     buf = bytearray(fmt.pitch * 32)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            BlockingRenderer(device="cpu").render(buf, fmt, scene)
-        assert not scene.locked
-        return
     assert BlockingRenderer(device="cpu").render(buf, fmt, scene)
     assert not scene.locked
+    if item is not None:
+        jscene = _scene_with(feature, pkg=JAX)
+        if feature == "solid":
+            jax_device_scene(jscene, monkeypatch)
+        ref = _jax_frame_colors(jscene, 32, 32)
+        got = pwf.frame_colors(scene, 32, 32, "cpu")
+        np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+        ref_bytes = np.asarray(jpack.pack_device(
+            jnp.asarray(ref.reshape(-1, 3)), jpack.format_key(fmt)))
+        diff = np.abs(np.frombuffer(bytes(buf), np.uint8).astype(int)
+                      - ref_bytes.reshape(-1).astype(int))
+        assert diff.max() <= 1
+        cfg, arrs, _ = pwf.get_device_scene(scene, "cpu")
+        assert cfg.n_solids == 1 if feature == "solid" else pwf._scan(arrs)
+        return
     cfg, arrs, _ = pwf.get_device_scene(scene, "cpu")
     assert cfg.has_transparency and "res_opa" in arrs
     glass = pwf.frame_colors(scene, 32, 32, "cpu")

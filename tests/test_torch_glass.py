@@ -19,8 +19,6 @@ composed pixels), on pixels whose rays found fewer than K glass surfaces (a
 ray that crosses more keeps only the K nearest, the oracle all of them).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -30,7 +28,7 @@ import jax.numpy as jnp
 from ntracer_tpu.engine import wavefront as jwf
 from ntracer_tpu.engine import packing as jpack
 from ntracer_tpu_torch import BlockingRenderer, NTracer, CUBE, Material, \
-    kdnodes
+    ImageFormat, Channel, kdnodes
 from ntracer_tpu_torch.engine import wavefront as pwf
 
 from _torch_helpers import (JAX, PORT, glass_scene, polytope_scene,
@@ -350,28 +348,34 @@ def test_frame_masks_say_what_the_engine_found(case):
 
 
 def test_solids_and_high_dimensions_still_raise():
-    """Transparency is in; solids (even glass ones) and d > 8 still name
-    the ROADMAP items that bring them."""
+    """Solids (glass ones too, ROADMAP item 8) and transparent scenes of
+    d > 8 (item 10) render now, the glass cube showing what lies behind it;
+    what still raises is a format the port does not pack (item 13)."""
     nt = NTracer(3)
     glass = Material((1, 1, 1), opacity=0.5)
-    protos = [nt.TrianglePrototype([nt.Vector(0, 0, 0), nt.Vector(1, 0, 0),
-                                    nt.Vector(0, 1, 0)], glass),
-              nt.SolidPrototype(CUBE, nt.Vector(0, 0, 2),
-                                nt.Matrix.identity(), glass)]
-    scene = nt.build_composite_scene(protos)
-    cam = nt.Camera()
-    cam.translate(nt.Vector.axis(2, -8))
-    scene.set_camera(cam)
+
+    def scene_with(cube):
+        protos = [nt.TrianglePrototype([nt.Vector(0, 0, 0),
+                                        nt.Vector(1, 0, 0),
+                                        nt.Vector(0, 1, 0)], glass),
+                  nt.SolidPrototype(CUBE, nt.Vector(0, 0, 2),
+                                    nt.Matrix.identity(), cube)]
+        scene = nt.build_composite_scene(protos)
+        cam = nt.Camera()
+        cam.translate(nt.Vector.axis(2, -8))
+        scene.set_camera(cam)
+        return scene
+
     fmt = rgb8(32, 32)
-    buf = bytearray(fmt.pitch * 32)
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        BlockingRenderer(device="cpu").render(buf, fmt, scene)
-    with pytest.raises(NotImplementedError, match=r"item 10\)"):
+    scenes = (scene_with(glass), random_scene(9, n=4, seed=1, material=glass))
+    for scene in scenes:
+        buf = bytearray(fmt.pitch * 32)
+        assert BlockingRenderer(device="cpu").render(buf, fmt, scene)
+        assert not scene.locked
+    see_through = pwf.frame_colors(scenes[0], 32, 32, "cpu")
+    opaque = pwf.frame_colors(scene_with(Material((1, 1, 1))), 32, 32, "cpu")
+    assert (np.abs(see_through - opaque).max(axis=2) > 1e-3).sum() > 20
+    wide = ImageFormat(32, 32, [Channel(24, 1, 0, 0), Channel(8, 0, 1, 0)])
+    with pytest.raises(NotImplementedError, match=r"item 13\)"):
         BlockingRenderer(device="cpu").render(
-            buf, fmt, random_scene(9, n=4, seed=1, material=glass))
-    cfg, arrs, _ = pwf.get_device_scene(random_scene(3, n=20, seed=1,
-                                                     material=glass), "cpu")
-    z = torch.zeros((3, 512))
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        pwf.trace_pool(arrs, dataclasses.replace(cfg, n_solids=1), z, z,
-                       torch.zeros(512, dtype=torch.int32))
+            bytearray(wide.pitch * 32), wide, scenes[0])

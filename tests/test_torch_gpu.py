@@ -18,7 +18,8 @@ from ntracer_tpu_torch.engine import resident_kernels as prk
 from _torch_helpers import (random_scene, polytope_scene, reflective_scene,
                             lit_scene, lit_scene_3d, glass_scene, rgb8,
                             mirror_scene_1500, api, orthoplex_scene, _smoke,
-                            two_lights)
+                            two_lights, solids_d4_scene,
+                            glass_solids_d3_scene, solid_orthoplex_scene)
 
 pytestmark = pytest.mark.gpu
 W = H = 64
@@ -274,6 +275,56 @@ def test_card_glass_frame_matches_cpu_frame(cuda, make):
     assert BlockingRenderer(device="cpu").render(b, fmt, scene)
     diff = np.abs(np.frombuffer(bytes(a), np.uint8).astype(int)
                   - np.frombuffer(bytes(b), np.uint8).astype(int))
+    assert diff.max() <= 1
+
+
+def _frame_bytes(scene, device):
+    fmt = rgb8(W, H)
+    buf = bytearray(fmt.pitch * H)
+    renderer = BlockingRenderer() if device is None \
+        else BlockingRenderer(device=device)
+    assert renderer.render(buf, fmt, scene)
+    return np.frombuffer(bytes(buf), np.uint8).astype(int)
+
+
+@pytest.mark.parametrize("make", [solids_d4_scene, glass_solids_d3_scene])
+def test_card_solid_frame_equals_cpu_frame(cuda, make):
+    """A frame with solids among triangles (opaque ones shadowing each
+    other; a glass cube in the K slots) on the card gives the CPU's bytes:
+    the walks equal their twins and ``_solid_test`` sums in a fixed order.
+    The frame went through the chunk walks of its scene."""
+    scene = make()
+    cfg, _arrs, _ = pwf.get_device_scene(scene, cuda)
+    assert cfg.n_solids == 2
+    walks = ("nearest_hit_transparent", "occluded_transparent") \
+        if cfg.has_transparency else ("nearest_hit", "occluded")
+    before = [getattr(prk, n).launches for n in walks]
+    got = pwf.frame_colors(scene, W, H, cuda)
+    assert all(getattr(prk, n).launches > b for n, b in zip(walks, before))
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+    assert np.array_equal(_frame_bytes(scene, None),
+                          _frame_bytes(scene, "cpu"))
+
+
+def test_card_scan_frame_matches_cpu_frame(cuda):
+    """The glass 10-orthoplex with a glass sphere (the chunk scan, plain
+    torch on the card: its matrix products sum in cuBLAS's order) within one
+    code of the CPU's frame, and no walk kernel ran."""
+    scene = solid_orthoplex_scene(10, glass=True)
+    cfg, arrs, _ = pwf.get_device_scene(scene, cuda)
+    assert pwf._scan(arrs)
+    names = ("nearest_hit", "occluded", "nearest_hit_transparent",
+             "occluded_transparent")
+    before = [getattr(prk, n).launches for n in names] \
+        + [gk.nearest_hit.launches, gk.occluded.launches]
+    got = pwf.frame_colors(scene, W, H, cuda)
+    assert before == [getattr(prk, n).launches for n in names] \
+        + [gk.nearest_hit.launches, gk.occluded.launches]
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-4
+    diff = np.abs(_frame_bytes(scene, None) - _frame_bytes(scene, "cpu"))
     assert diff.max() <= 1
 
 

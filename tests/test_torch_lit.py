@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from ntracer_tpu.engine import wavefront as jwf
 from ntracer_tpu.engine import packing as jpack
-from ntracer_tpu_torch import BlockingRenderer, kdnodes
+from ntracer_tpu_torch import BlockingRenderer, ImageFormat, Channel, kdnodes
 from ntracer_tpu_torch.engine import wavefront as pwf
 
 from _torch_helpers import (JAX, PORT, lit_scene, lit_scene_3d,
@@ -241,8 +241,8 @@ def test_lit_frame_matches_jax_and_oracle(case, monkeypatch):
 def test_lit_scenes_render_and_unsupported_ones_name_their_item():
     """A lit scene, a reflective lit scene and a lit scene of glass render;
     the transparent occlusion query refuses a pool without an opacity row
-    instead of treating it as opaque, and solids still name their ROADMAP
-    item."""
+    instead of treating it as opaque, and a format the port does not pack
+    still names its ROADMAP item."""
     fmt = rgb8(32, 32)
     for scene in (lit_scene_3d(), reflective_scene(shadows=True),
                   glass_scene(200, lit=True)):
@@ -257,9 +257,10 @@ def test_lit_scenes_render_and_unsupported_ones_name_their_item():
     with pytest.raises(ValueError, match="opacity row"):
         pwf.occlusion(arrs, tcfg, z, z, torch.zeros(512),
                       torch.zeros(512, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        pwf._occlusion_finish(dataclasses.replace(cfg, n_solids=1), None,
-                              None)
+    wide = ImageFormat(32, 32, [Channel(24, 1, 0, 0), Channel(8, 0, 1, 0)])
+    with pytest.raises(NotImplementedError, match=r"item 13\)"):
+        BlockingRenderer(device="cpu").render(bytearray(wide.pitch * 32),
+                                              wide, lit_scene_3d())
 
 
 def test_shadows_change_the_frame():
