@@ -61,6 +61,18 @@ at 1024x1024, 8-bit RGB:
     primary walk is held against its twin on the frame's wavefront, and the
     scan on the card against the scan on the CPU for one group of rays.
 
+Then the renderer front end: the flagship orbit through
+``CallbackRenderer()``, all eight frames in flight and then three buffers,
+the camera turned after each ``begin_render`` (each frame's bytes equal
+``BlockingRenderer``'s, callbacks in FIFO order; ``begin_render``'s return
+time, the pipelined and the blocking frame rates, the device frame time),
+an abort with frames queued, ``lit_config`` through ``CallbackRenderer``, a
+30/30/4-bit format through both renderers (bytes equal ``packing.pack_rows``
+of the card's colors, no device packing) and a 32-row strip at y0 = 500
+against the CPU's; and the apps, ``scripts/polytope.py 5 3 3`` and
+``scripts/hypercube.py -d 4`` with ``--benchmark`` at 1024x1024, run
+unmodified through ``python -m ntracer_tpu_torch.alias``.
+
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its sibling for pools under the line (kernels
 2.1-2.4) on the same inputs (2.1, 2.2 and 2.4 launch 2.5's, 2.6's and 2.8's
@@ -103,6 +115,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -112,6 +125,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 W = H = 1024
 FRAMES = 8                 # flagship orbit
 LIT_FRAMES = 4             # lit, lit 120-cell and glass 120-cell orbits
+CALLBACK_FRAMES = 8        # the flagship orbit through CallbackRenderer
+CALLBACK_DEPTH = 3         # its buffers in the timed runs
+CALLBACK_ROUNDS = 4        # timed rounds of both loops, in turns
+APP_FRAMES = 30            # polytope.py -f, hypercube.py -f2
 ORACLE_PIXELS = 64
 ORACLE_TOL = 5e-5          # tests/test_pallas.py:356
 ORACLE_TOL_GLASS = 5e-4    # composed pixels, tests/test_engine.py:89
@@ -945,6 +962,260 @@ def report_frames(label, frame_s, buf, name_limit):
           f"{1000 * min(frame_s):.3f} max {1000 * max(frame_s):.3f} ms over "
           f"{len(frame_s)} orbit frames (host clock around render(), pull "
           f"included) [{name_limit}]")
+
+
+def callback_frame(crenderer, scene, fmt):
+    """One frame of ``scene`` through ``crenderer``: its buffer."""
+    buf = bytearray(fmt.pitch * fmt.height)
+    called = threading.Event()
+    crenderer.begin_render(buf, fmt, scene, lambda _r: called.set())
+    if not called.wait(timeout=600):
+        raise SystemExit("a callback frame never called back")
+    return buf
+
+
+def callback_orbit(nt, scene, cam_distance, renderer, crenderer, fmt):
+    """The orbit of CALLBACK_FRAMES frames through the blocking renderer
+    (the reference bytes) and through ``crenderer``, the camera turned
+    right after each begin_render: once with every frame in flight at once
+    (the first callback waits until all are dispatched; its launches are
+    the path's), then CALLBACK_ROUNDS timed rounds of both loops in turns
+    (blocking, pipelined, pipelined, blocking, ...), the pipelined one with
+    CALLBACK_DEPTH buffers.  Every run's bytes must equal the reference's,
+    called back in FIFO order.  Returns (launches of the first callback
+    run, begin_render's ms, pipelined and blocking frames/s of each round,
+    most frames seen in flight in the timed runs)."""
+    incr = 2 * math.pi / CALLBACK_FRAMES
+    start = scene.get_camera()
+    want = []
+    camera = scene.get_camera()
+    buf = bytearray(fmt.pitch * fmt.height)
+    for _ in range(CALLBACK_FRAMES):
+        if not renderer.render(buf, fmt, scene):
+            raise SystemExit("render was aborted")
+        want.append(bytes(buf))
+        turn(nt, scene, camera, cam_distance, incr)
+    callback_frame(crenderer, scene, fmt)    # warm-up: worker, pinned pool
+
+    def check(out, order):
+        if order != list(range(len(out))):
+            raise SystemExit(f"callbacks out of order: {order}")
+        bad = [k for k, b in enumerate(out) if bytes(b) != want[k]]
+        if bad:
+            raise SystemExit(f"frames {bad} differ from the blocking "
+                             f"renderer's first frames")
+
+    def blocking():
+        scene.set_camera(start)
+        camera = scene.get_camera()
+        out = [bytearray(fmt.pitch * fmt.height) for _ in want]
+        t1 = time.perf_counter()
+        for b in out:
+            if not renderer.render(b, fmt, scene):
+                raise SystemExit("render was aborted")
+            turn(nt, scene, camera, cam_distance, incr)
+        seconds = time.perf_counter() - t1
+        check(out, list(range(len(out))))
+        return seconds
+
+    def pipelined(depth, hold):
+        scene.set_camera(start)
+        camera = scene.get_camera()
+        out = [bytearray(fmt.pitch * fmt.height) for _ in want]
+        slots = threading.Semaphore(depth)
+        dispatched = threading.Event()
+        order = []
+        all_done = threading.Event()
+        begin_ms, most = [], 0
+
+        def called(k):
+            def cb(_r):
+                if hold and k == 0:
+                    dispatched.wait(timeout=600)
+                order.append(k)
+                slots.release()
+                if len(order) == len(out):
+                    all_done.set()
+            return cb
+
+        t1 = time.perf_counter()
+        for k, b in enumerate(out):
+            if not slots.acquire(timeout=600):
+                raise SystemExit("the callback queue stalled")
+            t2 = time.perf_counter()
+            crenderer.begin_render(b, fmt, scene, called(k))
+            begin_ms.append(1000 * (time.perf_counter() - t2))
+            most = max(most, crenderer._jobs)
+            turn(nt, scene, camera, cam_distance, incr)
+        dispatched.set()
+        if not all_done.wait(timeout=600):
+            raise SystemExit(f"{len(order)} of {len(out)} callbacks fired")
+        seconds = time.perf_counter() - t1
+        check(out, order)
+        return seconds, begin_ms, most
+
+    reset_launches()
+    _s, _ms, held = pipelined(CALLBACK_FRAMES, hold=True)
+    launches = read_launches()
+    if held < CALLBACK_FRAMES:
+        raise SystemExit(f"only {held} frames were in flight")
+    begin_ms, fps, blocking_fps, most = [], [], [], 0
+    for r in range(CALLBACK_ROUNDS):
+        for kind in (("blocking", "pipelined") if r % 2 == 0 else
+                     ("pipelined", "blocking")):
+            if kind == "blocking":
+                blocking_fps.append(CALLBACK_FRAMES / blocking())
+                continue
+            seconds, ms, n = pipelined(CALLBACK_DEPTH, hold=False)
+            fps.append(CALLBACK_FRAMES / seconds)
+            begin_ms += ms
+            most = max(most, n)
+    print(f"   {CALLBACK_FRAMES} orbit frames through CallbackRenderer, "
+          f"{held} in flight at once, then {CALLBACK_ROUNDS} timed rounds "
+          f"with {CALLBACK_DEPTH} buffers in turns with the blocking loop: "
+          f"bytes equal BlockingRenderer's, callbacks in FIFO order")
+    scene.set_camera(start)
+    return launches, begin_ms, fps, blocking_fps, most
+
+
+def front_end(nt, scene, cam_distance, lit, renderer, fmt, dev,
+              name_limit):
+    """The renderer front end on the card (phase "callback renderer"):
+    ``callback_orbit`` on ``scene``, begin_render's return time, the
+    pipelined and the blocking frame rates and the device frame time; an
+    abort with frames queued; ``lit`` through CallbackRenderer (kernel 2.2
+    behind it); a 30/30/4 format through both renderers; a 32-row strip
+    at y0 = 500 on the card against the CPU's.  Returns the launches of
+    the callback orbit."""
+    import ntracer_tpu_torch as nt_torch
+    from ntracer_tpu_torch import ImageFormat, Channel
+    from ntracer_tpu_torch.engine import wavefront as wf
+    w, h = fmt.width, fmt.height
+    crenderer = nt_torch.CallbackRenderer(device=dev)
+    launches, begin_ms, fps, blocking_fps, most = callback_orbit(
+        nt, scene, cam_distance, renderer, crenderer, fmt)
+    print(f"   launches in the {CALLBACK_FRAMES} callback renders in "
+          f"flight: {json.dumps(launches)}")
+    if launches["nearest_hit"] < CALLBACK_FRAMES:
+        raise SystemExit("the callback renderer did not go through "
+                         "nearest_hit")
+    device_ms = time_cuda(
+        lambda: wf.frame_device_arrays(scene, fmt, dev), 5)
+    print(f"   begin_render returns in {float(np.median(begin_ms)):.3f} ms "
+          f"(median of {len(begin_ms)}, min {min(begin_ms):.3f} max "
+          f"{max(begin_ms):.3f}); pipelined {float(np.median(fps)):.3f} "
+          f"frames/s (median of {len(fps)} rounds "
+          f"{[round(x, 3) for x in fps]}, {CALLBACK_DEPTH} buffers, at most "
+          f"{most} frames in flight) against the blocking loop's "
+          f"{float(np.median(blocking_fps)):.3f} "
+          f"({[round(x, 3) for x in blocking_fps]}); device frame "
+          f"{device_ms:.4f} ms (CUDA events around frame_device_arrays) "
+          f"[{name_limit}]")
+
+    # abort with frames queued: no callback after abort_render returns
+    calls = []
+
+    def slow(_r):
+        time.sleep(0.2)
+        calls.append(1)
+
+    bufs = [bytearray(fmt.pitch * h) for _ in range(4)]
+    crenderer.begin_render(bufs[0], fmt, scene, slow)
+    for buf in bufs[1:]:
+        crenderer.begin_render(buf, fmt, scene, lambda _r: calls.append(1))
+    crenderer.abort_render()
+    n_calls = len(calls)
+    time.sleep(0.5)
+    print(f"   abort with 4 frames queued: {n_calls} callback(s) before "
+          f"abort_render returned, {len(calls) - n_calls} after")
+    if len(calls) != n_calls or crenderer._jobs:
+        raise SystemExit("a callback fired after abort_render returned")
+
+    # lit_config through CallbackRenderer: kernel 2.2 behind it
+    lbuf = bytearray(fmt.pitch * h)
+    if not renderer.render(lbuf, fmt, lit):
+        raise SystemExit("render was aborted")
+    reset_launches()
+    cbuf = callback_frame(crenderer, lit, fmt)
+    lit_launches = read_launches()
+    print(f"   lit_config through CallbackRenderer: launches "
+          f"{json.dumps(lit_launches)}, bytes equal BlockingRenderer's: "
+          f"{cbuf == lbuf}")
+    if cbuf != lbuf or lit_launches["occluded"] < 3:
+        raise SystemExit("the lit callback frame differs or skipped 2.2")
+
+    # 30/30/4: float colors from the card, packed exactly on the host
+    wide = ImageFormat(w, h, [Channel(30, 1, 0, 0), Channel(30, 0, 1, 0),
+                              Channel(4, 0, 0, 1)])
+    packs = {"pack_device_stream": 0, "pack_flat": 0}
+
+    def counted(fn, name):
+        def count(*a, **k):
+            packs[name] += 1
+            return fn(*a, **k)
+        return count
+
+    real = {n: getattr(wf.packing, n) for n in packs}
+    for n in packs:
+        setattr(wf.packing, n, counted(real[n], n))
+    try:
+        wbuf = bytearray(wide.pitch * h)
+        t1 = time.perf_counter()
+        if not renderer.render(wbuf, wide, scene):
+            raise SystemExit("render was aborted")
+        wide_ms = 1000 * (time.perf_counter() - t1)
+        wcbuf = callback_frame(crenderer, scene, wide)
+    finally:
+        for n in packs:
+            setattr(wf.packing, n, real[n])
+    expect = wf.packing.pack_rows(wf.frame_colors(scene, w, h, dev),
+                                  wide).tobytes()
+    print(f"   30/30/4 frame: blocking {wide_ms:.3f} ms (host clock, pull "
+          f"and host packing included), packers called {json.dumps(packs)}; "
+          f"bytes equal pack_rows of the card's colors: blocking "
+          f"{bytes(wbuf) == expect}, callback {bytes(wcbuf) == expect} "
+          f"[{name_limit}]")
+    if bytes(wbuf) != expect or bytes(wcbuf) != expect or \
+            packs["pack_device_stream"] or not packs["pack_flat"]:
+        raise SystemExit("the wide-channel frame is not the exact packer's")
+
+    # a strip on the card against the same strip on the CPU
+    t1 = time.perf_counter()
+    strip = scene._render_strip(fmt, 500, 32, device=dev)
+    t2 = time.perf_counter()
+    strip_cpu = scene._render_strip(fmt, 500, 32, device="cpu")
+    err = float(np.abs(strip - strip_cpu).max())
+    print(f"   strip of 32 rows at y0 = 500: card {1000 * (t2 - t1):.3f} ms "
+          f"(first strip of the scene), CPU {time.perf_counter() - t2:.2f} "
+          f"s, max abs diff {err:.3e}, "
+          f"{int((strip.max(axis=2) > 0).sum())} lit pixels")
+    if strip.shape != (32, w, 3) or not np.allclose(strip, strip_cpu,
+                                                    rtol=2e-6, atol=2e-7):
+        raise SystemExit("the card's strip differs from the CPU's")
+    return launches
+
+
+def apps(size, name_limit):
+    """scripts/polytope.py (the 120-cell) and scripts/hypercube.py (a 4-D
+    BoxScene) unmodified, APP_FRAMES frames of ``size`` each, through
+    ``python -m ntracer_tpu_torch.alias`` on the card (phase "apps")."""
+    for app in (["scripts/polytope.py", "5", "3", "3", "--benchmark", "-s",
+                 size, "-f", str(APP_FRAMES)],
+                ["scripts/hypercube.py", "-d", "4", "--benchmark", "-s",
+                 size, "-f2", str(APP_FRAMES)]):
+        t1 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "ntracer_tpu_torch.alias", *app],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, SDL_VIDEODRIVER="dummy"))
+        print(f"   {' '.join(app)}: exit {run.returncode} in "
+              f"{time.perf_counter() - t1:.2f} s")
+        for line in run.stdout.strip().splitlines()[-3:]:
+            print(f"      {line} [{name_limit}]")
+        if run.returncode or f"rendered {APP_FRAMES} frame(s)" not in \
+                run.stdout:
+            print(run.stderr[-2000:])
+            raise SystemExit(f"{app[0]} failed on the port")
 
 
 _ORACLE_SCENE = None
@@ -2553,6 +2824,19 @@ def main():
           f"{on_card[4].tolist()} / {on_host[4].tolist()}")
     if hits.sum() < 1000 or flips > wf.SCAN_RAYS // 1000 or rel > 1e-5:
         raise SystemExit("the card's chunk scan differs from the CPU's")
+    done(t0)
+
+    # the renderer front end at full width: CallbackRenderer against
+    # BlockingRenderer on the flagship orbit and on lit_config, a
+    # wide-channel format through both renderers, a strip
+    t0 = phase("callback renderer")
+    launches["callback renderer"] = front_end(nt, scene, cam_distance, lit,
+                                              renderer, fmt, dev, name_limit)
+    done(t0)
+
+    # the repository's apps, unmodified, on the port through its launcher
+    t0 = phase("apps")
+    apps(f"{W}x{H}", name_limit)
     done(t0)
 
     t0 = phase("oracle")

@@ -1,12 +1,17 @@
-"""Channel bit-packing on the device: float RGB -> packed pixel bytes.
+"""Channel bit-packing: float RGB -> packed pixel bytes.
 
 The PyTorch counterpart of ``ntracer_tpu/engine/packing.py``
-(``format_key``, ``_pack_words``, ``pack_device_stream``), itself a port of
+(``format_key``, ``_pack_words``, ``pack_device_stream`` on the device;
+``pack_rows`` / ``pack_flat`` on the host), itself a port of
 ``process_pixel`` (render.cpp:396-466): per channel,
 ``clamp(f_r*r + f_g*g + f_b*b + f_c, 0, 1)`` is scaled to ``bit_size`` bits
 (``lround``, half away from zero) or bit-cast when ``tfloat``, then channels
 pack MSB-first into ``bytes_per_pixel`` bytes; ``reversed`` flips the byte
 order.
+
+The device packer rounds in float32 and is exact for integer channels of
+up to 23 bits; a format with a wider one takes the host packer, which
+keeps the reference's 64-bit math and is exact for every width.
 
 torch implements few bitwise ops for uint32, so the word math runs in int64
 and the stream narrows to int32 at the end (same bits).  The ops run
@@ -47,9 +52,11 @@ def _pack_words(colorsT, key):
         if tfloat:
             ival = val.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         elif bit_size > 23:
-            raise NotImplementedError(
-                "integer channels wider than 23 bits need the exact host "
-                "packer (ROADMAP.md section 1, item 13)")
+            # the frame routes such formats to pack_rows
+            # (wavefront._needs_host_pack)
+            raise ValueError(
+                "the device packer takes integer channels of at most 23 "
+                "bits; wider ones take the exact host packer (pack_rows)")
         else:
             # exact lround(double(val) * (2^b - 1)): val * 2^b is exact, so
             # p = fl(val*2^b - val) == fl(val * scale) and the subtraction's
@@ -111,3 +118,61 @@ def pack_device_stream(colorsT, key, permute=None):
             acc = acc | (byt << (8 * k))
         out.append(_to_int32(acc))
     return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Exact host packer (numpy; the reference's 64-bit math)
+# ---------------------------------------------------------------------------
+
+def pack_flat(colors, fmt):
+    """Host packing of a flat color slab: (N, 3) float32 -> (N, bpp) uint8.
+
+    For formats with integer channels wider than 23 bits: the frame ships
+    raw float colors and this packs them with the reference's exact 64-bit
+    math."""
+    n = colors.shape[0]
+    return pack_rows(colors.reshape(1, n, 3), fmt).reshape(
+        n, fmt.bytes_per_pixel)
+
+
+def pack_rows(colors, fmt):
+    """Host packing: (rows, W, 3) float32 -> (rows, W*bpp) uint8, exact for
+    every channel width (``process_pixel``, render.cpp:396-466)."""
+    rows, w, _ = colors.shape
+    n = rows * w
+    c = np.asarray(colors, dtype=np.float32).reshape(n, 3)
+    bpp = fmt.bytes_per_pixel
+
+    temp = np.zeros((n, 2), dtype=np.uint64)
+    b_offset = 0
+    for ch in fmt.channels:
+        val = np.clip(ch.f_r * c[:, 0] + ch.f_g * c[:, 1] + ch.f_b * c[:, 2]
+                      + np.float32(ch.f_c), 0.0, 1.0).astype(np.float32)
+        if ch.tfloat:
+            ival = val.view(np.uint32).astype(np.uint64)
+        else:
+            scale = np.float64(0xFFFFFFFF >> (32 - ch.bit_size))
+            # std::lround: round half away from zero (values here are >= 0)
+            ival = np.floor(val.astype(np.float64) * scale + 0.5).astype(
+                np.uint64)
+
+        o = b_offset // 64
+        rm = b_offset % 64
+        s = 64 - rm - ch.bit_size
+        if s >= 0:
+            temp[:, o] |= ival << np.uint64(s)
+        else:
+            temp[:, o] |= ival >> np.uint64(-s)
+        if rm + ch.bit_size > 64:
+            temp[:, o + 1] = ival << np.uint64(128 - rm - ch.bit_size)
+        b_offset += ch.bit_size
+
+    # big-endian byte extraction (render.cpp:449-461)
+    out = np.empty((n, bpp), dtype=np.uint8)
+    byte_order = range(bpp - 1, -1, -1) if fmt.reversed else range(bpp)
+    for out_j, j in enumerate(byte_order):
+        word = temp[:, j // 8]
+        shift = np.uint64((8 - 1 - (j % 8)) * 8)
+        out[:, out_j] = (word >> shift).astype(np.uint8)
+
+    return out.reshape(rows, w * bpp)

@@ -27,8 +27,13 @@ Layouts stay lane-major as in the JAX package's transposed pipeline: rays
 are (d, R), colors (3, R).  Every function takes tensors on one explicit
 device; nothing falls back to another device.
 
-Formats this port does not cover yet raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+A frame is one device pass whose output is cut into the JAX package's
+slabs (``dispatch_packed``); ``pull_packed`` polls abort before each slab,
+and on the card copies each on a copy stream of its own, so a frame's pull
+overlaps the passes dispatched after it.  A format with an integer channel
+wider than 23 bits ships float colors, packed on the host by the exact
+packer (``packing.pack_flat``).  Strips (``render_strip_composite``,
+``render_strip_box``) trace a band of rows in linear pixel order.
 """
 
 from __future__ import annotations
@@ -165,15 +170,21 @@ def _ray_coords(start, w, count, device):
     return (idx % w).to(f32), (idx // w).to(f32), None
 
 
-def _frame_groups(n_tiles):
-    """(start, count) of every ray group of a frame: the JAX package's slab
-    split (at most 4 slabs) and group split (at most MAX_GROUP_TILES tiles),
-    so the port forms the same 512-ray blocks of the same pixels."""
+def _frame_slabs(n_tiles):
+    """(first tile, tiles) of every slab of a frame: the JAX package's split
+    (``dispatch_packed``, ntracer_tpu/engine/wavefront.py:1666-1673) into at
+    most 4 slabs, one for a frame of fewer than 8 tiles."""
     n_slabs = max(1, min(4, n_tiles // 4))
     per = -(-n_tiles // n_slabs)
+    return [(s0, min(per, n_tiles - s0)) for s0 in range(0, n_tiles, per)]
+
+
+def _frame_groups(n_tiles):
+    """(start, count) of every ray group of a frame: the JAX package's slab
+    split (``_frame_slabs``) and group split (at most MAX_GROUP_TILES
+    tiles), so the port forms the same 512-ray blocks of the same pixels."""
     groups = []
-    for s0 in range(0, n_tiles, per):
-        nt = min(per, n_tiles - s0)
+    for s0, nt in _frame_slabs(n_tiles):
         gt = min(nt, MAX_GROUP_TILES)
         while nt % gt:
             gt -= 1
@@ -388,10 +399,28 @@ def get_device_scene(scene, device):
     return cfg, arrs, flat
 
 
+def _to_device(device, *arrays):
+    """Small float32 host arrays -> tensors on ``device``.  On the card in
+    one copy from pinned memory that does not wait for the device: a plain
+    host-to-device copy synchronizes the stream, so a frame's dispatch
+    would wait for the frames dispatched before it."""
+    arrays = [np.asarray(a, np.float32) for a in arrays]
+    host = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays]))
+    device = torch.device(device)
+    if device.type == "cuda":
+        host = host.pin_memory().to(device, non_blocking=True)
+    out = []
+    off = 0
+    for a in arrays:
+        out.append(host[off:off + a.size].view(a.shape))
+        off += a.size
+    return out
+
+
 def _scene_dyn(scene, device):
-    return {k: torch.tensor(list(getattr(scene, k)), dtype=f32,
-                            device=device)
-            for k in ("ambient", "bg1", "bg2", "bg3")}
+    keys = ("ambient", "bg1", "bg2", "bg3")
+    return dict(zip(keys, _to_device(device, *(list(getattr(scene, k))
+                                                for k in keys))))
 
 
 # ---------------------------------------------------------------------------
@@ -1224,19 +1253,27 @@ def _frame_packed_box(d, cam_origin, cam_t, fov_params, groups, w, key):
 
 
 def _needs_host_pack(fmt) -> bool:
-    """Integer channels wider than 23 bits need the exact host packer."""
+    """Integer channels wider than 23 bits exceed what the device packer's
+    float32 rounding carries: such a format ships float colors and is packed
+    on the host with the reference's exact 64-bit math (12 bytes a pixel
+    cross to the host instead of ``bytes_per_pixel``)."""
     return any((not ch.tfloat) and ch.bit_size > 23 for ch in fmt.channels)
+
+
+def _camera(scene, width, height, device):
+    """The view's ray parameters and the camera's origin and axes on
+    ``device``."""
+    scene._set_view_size(width, height)
+    fov = _fov_params(width, height, scene.fov)
+    cam_origin, cam_t = _to_device(device, scene._cam._origin,
+                                   scene._cam._t)
+    return fov, cam_origin, cam_t
 
 
 def _frame(scene, width, height, key, device, masks=None):
     """Dispatch one frame on ``device``; returns the device tensor."""
     device = torch.device(device)
-    scene._set_view_size(width, height)
-    fov = _fov_params(width, height, scene.fov)
-    cam_origin = torch.as_tensor(np.asarray(scene._cam._origin, np.float32),
-                                 device=device)
-    cam_t = torch.as_tensor(np.asarray(scene._cam._t, np.float32),
-                            device=device)
+    fov, cam_origin, cam_t = _camera(scene, width, height, device)
     groups = _frame_groups(-(-(width * height) // TILE))
     check_scene(scene, (CompositeScene, BoxScene))
     if isinstance(scene, CompositeScene):
@@ -1249,12 +1286,12 @@ def _frame(scene, width, height, key, device, masks=None):
 
 
 def frame_device_arrays(scene, fmt, device):
-    """Dispatch one full frame and return the packed device tensor without
-    pulling it to the host (for timing the device's work)."""
-    if _needs_host_pack(fmt):
-        raise _unsupported("integer channels wider than 23 bits", 13)
-    return _frame(scene, fmt.width, fmt.height, packing.format_key(fmt),
-                  device)
+    """Dispatch one full frame and return its device tensor without pulling
+    it to the host: the packed int32 stream, or for a format that
+    ``_needs_host_pack`` the (R, 3) float colors, in linear pixel order
+    (padded to whole tiles)."""
+    key = None if _needs_host_pack(fmt) else packing.format_key(fmt)
+    return _frame(scene, fmt.width, fmt.height, key, device)
 
 
 def frame_colors(scene, width, height, device, masks=False):
@@ -1280,8 +1317,26 @@ def frame_colors(scene, width, height, device, masks=False):
 
 
 def dispatch_packed(scene, fmt, device):
-    """Dispatch one full frame; returns ``[(start_px, device_tensor)]``."""
-    return [(0, frame_device_arrays(scene, fmt, device))]
+    """Dispatch one full frame on ``device``; returns its slabs,
+    ``[(start_px, tensor, ready)]``, whose pulls complete the frame.
+
+    The frame is one pass over all its rays; its output is cut into the
+    JAX package's slabs (``_frame_slabs``), views of the one tensor, so
+    abort is polled as often as there.  ``ready`` is a CUDA event recorded
+    after the pass on the device's current stream (None on the CPU).  All
+    scene state is captured here: the caller may change the scene as soon
+    as this returns."""
+    out = frame_device_arrays(scene, fmt, device)
+    # a row of the packed stream holds 4 pixels, a row of colors one
+    rows_px = 4 if out.dtype == torch.int32 else 1
+    ready = None
+    if out.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(out.device))
+    n_tiles = -(-(fmt.width * fmt.height) // TILE)
+    return [(s0 * TILE,
+             out[s0 * TILE // rows_px:(s0 + nt) * TILE // rows_px], ready)
+            for s0, nt in _frame_slabs(n_tiles)]
 
 
 def _write_pixels(view, fmt, data, start_px, total):
@@ -1304,15 +1359,40 @@ def _write_pixels(view, fmt, data, start_px, total):
         p += n
 
 
+def _to_host(data, ready):
+    """A slab's values as a numpy array.  A slab on the card is copied on a
+    copy stream that waits only for its frame's pass (``ready``), into
+    pinned memory, and only that copy is waited for: a pull issued after
+    the next frame's work was enqueued on the device's stream does not wait
+    for that work."""
+    if not data.is_cuda:
+        return data.numpy()
+    stream = torch.cuda.Stream(data.device)
+    host = torch.empty(data.shape, dtype=data.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        host.copy_(data, non_blocking=True)
+        # the caching allocator keeps the slab until the copy has read it
+        data.record_stream(stream)
+        copied = torch.cuda.Event()
+        copied.record(stream)
+    copied.synchronize()
+    return host.numpy()
+
+
 def pull_packed(slabs, fmt, view, abort_check) -> bool:
     """Pull dispatched slabs into the writable byte ``view``; returns
-    False when aborted."""
+    False when aborted (polled before each slab).  A packed int32 stream is
+    the pixels' bytes; float colors are packed here, exactly."""
     total = fmt.width * fmt.height
-    for start_px, dev in slabs:
+    for start_px, dev, ready in slabs:
         if abort_check():
             return False
-        data = dev.cpu().numpy().view(np.uint8).reshape(
-            -1, fmt.bytes_per_pixel)
+        data = _to_host(dev, ready)
+        if data.dtype == np.int32:
+            data = data.view(np.uint8).reshape(-1, fmt.bytes_per_pixel)
+        else:
+            data = packing.pack_flat(data[:total - start_px], fmt)
         _write_pixels(view, fmt, data, start_px, total)
     return True
 
@@ -1324,3 +1404,63 @@ def render_packed(scene, fmt, view, abort_check, device) -> bool:
         return False
     slabs = dispatch_packed(scene, fmt, device)
     return pull_packed(slabs, fmt, view, abort_check)
+
+
+# ---------------------------------------------------------------------------
+# Strips
+# ---------------------------------------------------------------------------
+
+def _strip_coords(width, y0, nrows):
+    """Pixel coordinates of rows ``y0`` .. ``y0 + nrows - 1`` in linear
+    order (no tile swizzle), as the JAX package's strips take them."""
+    xs, ys = np.meshgrid(np.arange(width, dtype=np.float32),
+                         np.arange(y0, y0 + nrows, dtype=np.float32))
+    return xs.ravel(), ys.ravel()
+
+
+def _tiled(fn, xs, ys, device):
+    """``fn`` over batches of TILE rays, the last padded by pixel (0, 0),
+    so the walks form the blocks of the JAX package's strips.  ``fn`` takes
+    (TILE,) coordinates on ``device`` to (3, TILE) colors; -> (n, 3) numpy
+    float32."""
+    n = xs.shape[0]
+    out = np.empty((n, 3), dtype=np.float32)
+    for s in range(0, n, TILE):
+        e = min(s + TILE, n)
+        txs = np.zeros(TILE, np.float32)
+        tys = np.zeros(TILE, np.float32)
+        txs[:e - s] = xs[s:e]
+        tys[:e - s] = ys[s:e]
+        colorsT = fn(torch.from_numpy(txs).to(device),
+                     torch.from_numpy(tys).to(device))
+        out[s:e] = colorsT[:, :e - s].T.cpu().numpy()
+    return out
+
+
+def render_strip_composite(scene, fmt, y0, nrows, device):
+    """Float colors of ``nrows`` rows of a composite scene's frame from row
+    ``y0``: (nrows, width, 3) numpy float32."""
+    device = torch.device(device)
+    cfg, arrs, _flat = get_device_scene(scene, device)
+    fov, cam_origin, cam_t = _camera(scene, fmt.width, fmt.height, device)
+    dyn = _scene_dyn(scene, device)
+
+    def colors(xs, ys):
+        oT, dT = make_rays(cam_origin, cam_t, *fov, xs, ys)
+        return _ray_colors_T(arrs, cfg, dyn, oT, dT)
+
+    out = _tiled(colors, *_strip_coords(fmt.width, y0, nrows), device)
+    return out.reshape(nrows, fmt.width, 3)
+
+
+def render_strip_box(scene, fmt, y0, nrows, device):
+    """``render_strip_composite`` of a BoxScene."""
+    device = torch.device(device)
+    check_scene(scene, BoxScene)
+    fov, cam_origin, cam_t = _camera(scene, fmt.width, fmt.height, device)
+
+    def colors(xs, ys):
+        return _box_colors(scene.dimension, cam_origin, cam_t, fov, xs, ys)
+
+    out = _tiled(colors, *_strip_coords(fmt.width, y0, nrows), device)
+    return out.reshape(nrows, fmt.width, 3)

@@ -4,20 +4,23 @@ types and the renderer.
 The Python API surface of the reference's ``render`` extension module
 (src/render.cpp): ``Color``, ``Material``, ``Channel``, ``ImageFormat``,
 ``ChannelList``, ``Scene``, ``LockedError``, ``BlockingRenderer``,
-``get_optimized_tracern`` and the ``_*_unpickle`` functions -- the port's own
-copy of ``ntracer_tpu/render.py``'s host types (numpy only).
+``CallbackRenderer``, ``get_optimized_tracern`` and the ``_*_unpickle``
+functions -- the port's own copy of ``ntracer_tpu/render.py``'s host types
+(numpy only).
 
-The renderer keeps the same host-visible contract as the JAX package's: a
+The renderers keep the same host-visible contract as the JAX package's: a
 blocking render returns False when aborted, the scene is locked while a
-render is in flight, and a second concurrent render on one renderer raises.
-The frame runs on the renderer's device: ``"cuda"`` by default, ``"cpu"``
-for the plain-torch path.  There is no fallback from one device to another.
+render is in flight, a second concurrent render on one blocking renderer
+raises, and a callback renderer queues frames in FIFO order.  Frames run on
+the renderer's device: ``"cuda"`` by default, ``"cpu"`` for the plain-torch
+path.  There is no fallback from one device to another.
 """
 
 from __future__ import annotations
 
 import importlib
 import threading
+import traceback
 
 import numpy as np
 import torch
@@ -28,7 +31,8 @@ f32 = np.float32
 
 __all__ = [
     "Color", "Material", "Channel", "ImageFormat", "ChannelList", "Scene",
-    "LockedError", "BlockingRenderer", "get_optimized_tracern",
+    "LockedError", "BlockingRenderer", "CallbackRenderer",
+    "get_optimized_tracern",
 ]
 
 # largest channel bit size that fits a portable long (render.cpp:47)
@@ -380,14 +384,17 @@ class Scene:
     def calculate_color(self, x, y, width, height):
         raise NotImplementedError
 
-    def _render_strip(self, fmt: ImageFormat, y0: int, nrows: int) -> np.ndarray:
-        """Render ``nrows`` rows starting at ``y0``; returns (nrows, W, 3) f32."""
+    def _render_strip(self, fmt: ImageFormat, y0: int, nrows: int,
+                      device="cuda") -> np.ndarray:
+        """Render ``nrows`` rows starting at ``y0`` on ``device``; returns
+        (nrows, W, 3) f32."""
         raise NotImplementedError
 
 
 # --------------------------------------------------------------------------
-# Renderer (render.cpp:769-966).  The whole frame is one device dispatch;
-# abort is polled before the dispatch and before the pull.
+# Renderers (render.cpp:651-966).  The whole frame is one device pass, cut
+# into the JAX package's slabs; abort is polled before the dispatch and
+# before each slab's pull.
 # --------------------------------------------------------------------------
 
 def _resolve_device(device):
@@ -414,16 +421,23 @@ class _RendererBase:
 
     def _draw(self, dest, fmt: ImageFormat, sc: Scene) -> bool:
         """Render into dest buffer; returns False if aborted (polled before
-        the dispatch and before the pull)."""
+        the dispatch and before each slab's pull)."""
         from .engine import wavefront
 
-        view = memoryview(dest)
-        if view.readonly:
-            raise BufferError("buffer is not writable")
-        view = view.cast("B")
-        _check_buffer_size(fmt, view)
+        view = _byte_view(dest, fmt)
         return wavefront.render_packed(sc, fmt, view, lambda: self._abort,
                                        self._device)
+
+
+def _byte_view(dest, fmt):
+    """A writable byte view of ``dest``, large enough for a frame of
+    ``fmt``."""
+    view = memoryview(dest)
+    if view.readonly:
+        raise BufferError("buffer is not writable")
+    view = view.cast("B")
+    _check_buffer_size(fmt, view)
+    return view
 
 
 class BlockingRenderer(_RendererBase):
@@ -451,6 +465,98 @@ class BlockingRenderer(_RendererBase):
 
     def signal_abort(self):
         self._abort = True
+
+
+class CallbackRenderer(_RendererBase):
+    """Asynchronous frame renderer (render.cpp:651-766): ``begin_render``
+    returns after the device dispatch, and a worker thread calls
+    ``callback(renderer)`` once the frame's bytes are in the buffer.
+
+    Several frames may be in flight; they complete and are called back in
+    FIFO order.  As in the JAX package, the scene is locked only for the
+    dispatch, which captures all scene state (geometry, camera, config): a
+    change made to the scene after ``begin_render`` returns does not reach
+    the frame in flight, so an animation loop can dispatch frame N+1 with
+    a moved camera while frame N's bytes are pulled.  On the card each
+    slab's pull runs on a copy stream that waits only for its own frame
+    (``wavefront._to_host``)."""
+
+    def __init__(self, threads=0, device="cuda"):
+        super().__init__(device)
+        self._threads = threads  # accepted for API compatibility
+        self._worker = None
+        self._done = threading.Condition(self._mut)
+        self._queue = []
+        self._jobs = 0
+
+    def begin_render(self, dest, format, scene, callback):
+        from .engine import wavefront
+
+        view = _byte_view(dest, format)
+        scene._lock()
+        try:
+            slabs = wavefront.dispatch_packed(scene, format, self._device)
+        finally:
+            scene._unlock()
+
+        with self._mut:
+            self._busy = True
+            self._jobs += 1
+            self._queue.append((slabs, view, format, callback))
+            if self._worker is None:
+                self._worker = threading.Thread(target=self._run, daemon=True)
+                self._worker.start()
+            self._done.notify_all()
+
+    def _run(self):
+        # one persistent pull worker, parked on the condition between jobs
+        # (the reference parks its workers the same way, render.cpp:495-563)
+        from .engine import wavefront
+        while True:
+            with self._mut:
+                while not self._queue:
+                    self._busy = False
+                    self._done.wait()
+                slabs, view, fmt, callback = self._queue.pop(0)
+            try:
+                ok = False
+                try:
+                    ok = wavefront.pull_packed(slabs, fmt, view,
+                                               lambda: self._abort)
+                except Exception:
+                    # a failed pull must not end the worker: later frames
+                    # and abort_render's waiters depend on it (the
+                    # reference prints a worker's exception and carries
+                    # on, render.cpp:538-541); the frame gets no callback
+                    traceback.print_exc()
+                if ok:
+                    # the callback runs before the job count drops, so
+                    # abort_render's wait covers it
+                    try:
+                        callback(self)
+                    except Exception:
+                        traceback.print_exc()
+            finally:
+                with self._mut:
+                    self._jobs -= 1
+                    if not self._jobs:
+                        self._done.notify_all()
+
+    def abort_render(self):
+        """Abort the frames in flight and wait until none is left.  From
+        inside a callback, drop the queued frames and return: the running
+        job ends only after its callback returns."""
+        if threading.current_thread() is self._worker:
+            with self._mut:
+                self._jobs -= len(self._queue)
+                self._queue.clear()
+            return
+        with self._mut:
+            if self._jobs:
+                self._abort = True
+                while self._jobs:
+                    self._done.wait()
+            self._abort = False
 
 
 # --------------------------------------------------------------------------

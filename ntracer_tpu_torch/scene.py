@@ -94,11 +94,11 @@ class BoxScene(Scene):
             return np.asarray([intensity] * 3, dtype=f32)
         return np.asarray([0, -intensity, -intensity], dtype=f32)
 
-    def _render_strip(self, fmt, y0, nrows):
-        raise NotImplementedError(
-            "strip rendering is not ported to ntracer_tpu_torch yet "
-            "(ROADMAP.md section 1, item 11); render whole frames with "
-            "BlockingRenderer")
+    def _render_strip(self, fmt, y0, nrows, device="cuda"):
+        """Float colors of rows ``y0`` .. ``y0 + nrows - 1`` of the frame
+        ``fmt`` describes, rendered on ``device``: (nrows, W, 3) float32."""
+        from .engine import wavefront
+        return wavefront.render_strip_box(self, fmt, y0, nrows, device)
 
 
 class _LightList:
@@ -464,11 +464,11 @@ class CompositeScene(Scene):
                 r = base * op + r * (1 - op)
         return r.astype(f32)
 
-    def _render_strip(self, fmt, y0, nrows):
-        raise NotImplementedError(
-            "strip rendering is not ported to ntracer_tpu_torch yet "
-            "(ROADMAP.md section 1, item 11); render whole frames with "
-            "BlockingRenderer")
+    def _render_strip(self, fmt, y0, nrows, device="cuda"):
+        """Float colors of rows ``y0`` .. ``y0 + nrows - 1`` of the frame
+        ``fmt`` describes, rendered on ``device``: (nrows, W, 3) float32."""
+        from .engine import wavefront
+        return wavefront.render_strip_composite(self, fmt, y0, nrows, device)
 
     def __copy__(self):
         """Clone the scene: the k-d tree is cloned too (single-parent

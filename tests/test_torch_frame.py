@@ -298,10 +298,15 @@ def test_scene_of_the_other_package_raises():
 
 
 def test_wide_integer_channels_raise():
+    """A 24-bit integer channel (ROADMAP item 13) renders: its bytes are the
+    exact host packer's of the frame's float colors."""
     fmt = ImageFormat(32, 32, [Channel(24, 1, 0, 0), Channel(8, 0, 1, 0)])
-    with pytest.raises(NotImplementedError, match="23 bits"):
-        BlockingRenderer(device="cpu").render(
-            bytearray(fmt.pitch * 32), fmt, random_scene(3, n=10, seed=1))
+    scene = random_scene(3, n=10, seed=1)
+    buf = bytearray(fmt.pitch * 32)
+    assert BlockingRenderer(device="cpu").render(buf, fmt, scene)
+    colors = pwf.frame_colors(scene, 32, 32, "cpu")
+    assert bytes(buf) == ppack.pack_rows(colors, fmt).tobytes()
+    assert any(buf)
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

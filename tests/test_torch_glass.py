@@ -350,7 +350,7 @@ def test_frame_masks_say_what_the_engine_found(case):
 def test_solids_and_high_dimensions_still_raise():
     """Solids (glass ones too, ROADMAP item 8) and transparent scenes of
     d > 8 (item 10) render now, the glass cube showing what lies behind it;
-    what still raises is a format the port does not pack (item 13)."""
+    a format with a 24-bit channel (item 13) packs on the host, exactly."""
     nt = NTracer(3)
     glass = Material((1, 1, 1), opacity=0.5)
 
@@ -376,6 +376,6 @@ def test_solids_and_high_dimensions_still_raise():
     opaque = pwf.frame_colors(scene_with(Material((1, 1, 1))), 32, 32, "cpu")
     assert (np.abs(see_through - opaque).max(axis=2) > 1e-3).sum() > 20
     wide = ImageFormat(32, 32, [Channel(24, 1, 0, 0), Channel(8, 0, 1, 0)])
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        BlockingRenderer(device="cpu").render(
-            bytearray(wide.pitch * 32), wide, scenes[0])
+    buf = bytearray(wide.pitch * 32)
+    assert BlockingRenderer(device="cpu").render(buf, wide, scenes[0])
+    assert bytes(buf) == pwf.packing.pack_rows(see_through, wide).tobytes()

@@ -1606,3 +1606,67 @@ def test_grid_nearest_kernel_launch_info(cuda):
             assert info["rays_per_thread"] == (2 if shared else 1)
             assert info["ring_slots"] >= 2 and info["blocks_per_sm"] >= 1
             assert info["registers"] <= 255
+
+
+def test_card_callback_frames_equal_blocking_frames(cuda):
+    """CallbackRenderer on the card: three frames in flight, the camera
+    moved after each dispatch; each buffer holds BlockingRenderer's bytes
+    for its camera (the pull's copy stream waits for its own frame, not for
+    the frames dispatched after it), in FIFO order."""
+    import threading
+    from ntracer_tpu_torch import CallbackRenderer
+    nt = api().NTracer(4)
+    scene = polytope_scene()
+    cam = scene.get_camera()
+    fmt = rgb8(W, H)
+
+    def advance():
+        c = scene.get_camera()
+        c.transform(nt.Matrix.rotation(c.axes[0], c.axes[2], 0.3))
+        c.normalize()
+        scene.set_camera(c)
+
+    blocking = []
+    for _ in range(3):
+        buf = bytearray(fmt.pitch * H)
+        assert BlockingRenderer().render(buf, fmt, scene)
+        blocking.append(bytes(buf))
+        advance()
+    scene.set_camera(cam)
+    cr = CallbackRenderer()
+    bufs = [bytearray(fmt.pitch * H) for _ in range(3)]
+    order = []
+    done = threading.Event()
+
+    def callback(k):
+        def cb(_r):
+            order.append(k)
+            if len(order) == 3:
+                done.set()
+        return cb
+
+    for k in range(3):
+        cr.begin_render(bufs[k], fmt, scene, callback(k))
+        advance()
+    assert done.wait(timeout=120)
+    assert order == [0, 1, 2]
+    assert [bytes(b) for b in bufs] == blocking
+
+
+def test_card_wide_channel_frame_equals_cpu_bytes(cuda):
+    """A 30/30/4 frame on the card: float colors from the device, packed on
+    the host; its bytes equal the exact packer's of the card's colors, and
+    the CPU's bytes (the card's colors equal the CPU's)."""
+    a = api()
+    fmt = a.ImageFormat(W, H, [a.Channel(30, 1, 0, 0), a.Channel(30, 0, 1, 0),
+                               a.Channel(4, 0, 0, 1)])
+    scene = lit_scene_3d()
+    card = bytearray(fmt.pitch * H)
+    assert BlockingRenderer().render(card, fmt, scene)
+    colors = pwf.frame_colors(scene, W, H, cuda)
+    assert bytes(card) == pwf.packing.pack_rows(colors, fmt).tobytes()
+    cpu = bytearray(fmt.pitch * H)
+    assert BlockingRenderer(device="cpu").render(cpu, fmt, scene)
+    np.testing.assert_allclose(colors, pwf.frame_colors(scene, W, H, "cpu"),
+                               rtol=2e-6, atol=2e-7)
+    assert card == cpu

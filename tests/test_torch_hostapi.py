@@ -184,8 +184,14 @@ def test_pickles_stay_inside_the_port(d):
 
 
 def test_strip_rendering_names_its_item():
-    scene = random_scene(3, n=10, seed=1)
-    with pytest.raises(NotImplementedError, match=r"item 11\)"):
-        scene._render_strip(None, 0, 1)
-    with pytest.raises(NotImplementedError, match=r"item 11\)"):
-        ntracer_tpu_torch.NTracer(3).BoxScene()._render_strip(None, 0, 1)
+    """Strips render (ROADMAP item 11): (nrows, W, 3) float32 rows equal to
+    the same rows of the frame, for both scene classes."""
+    from ntracer_tpu_torch.engine import wavefront as pwf
+    fmt = ntracer_tpu_torch.ImageFormat(
+        20, 12, [ntracer_tpu_torch.Channel(8, 1, 0, 0)])
+    for scene in (random_scene(3, n=10, seed=1),
+                  ntracer_tpu_torch.NTracer(3).BoxScene()):
+        strip = scene._render_strip(fmt, 5, 3, device="cpu")
+        assert strip.shape == (3, 20, 3) and strip.dtype == np.float32
+        frame = pwf.frame_colors(scene, 20, 12, "cpu")
+        assert np.array_equal(strip, frame[5:8]) and np.isfinite(strip).all()

@@ -12,10 +12,11 @@ FORBIDDEN = ("jax", "ntracer", "ntracer_tpu")
 
 
 def test_port_runs_without_the_jax_package():
-    """A fresh process imports the port, builds a small lit scene, a lit
-    scene of glass, a mesh from an OBJ file and a lit 9-D scene (the grid
-    walks), renders them on the CPU and unpickles one of its objects; no
-    forbidden module was loaded on the way."""
+    """A fresh process imports the port (its pygame renderer and its
+    launcher too), builds a small lit scene, a lit scene of glass, a mesh
+    from an OBJ file and a lit 9-D scene (the grid walks), renders them on
+    the CPU and unpickles one of its objects; no forbidden module was
+    loaded on the way."""
     code = (
         "import pickle, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -23,6 +24,8 @@ def test_port_runs_without_the_jax_package():
         "import ntracer_tpu_torch\n"
         "from ntracer_tpu_torch import BlockingRenderer, NTracer, Material\n"
         "import ntracer_tpu_torch.tracer4, ntracer_tpu_torch.tracern\n"
+        "import ntracer_tpu_torch.pygame_render, ntracer_tpu_torch.alias\n"
+        "from ntracer_tpu_torch import CallbackRenderer, __version__\n"
         "from ntracer_tpu_torch.engine import (_build, grid_kernels,\n"
         "                                      wavefront)\n"
         "from ntracer_tpu_torch.wavefront_obj import load_obj\n"

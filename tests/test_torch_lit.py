@@ -241,8 +241,8 @@ def test_lit_frame_matches_jax_and_oracle(case, monkeypatch):
 def test_lit_scenes_render_and_unsupported_ones_name_their_item():
     """A lit scene, a reflective lit scene and a lit scene of glass render;
     the transparent occlusion query refuses a pool without an opacity row
-    instead of treating it as opaque, and a format the port does not pack
-    still names its ROADMAP item."""
+    instead of treating it as opaque, and a format with a 24-bit channel
+    (ROADMAP item 13) packs on the host, exactly."""
     fmt = rgb8(32, 32)
     for scene in (lit_scene_3d(), reflective_scene(shadows=True),
                   glass_scene(200, lit=True)):
@@ -258,9 +258,11 @@ def test_lit_scenes_render_and_unsupported_ones_name_their_item():
         pwf.occlusion(arrs, tcfg, z, z, torch.zeros(512),
                       torch.zeros(512, dtype=torch.int32))
     wide = ImageFormat(32, 32, [Channel(24, 1, 0, 0), Channel(8, 0, 1, 0)])
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        BlockingRenderer(device="cpu").render(bytearray(wide.pitch * 32),
-                                              wide, lit_scene_3d())
+    scene = lit_scene_3d()
+    buf = bytearray(wide.pitch * 32)
+    assert BlockingRenderer(device="cpu").render(buf, wide, scene)
+    assert bytes(buf) == pwf.packing.pack_rows(
+        pwf.frame_colors(scene, 32, 32, "cpu"), wide).tobytes()
 
 
 def test_shadows_change_the_frame():
