@@ -73,6 +73,25 @@ against the CPU's; and the apps, ``scripts/polytope.py 5 3 3`` and
 ``scripts/hypercube.py -d 4`` with ``--benchmark`` at 1024x1024, run
 unmodified through ``python -m ntracer_tpu_torch.alias``.
 
+Then several devices on the one card (phase "multi-device"): a mesh there
+is shards of ``cuda:0`` run one after another
+(``parallel.mesh.make_mesh(..., devices=[cuda:0] * n)``), so every code
+path of the sharding runs, copies between two cards excepted.  The
+flagship's frame split over a px mesh of four through ``BlockingRenderer``
+(``wavefront.render_devices`` giving the card four times) has the single
+frame's bytes; ``parallel.mesh.render_frame`` over prim meshes 1x2 and 2x2
+of the lit 120-cell (2.1 and 2.2 a shard), the glass 120-cell (2.3, 2.4,
+the K merge and the ``filt`` product), "solids d=4" (solids on shard 0
+only) and the orthoplex d=10 (2.9 and 2.10 a shard), and 1x2 of the mesh
+(each half under the line: 2.1 and 2.2 in place of 2.5 and 2.6), each
+against the single frame (bytes that differ), held to the oracle at the
+pixels of the scene's oracle check, with the walk each shard takes, the
+walks a shard ran, the kernel launches and the host and device frame
+times beside the single frame's.  And the counters (phase "counters"):
+``wavefront.frame_stats`` of the flagship, lit, lit 120-cell, glass
+120-cell, mesh, orthoplex and glass orthoplex frames, and the card's
+counts of a small lit glass scene equal to the CPU's.
+
 Each streaming kernel is held against its twin at the mesh's full
 wavefronts, and against its sibling for pools under the line (kernels
 2.1-2.4) on the same inputs (2.1, 2.2 and 2.4 launch 2.5's, 2.6's and 2.8's
@@ -1218,6 +1237,209 @@ def apps(size, name_limit):
             raise SystemExit(f"{app[0]} failed on the port")
 
 
+def shard_walks(run):
+    """Run ``run()`` and count the pool walks (traces and shadow queries,
+    ``wavefront._trace_walk`` and ``_occlusion_walk``) of each prim shard,
+    by the shard's index, with the walks' counters of that shard
+    (``frame_stats``' keys, the walks' own stats argument): {shard:
+    {"trace": n, "shadow": n, "chunks_visited": n, ...}}."""
+    from ntracer_tpu_torch.engine import wavefront as wf
+    counts = {}
+    trace_walk, occlusion_walk = wf._trace_walk, wf._occlusion_walk
+
+    def counting(fn, kind):
+        def walk(arrs, *a):
+            j = int(arrs["tri_base"]) // arrs.get("shard_rows", 1)
+            c = counts.setdefault(j, {"trace": 0, "shadow": 0})
+            c[kind] += 1
+            # the last argument is the walk's stats dict
+            return fn(arrs, *a[:-1], c)
+        return walk
+
+    wf._trace_walk = counting(trace_walk, "trace")
+    wf._occlusion_walk = counting(occlusion_walk, "shadow")
+    try:
+        out = run()
+    finally:
+        wf._trace_walk, wf._occlusion_walk = trace_walk, occlusion_walk
+    return out, {j: {k: int(v) for k, v in c.items()}
+                 for j, c in counts.items()}
+
+
+def shard_kind(arrs):
+    """Which walks a pool (or a prim shard) takes, and its layout's size."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    from ntracer_tpu_torch.engine import wavefront as wf
+    if wf._grid(arrs):
+        return f"grid walks 2.9/2.10, {arrs['kern_gt'].shape[1]} triangles"
+    if wf._scan(arrs):
+        return f"chunk scan, {arrs['tri_pack'].shape[0]} triangles"
+    n = arrs["res_klo"].shape[0]
+    mib = rk.pool_bytes(n * rk.CK, arrs["res_klo"].shape[-1]) / 2 ** 20
+    walks = "streaming walks 2.5-2.8" if wf._streams(arrs) \
+        else "walks 2.1-2.4"
+    return f"{walks}, {n} chunks, {mib:.1f} MiB"
+
+
+def byte_diffs(a, b, fmt):
+    """(bytes that differ, most codes apart) of two (H, W, 3) float frames
+    packed to ``fmt``."""
+    from ntracer_tpu_torch.engine import packing
+    pa = packing.pack_flat(a.reshape(-1, 3), fmt).astype(int)
+    pb = packing.pack_flat(b.reshape(-1, 3), fmt).astype(int)
+    return int((pa != pb).sum()), int(np.abs(pa - pb).max())
+
+
+def multi_device(flagship, paths, renderer, fmt, dev, name_limit, launches,
+                 reps=3):
+    """The sharded paths on one card (phase "multi-device"): a mesh there is
+    several shards on ``dev`` (``make_mesh(..., devices=[dev] * n)``).
+
+    The flagship's frame split over a px mesh of four through the renderer
+    (``wavefront.render_devices`` giving ``dev`` four times): its bytes
+    equal the single frame's.  Then ``paths``, (label, scene, reps, meshes),
+    each frame of ``parallel.mesh.render_frame`` over each (n_px, n_prim)
+    against the single frame of the scene (bytes that differ, worst color
+    difference), held to the oracle at the pixels of the scene's last
+    oracle check, with each shard's walk, its walks and their counters
+    beside the single frame's, the kernel launches, and the host and
+    device frame times beside the single frame's (a mesh on one card only
+    adds work: no gain is claimed).
+    Fills ``launches`` with each path's kernel launches."""
+    from ntracer_tpu_torch.engine import wavefront as wf
+    from ntracer_tpu_torch.parallel import mesh as pmesh
+    dev = torch.device(dev)
+    one = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    four = [one] * 4
+    devices = wf.render_devices
+
+    def render(sc, buf_):
+        t1 = time.perf_counter()
+        if not renderer.render(buf_, fmt, sc):
+            raise SystemExit("render was aborted")
+        return 1000 * (time.perf_counter() - t1)
+
+    single_buf = bytearray(fmt.pitch * fmt.height)
+    single_ms = [render(flagship, single_buf) for _ in range(reps + 1)][1:]
+    single_dev = time_cuda(lambda: wf.dispatch_packed(flagship, fmt, dev),
+                           reps)
+    wf.render_devices = lambda device: four
+    try:
+        buf = bytearray(fmt.pitch * fmt.height)
+        render(flagship, buf)
+        reset_launches()
+        render(flagship, buf)
+        got = read_launches()
+        slabs = wf.dispatch_packed(flagship, fmt, dev)
+        px_ms = [render(flagship, buf) for _ in range(reps)]
+        px_dev = time_cuda(lambda: wf.dispatch_packed(flagship, fmt, dev),
+                           reps)
+    finally:
+        wf.render_devices = devices
+    launches["px 4x1 flagship"] = got
+    differ = int((np.frombuffer(bytes(buf), np.uint8)
+                  != np.frombuffer(bytes(single_buf), np.uint8)).sum())
+    print(f"   px 4x1 flagship through BlockingRenderer: {len(slabs)} slabs "
+          f"from pixels {[s_ for s_, _t, _r in slabs]}, launches "
+          f"{json.dumps({k: v for k, v in got.items() if v})}; {differ} "
+          f"bytes differ from the single frame; host frame median "
+          f"{np.median(px_ms):.3f} ms (single {np.median(single_ms):.3f}), "
+          f"device frame {px_dev:.4f} ms (single {single_dev:.4f}) "
+          f"[{name_limit}]")
+    if differ or len(slabs) != 4 or got["nearest_hit"] != 4:
+        raise SystemExit("the px 4x1 frame is not the single frame's, or "
+                         "did not take one walk a shard")
+    colors = pmesh.render_frame(flagship, fmt, pmesh.make_mesh(4, 1, four))
+    oracle_recheck(flagship, colors)
+    flagship._torch_mesh_cache = None
+
+    for label, sc, reps_, meshes in paths:
+        single = wf.frame_colors(sc, W, H, dev)
+        s_host = []
+        for _ in range(reps_):
+            t1 = time.perf_counter()
+            wf.frame_colors(sc, W, H, dev)
+            s_host.append(1000 * (time.perf_counter() - t1))
+        s_dev = time_cuda(lambda: wf._frame(sc, W, H, None, dev), reps_)
+        # the counters of the frame in render_frame's own ray order (rows
+        # of pixels, not 32x16 tiles) on one device: what the shards'
+        # counters add up against
+        _c, s_walks = shard_walks(lambda: pmesh.render_frame(
+            sc, fmt, pmesh.make_mesh(1, 1, [one])))
+        print(f"   {label}: a 1x1 mesh's walks {json.dumps(s_walks)}")
+        for n_px, n_prim in meshes:
+            name = f"{label} {n_px}x{n_prim}"
+            mesh = pmesh.make_mesh(n_px, n_prim, [one] * (n_px * n_prim))
+            t1 = time.perf_counter()
+            rows, _cfg = pmesh._mesh_arrays(sc, mesh)
+            build_s = time.perf_counter() - t1
+            shards = rows[0].get("shards", [rows[0]])
+            for j, shard in enumerate(shards):
+                print(f"   {name}: shard {j} of {len(shards)} takes the "
+                      f"{shard_kind(shard)}")
+            reset_launches()
+            colors, walks = shard_walks(
+                lambda: pmesh.render_frame(sc, fmt, mesh))
+            launches[name] = read_launches()
+            host = []
+            for _ in range(reps_):
+                t1 = time.perf_counter()
+                pmesh.render_frame(sc, fmt, mesh)
+                host.append(1000 * (time.perf_counter() - t1))
+            xs, ys = wf._strip_coords(W, 0, H)
+            fn, rows = pmesh.get_sharded_renderer(sc, mesh, W * H)
+            dev_ms = time_cuda(lambda: fn(rows, sc, W, H, xs, ys), reps_)
+            differ, codes = byte_diffs(colors, single, fmt)
+            worst = float(np.abs(colors - single).max())
+            print(f"   {name}: layouts {build_s:.2f} s; walks by shard "
+                  f"{json.dumps(walks)}; launches "
+                  f"{json.dumps({k: v for k, v in launches[name].items() if v})}"
+                  f"; {differ} bytes differ from the single frame (at most "
+                  f"{codes} codes), worst color {worst:.3e}; host frame "
+                  f"median {np.median(host):.3f} ms (single "
+                  f"{np.median(s_host):.3f}), device frame {dev_ms:.4f} ms "
+                  f"(single {s_dev:.4f}) [{name_limit}]")
+            if n_prim > 1 and (len(walks) != n_prim or
+                               any(c["trace"] < n_px for c in walks.values())):
+                raise SystemExit(f"the {name} frame did not walk every "
+                                 f"shard")
+            if sum(launches[name].values()) < n_px * n_prim \
+                    and not wf._scan(shards[0]):
+                raise SystemExit(f"the {name} frame launched no kernel a "
+                                 f"shard")
+            if differ > W * H * 3 // 1000 or codes > 2:
+                raise SystemExit(f"the {name} frame differs from the "
+                                 f"single frame")
+            oracle_recheck(sc, colors)
+            sc._torch_mesh_cache = None
+
+
+def counters(paths, small, dev, name_limit):
+    """``frame_stats`` of each of ``paths`` ((label, scene)) on the card
+    (phase "counters"), and the card's counts of the small scene ``small``
+    equal to the CPU's: its frame of 32x32 pixels with the frame's TILE
+    lowered to 1,024 rays, so that the CPU's twins take seconds."""
+    from ntracer_tpu_torch.engine import wavefront as wf
+    out = {}
+    for label, sc in paths:
+        t1 = time.perf_counter()
+        out[label] = wf.frame_stats(sc, W, H, dev)
+        print(f"   {label}: {json.dumps(out[label])} "
+              f"({1000 * (time.perf_counter() - t1):.1f} ms)")
+    tile = wf.TILE
+    wf.TILE = 1024
+    try:
+        card_ = wf.frame_stats(small, 32, 32, dev)
+        host = wf.frame_stats(small, 32, 32, "cpu")
+    finally:
+        wf.TILE = tile
+    print(f"   small lit glass scene, 32x32 (1,024 rays): card "
+          f"{json.dumps(card_)}, CPU {json.dumps(host)}")
+    if card_ != host or not card_.get("occl_chunks_visited"):
+        raise SystemExit("the card's counters differ from the CPU's")
+    return out
+
+
 _ORACLE_SCENE = None
 
 
@@ -1239,14 +1461,32 @@ def oracle_colors(scene, pixels):
         _ORACLE_SCENE = None
 
 
+# (pixels, the oracle's colors there, tolerance) of each scene's last
+# oracle_check, by the scene's id: a later frame of the same view is held to
+# them without asking the oracle again (oracle_recheck)
+ORACLE_REFS = {}
+
+
 def oracle_check(scene, colors, pixels, tol=ORACLE_TOL):
     """Hold ``colors`` (H, W, 3) against the scalar oracle at ``pixels``."""
+    scene._set_view_size(W, H)
+    refs = oracle_colors(scene, pixels)
+    ORACLE_REFS[id(scene)] = (pixels, refs, tol)
+    hold_to_oracle(colors, pixels, refs, tol)
+
+
+def oracle_recheck(scene, colors):
+    """Hold ``colors`` of ``scene``'s view to the oracle's colors at the
+    pixels of its last ``oracle_check``."""
+    hold_to_oracle(colors, *ORACLE_REFS[id(scene)])
+
+
+def hold_to_oracle(colors, pixels, refs, tol):
     if colors.shape != (H, W, 3) or not np.isfinite(colors).all():
         raise SystemExit(f"bad frame colors: shape {colors.shape}")
-    scene._set_view_size(W, H)
     over = []
     worst = 0.0
-    for (x, y), ref in zip(pixels, oracle_colors(scene, pixels)):
+    for (x, y), ref in zip(pixels, refs):
         diff = float(np.abs(ref - colors[y, x]).max())
         worst = max(worst, diff)
         if diff > tol:
@@ -3010,6 +3250,27 @@ def main():
             tol=tol)
         print(f"   {label} oracle {time.perf_counter() - t2:.2f} s "
               f"({ORACLE_WORKERS} processes)")
+    done(t0)
+
+    # the sharded paths: a mesh on the one card, its shards one after
+    # another; the scenes' views are the oracle phase's
+    t0 = phase("multi-device")
+    multi_device(scene, [("lit 120-cell", lit120, 3, [(1, 2), (2, 2)]),
+                         ("glass 120-cell", glass_u, 3, [(1, 2), (2, 2)]),
+                         ("solids d=4", sol4, 3, [(1, 2), (2, 2)]),
+                         ("orthoplex d=10", orth, 3, [(1, 2), (2, 2)]),
+                         ("mesh", mesh, 1, [(1, 2)])],
+                 renderer, fmt, dev, name_limit, launches)
+    done(t0)
+
+    t0 = phase("counters")
+    stats = counters([("flagship", scene), ("lit", lit),
+                      ("lit 120-cell", lit120), ("glass 120-cell", glass),
+                      ("mesh", mesh), ("orthoplex d=10", orth),
+                      ("glass orthoplex d=10", gorth)],
+                     mesh_d3_scene(nt3, glass_m, 120), dev, name_limit)
+    if stats["flagship"]["rays_traced"] != W * H:
+        raise SystemExit("the flagship frame did not trace one ray a pixel")
     done(t0)
 
     bad = [m for m in sys.modules

@@ -34,10 +34,19 @@ overlaps the passes dispatched after it.  A format with an integer channel
 wider than 23 bits ships float colors, packed on the host by the exact
 packer (``packing.pack_flat``).  Strips (``render_strip_composite``,
 ``render_strip_box``) trace a band of rows in linear pixel order.
+
+Several devices (``parallel.mesh``): a renderer of the unindexed ``"cuda"``
+splits a frame's pixels over every card (``render_devices``); a pool split
+into prim shards (``arrs["shards"]``) is walked shard by shard, each on its
+device, and merged on the rays' device (``_trace_shards``,
+``_occlusion_shards``).  ``frame_stats`` counts a frame's rays, chunk
+visits, shadow rays and live bounce rays as the JAX package does; without a
+``stats`` dict the frame runs none of the counting ops.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -70,10 +79,12 @@ ROUNDING_FUZZ = float(np.float32(np.finfo(np.float32).eps * 10))
 GRAZING_SINE = 1e-5
 
 
-def _unsupported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to ntracer_tpu_torch yet "
-        f"(ROADMAP.md section 1, item {item})")
+def _stat(stats, key, count):
+    """Add ``count()`` to the frame's counter ``key`` (the JAX package's
+    ``_stat``).  Without a ``stats`` dict ``count`` is not called: a frame
+    without counters runs none of their ops."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + count()
 
 
 # ---------------------------------------------------------------------------
@@ -243,29 +254,23 @@ def tensors_from_arrays(arrs, device):
 
 def device_arrays(flat):
     """Host (numpy) arrays of the device scene, named as in the JAX
-    package's ``get_device_scene``: the material rows, lights, bounds, and
-    the chunked pool layouts with their slot-indexed rows
-    ``res_slot_pack`` = [fn(d), mat, pool id], for a scene with a
-    transparent material the per-slot opacity row ``res_opa``, and for a
-    pool over ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``: the walks
-    then stream its chunks.  The port's walks have no chunk limit
-    (the JAX package falls back to its XLA scan at 16,383 chunks).
+    package's ``get_device_scene``: the scene's rows (``scene_arrays``) and
+    its pool's layouts (``pool_arrays``)."""
+    return pool_arrays(flat.arrays, flat.config, scene_arrays(flat))
 
-    A scene of more than ``rk.C_PAD`` dimensions gets no chunked layout:
-    its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and, for an opaque
-    pool, the grid walks' layouts ``kern_*``
-    (``grid_kernels.prepare_tri_arrays``), for a transparent one the chunk
-    scan's (``_scan_arrays``).  A scene with solids gets their rows
-    ``sol_*`` and ``sol_base``, the pool id of the first solid."""
+
+def scene_arrays(flat):
+    """The rows of the device scene that are not the pool's: materials
+    ``mat_pack``, lights, bounds, ``tri_base`` (0: the pool's first id) and,
+    for a scene with solids, their rows ``sol_*`` and ``sol_base``, the pool
+    id of the first solid."""
     a = flat.arrays
-    d = flat.config.d
-    n_tris = flat.config.n_tris
     arrs = {k: a[k] for k in ("bound_start", "bound_end", "pl_pos",
                               "pl_color", "gl_dir", "gl_color")}
     if flat.config.n_solids:
         arrs.update({k: a[k] for k in ("sol_type", "sol_orient", "sol_inv",
                                        "sol_pos", "sol_mat")})
-        arrs["sol_base"] = np.int32(n_tris)
+        arrs["sol_base"] = np.int32(flat.config.n_tris)
     arrs["mat_pack"] = np.concatenate([
         np.asarray(a["mat_color"], np.float32),
         np.asarray(a["mat_specular"], np.float32),
@@ -275,13 +280,37 @@ def device_arrays(flat):
         np.asarray(a["mat_spec_exp"], np.float32)[:, None],
     ], axis=1)
     arrs["tri_base"] = np.int32(0)
+    return arrs
+
+
+def pool_arrays(a, cfg, arrs, bins=None, streams=None):
+    """Add to ``arrs`` the layouts of the pool rows ``a`` (``cfg.n_tris``
+    rows of ``tri_*`` and ``cull_*``; a prim shard's slice of the pool,
+    see ``parallel.mesh``) and return it: the chunked pool layouts with
+    their slot-indexed rows ``res_slot_pack`` = [fn(d), mat, pool id - the
+    pool's ``tri_base``], for a scene with a transparent material the
+    per-slot opacity row ``res_opa``, and for a pool over
+    ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``: the walks then stream
+    its chunks.  The port's walks have no chunk limit (the JAX package
+    falls back to its XLA scan at 16,383 chunks).  ``bins`` are the pool's
+    chunks (``rk.centroid_bins``) when the caller has them, ``streams``
+    says whether the pool streams when the caller decides it.
+
+    A scene of more than ``rk.C_PAD`` dimensions gets no chunked layout:
+    its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and, for an opaque
+    pool, the grid walks' layouts ``kern_*``
+    (``grid_kernels.prepare_tri_arrays``), for a transparent one the chunk
+    scan's (``_scan_arrays``)."""
+    d = cfg.d
+    n_tris = cfg.n_tris
     if d > rk.C_PAD:
-        if flat.config.has_transparency:
+        if cfg.has_transparency:
             return _scan_arrays(a, d, n_tris, arrs)
         return _grid_arrays(a, d, n_tris, arrs)
 
-    fn_norm = np.linalg.norm(a["tri_fn"], axis=1)
-    bins = rk.centroid_bins(a["cull_lo"], a["cull_hi"], fn_norm, rk.CK)
+    if bins is None:
+        bins = rk.centroid_bins(a["cull_lo"], a["cull_hi"],
+                                np.linalg.norm(a["tri_fn"], axis=1), rk.CK)
     if not bins:
         # no real triangle: one chunk of the first pool row, a padding
         # triangle, keeps every layout non-empty (its zero face normal
@@ -302,10 +331,12 @@ def device_arrays(flat):
     sp[:, d] = np.where(sids >= 0, a["tri_mat"][safe], 0)
     sp[:, d + 1] = np.where(sids >= 0, sids, -1)
     arrs["res_slot_pack"] = sp
-    if flat.config.has_transparency:
+    if cfg.has_transparency:
         tri_opacity = np.asarray(a["mat_opacity"], np.float32)[a["tri_mat"]]
         arrs["res_opa"] = rk.add_opacity(res, tri_opacity)["opa"]
-    if rk.pool_bytes(len(bins) * rk.CK, d) > rk.STREAM_POOL_BYTES:
+    if streams is None:
+        streams = rk.pool_bytes(len(bins) * rk.CK, d) > rk.STREAM_POOL_BYTES
+    if streams:
         arrs["res_is_hbm"] = np.asarray([1], np.int32)
     arrs["res_gt"] = res["gt"]
     arrs["res_ci"] = res["ci"]
@@ -378,9 +409,12 @@ def _scan_arrays(a, d, n_tris, arrs):
 def get_device_scene(scene, device):
     """Flatten a CompositeScene and move its layouts to ``device``, cached
     on the scene as ``_torch_cache`` (keyed on ``scene._version`` and the
-    device).  Render flags are re-read from the scene on every call."""
+    device; ``"cuda"`` is the current card, so that it and its index share
+    the arrays).  Render flags are re-read from the scene on every call."""
     check_scene(scene, CompositeScene)
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     key = (scene._version, str(device))
     cache = scene._torch_cache
     if cache is None or cache[0] != key:
@@ -389,14 +423,18 @@ def get_device_scene(scene, device):
                  tensors_from_arrays(device_arrays(flat), device), flat)
         scene._torch_cache = cache
     _key, cfg, arrs, flat = cache
-    cfg = dataclasses.replace(
+    return scene_config(scene, cfg), arrs, flat
+
+
+def scene_config(scene, cfg):
+    """``cfg`` with the render flags the scene has now."""
+    return dataclasses.replace(
         cfg,
         shadows=bool(scene.shadows),
         camera_light=bool(scene.camera_light),
         max_reflect_depth=int(scene.max_reflect_depth),
         bg_axis=int(scene.bg_gradient_axis),
     )
-    return cfg, arrs, flat
 
 
 def _to_device(device, *arrays):
@@ -466,7 +504,14 @@ def primary_ctx(arrs, cfg, origin):
     """Per-frame context of the shared-origin (primary) trace: the
     front-to-back chunk order and the hoisted origin-dot rows; for the
     grid walks (d > 8) the hoisted rows alone (``sh_kern``); nothing for
-    the chunk scan."""
+    the chunk scan; for a pool split into prim shards each shard's, on its
+    device (``shards``)."""
+    if "shards" in arrs:
+        ctx = []
+        for _j, sarrs, scfg, sdev in _shard_parts(arrs, cfg):
+            with _on(sdev):
+                ctx.append(primary_ctx(sarrs, scfg, origin.to(sdev)))
+        return {"shards": ctx}
     if _grid(arrs):
         return {"sh_kern": gk.shared_rows(arrs["kern_gt"], arrs["kern_ci"],
                                           origin, cfg.d)}
@@ -548,10 +593,12 @@ def _solid_opacity(arrs, s):
 def _slot_rows(arrs, cfg, key):
     """Face normals (d, K, R), materials and pool ids (K, R) of the K slot
     keys ``key``: a walk's keys are slots of ``res_slot_pack``, the chunk
-    scan's pool ids into ``tri_pack``; -1 for none."""
+    scan's pool ids (``tri_pack``'s rows from ``tri_base``); -1 for
+    none."""
     d = cfg.d
     if _scan(arrs):
-        rows = arrs["tri_pack"][torch.clamp(key, 0, cfg.n_tris - 1).long()] \
+        rows = arrs["tri_pack"][torch.clamp(
+            key - arrs["tri_base"], 0, cfg.n_tris - 1).long()] \
             .permute(2, 0, 1)                               # (d + 1, K, R)
         return rows[:d], rows[d].to(torch.int32), key
     rows = arrs["res_slot_pack"][torch.clamp(key, min=0).long()] \
@@ -561,7 +608,7 @@ def _slot_rows(arrs, cfg, key):
     return rows[:d], rows[d].to(torch.int32), tid
 
 
-def _trace_finish_T(arrs, cfg, oT, dT, skip, res, K):
+def _trace_finish_T(arrs, cfg, oT, dT, skip, res, K, solids=True):
     """Solids and the K-slot payload, the (k, R) finish of a trace (the
     JAX package's ``_trace_finish_T``, and at d > 8 its row
     ``_trace_finish`` and ``_hit_geometry``: the same float32 operations).
@@ -573,12 +620,15 @@ def _trace_finish_T(arrs, cfg, oT, dT, skip, res, K):
     appended last, keeping the first K: as in the JAX package, a slot tied
     with the solid keeps its place.  Then the slots' view-facing normals
     ``tnormT`` (d, K, R), materials ``tmatT`` and pool ids ``tidT`` (K, R)
-    come from the slot rows, or from the solid's test for a solid's slot,
-    and the trim: a slot counts only in front of the opaque hit."""
+    come from the slot rows, or from the solid's test for a solid's slot;
+    ``tidT`` is not trimmed yet (``_trace_close``).  A prim shard other than
+    the first (``solids`` False) tests no solid: the first one's finish
+    counts each solid once."""
     d = cfg.d
     R = oT.shape[1]
     dev = oT.device
-    solids = [_solid_test(arrs, s, oT, dT, d) for s in range(cfg.n_solids)]
+    solids = [_solid_test(arrs, s, oT, dT, d)
+              for s in range(cfg.n_solids if solids else 0)]
     if K:
         key = res.pop("tkeyT")
         # the solid in a slot, -1 for a triangle's or an empty slot
@@ -613,15 +663,35 @@ def _trace_finish_T(arrs, cfg, oT, dT, skip, res, K):
             tid = torch.where(sel, arrs["sol_base"] + s, tid)
         res["tnormT"] = tnorm
         res["tmatT"] = tmat
-    res["hit"] = res["pid"] >= 0
-    if K:
-        tvalid = (tid >= 0) & (res["ttT"] < res["t"][None, :])
-        res["tidT"] = torch.where(tvalid, tid, -1)
+        res["tidT"] = tid
     return res
 
 
+def _trace_close(res, K):
+    """The end of a trace, after the prim shards' merge when there are
+    shards: ``hit``, and the trim -- a slot counts only in front of the
+    opaque hit (a slot of one shard may lie behind another's hit)."""
+    res["hit"] = res["pid"] >= 0
+    if K:
+        tvalid = (res["tidT"] >= 0) & (res["ttT"] < res["t"][None, :])
+        res["tidT"] = torch.where(tvalid, res["tidT"], -1)
+    return res
+
+
+def _local_skip(arrs, skip):
+    """The pool-local id of the surface each ray leaves, as the walks take
+    it.  On a prim shard an id of another shard becomes -1 ("no skip"):
+    shifted by the shard's ``tri_base`` it could fall on -1 or on the
+    padding slots' id -2, or past the shard's rows."""
+    local = skip - arrs["tri_base"]
+    if "shard_rows" in arrs:
+        local = torch.where((local >= 0) & (local < arrs["shard_rows"]),
+                            local, -1)
+    return local
+
+
 def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
-               active=None, pctx=None):
+               active=None, pctx=None, stats=None):
     """Nearest opaque hit of (d, R) rays over the triangle pool and the
     solids and, for a scene with a transparent material, the K =
     ``cfg.max_transparent_hits`` nearest transparent hits in front of it.
@@ -631,29 +701,52 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     ``active`` masks bounce rays out.  Returns t, pid, mat (R,) and pointT,
     normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
     (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty.
+    ``stats`` (a dict, or None) accumulates the counters ``rays_traced``
+    and ``chunks_visited``.
 
     A pool of d > 8 takes the grid walk, or with a transparent material the
     chunk scan, and gathers its hit rows by pool id from ``tri_pack``; as in
     the JAX package's grid branch the grid walk traces every ray, the bounce
     loop's dead ones too (``active`` does not reach it: their results are
-    masked downstream)."""
+    masked downstream).  A pool sharded over devices (``arrs["shards"]``,
+    see ``parallel.mesh``) is traced shard by shard and the shards' results
+    merged (``_trace_shards``)."""
     K = cfg.max_transparent_hits if cfg.has_transparency else 0
-    d = cfg.d
-    skip_local = skip - arrs["tri_base"]
     if shared_origin is not None and pctx is None:
         pctx = primary_ctx(arrs, cfg, shared_origin)
     shared = shared_origin is not None
+    if "shards" in arrs:
+        res = _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K)
+    else:
+        res = _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K,
+                          stats)
+        res = _trace_finish_T(arrs, cfg, oT, dT, skip, res, K)
+    return _trace_close(res, K)
+
+
+def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats):
+    """The pool's walk (or chunk scan) and its hit rows: t, pid, mat,
+    pointT, normalT and, with K, the slots ``ttT`` and their keys
+    ``tkeyT``, for ``_trace_finish_T``."""
+    d = cfg.d
+    R = oT.shape[1]
+    skip_local = _local_skip(arrs, skip)
     res = {}
     if _grid(arrs) or _scan(arrs):
         if _grid(arrs):
             kt, kid, _tiles = gk.nearest_hit(
                 _kern_dict(arrs), oT, dT, skip_local, d,
                 sh=pctx["sh_kern"] if shared else None)
+            # the JAX package's grid branch counts rays, not tiles
+            _stat(stats, "rays_traced", lambda: R)
             t = torch.where(kid >= 0, kt, REAL_MAX)
             pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
         else:
-            t, pid, ttT, tidT, _vis = trace_scan(arrs, cfg, oT, dT, skip,
-                                                 active=active)
+            t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
+                                                active=active)
+            _stat(stats, "chunks_visited", vis.sum)
+            _stat(stats, "rays_traced",
+                  lambda: R if active is None else active.sum())
             if K:
                 res.update(ttT=ttT, tkeyT=tidT)
         rowT = arrs["tri_pack"][torch.clamp(pid - arrs["tri_base"], 0,
@@ -664,7 +757,7 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         if K:
             nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
                 else rk.nearest_hit_transparent
-            kt, slot, ktt, ktslot, _vis = nearest_t(
+            kt, slot, ktt, ktslot, vis = nearest_t(
                 res_k, oT, dT, skip_local, d, K, order=order, active=active,
                 sh=sh)
             # stable, as jnp.argsort is: exactly tied surfaces keep slot
@@ -674,8 +767,11 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
             res["tkeyT"] = torch.gather(ktslot, 0, order_k)
         else:
             nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-            kt, slot, _vis = nearest(res_k, oT, dT, skip_local, d,
-                                     order=order, active=active, sh=sh)
+            kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
+                                    order=order, active=active, sh=sh)
+        _stat(stats, "rays_traced",
+              lambda: R if active is None else active.sum())
+        _stat(stats, "chunks_visited", vis.sum)
         rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
         t = torch.where(slot >= 0, kt, REAL_MAX)
         pid = torch.where(slot >= 0,
@@ -686,7 +782,73 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     normalT = _unitT(fnT) * torch.where(denom > 0, -1.0, 1.0)[None, :]
     res.update(t=t, pid=pid, pointT=pointT, normalT=normalT,
                mat=rowT[d].to(torch.int32))
-    return _trace_finish_T(arrs, cfg, oT, dT, skip, res, K)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Prim shards: a pool split over devices
+# ---------------------------------------------------------------------------
+
+def _on(device):
+    """The context in which work for ``device`` is enqueued: on a card that
+    card's (a C entry launches on the current device, on its current
+    stream)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _shard_parts(arrs, cfg):
+    """(index, shard dict, shard config, device) of each prim shard of
+    ``arrs``: a shard's config counts its own pool rows."""
+    for j, sarrs in enumerate(arrs["shards"]):
+        yield (j, sarrs, dataclasses.replace(cfg, n_tris=sarrs["shard_rows"]),
+               sarrs["mat_pack"].device)
+
+
+def _to(device, *tensors):
+    """``tensors`` on ``device`` (None stays None).  A copy between two
+    cards is ordered after the work enqueued on both devices' current
+    streams, as torch orders every copy across devices."""
+    return [None if x is None else x.to(device) for x in tensors]
+
+
+def _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K):
+    """``trace_pool`` over a pool split into prim shards: each shard runs
+    its walk and its finish (the solids on the first shard only, and the
+    K-slot rows) on its own device, and the results come back to the rays'
+    device and are merged there in shard order, as the JAX package merges
+    them (``_trace_finish_T``'s all_gather): the nearest hit of the first
+    shard of the least t (``torch.argmin`` takes the first minimum, as
+    ``jnp.argmin`` does), the K slots by a stable sort of [shard 0's K, shard
+    1's K, ...], keeping K.  The trim follows in ``_trace_close``."""
+    dev = oT.device
+    parts = []
+    for j, sarrs, scfg, sdev in _shard_parts(arrs, cfg):
+        with _on(sdev):
+            soT, sdT, sskip, sactive = _to(sdev, oT, dT, skip, active)
+            res = _trace_walk(sarrs, scfg, soT, sdT, sskip, shared, sactive,
+                              pctx["shards"][j] if shared else None, K, None)
+            res = _trace_finish_T(sarrs, scfg, soT, sdT, sskip, res, K,
+                                  solids=j == 0)
+        parts.append(dict(zip(res, _to(dev, *res.values()))))
+    winner = torch.argmin(torch.stack([p["t"] for p in parts]), dim=0)
+    out = {}
+    for k in ("t", "pid", "mat", "pointT", "normalT"):
+        v = torch.stack([p[k] for p in parts])
+        idx = winner[None].expand(1, *v.shape[1:]) if v.dim() == 2 \
+            else winner[None, None].expand(1, *v.shape[1:])
+        out[k] = torch.gather(v, 0, idx)[0]
+    if K:
+        allt = torch.cat([p["ttT"] for p in parts])          # (P * K, R)
+        order = torch.argsort(allt, dim=0, stable=True)[:K]
+        out["ttT"] = torch.gather(allt, 0, order)
+        for k in ("tidT", "tmatT"):
+            out[k] = torch.gather(torch.cat([p[k] for p in parts]), 0, order)
+        tnorm = torch.cat([p["tnormT"] for p in parts], dim=1)
+        out["tnormT"] = torch.gather(
+            tnorm, 1, order[None].expand(tnorm.shape[0], -1, -1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -883,7 +1045,8 @@ def aabb_distance_T(cfg, arrs, oT, dT):
     return result
 
 
-def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
+def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True,
+              stats=None):
     """Shadow query (light_reaches, tracer.hpp:1750-1766, with true any-hit
     semantics): is there an opaque hit with 0 < t < ``ldist`` along each
     (d, R) ray, and how much light do the transparent hits in that range let
@@ -899,28 +1062,69 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True):
     lies beyond it); point-light queries arrive finite and skip it.  The
     grid walk and the chunk scan (d > 8) take ``ldist`` unclamped, as the
     JAX package's grid kernel and scan branches do, and the solids always
-    do.  ``skip`` is the pool id of the surface the ray leaves."""
-    skip_local = skip - arrs["tri_base"]
+    do.  ``skip`` is the pool id of the surface the ray leaves.  ``stats``
+    (a dict, or None) accumulates ``shadow_rays`` and
+    ``occl_chunks_visited`` as the JAX package counts them (its grid branch
+    counts neither).  A pool split into prim shards is queried shard by
+    shard (``_occlusion_shards``)."""
+    if "shards" in arrs:
+        return _occlusion_shards(arrs, cfg, oT, dT, ldist, skip, clamp_exit)
+    blocked, filt = _occlusion_walk(arrs, cfg, oT, dT, ldist, skip,
+                                    clamp_exit, stats)
+    return _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt)
+
+
+def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
+    """The pool's part of a shadow query: (blocked, filt) of its walk or
+    chunk scan, without the solids."""
+    skip_local = _local_skip(arrs, skip)
     if _grid(arrs):
         blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
                                       skip_local, cfg.d)
-        filt = None
-    elif _scan(arrs):
-        blocked, filt, _vis = occlusion_scan(arrs, cfg, oT, dT, ldist, skip)
+        return blocked, None
+    if _scan(arrs):
+        blocked, filt, vis = occlusion_scan(arrs, cfg, oT, dT, ldist, skip)
+        _stat(stats, "shadow_rays", lambda: (ldist > 0).sum())
+        _stat(stats, "occl_chunks_visited", vis.sum)
+        return blocked, filt
+    res_k = _res_dict(arrs)
+    pool_ldist = torch.minimum(ldist, rk._scene_exit_T(
+        oT, dT, res_k["b_lo"], res_k["b_hi"])) if clamp_exit else ldist
+    if cfg.has_transparency:
+        occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
+            else rk.occluded_transparent
+        blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
+                                   cfg.d)
     else:
-        res_k = _res_dict(arrs)
-        pool_ldist = torch.minimum(ldist, rk._scene_exit_T(
-            oT, dT, res_k["b_lo"], res_k["b_hi"])) if clamp_exit else ldist
-        if cfg.has_transparency:
-            occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
-                else rk.occluded_transparent
-            blocked, filt, _vis = occ_t(res_k, oT, dT, pool_ldist,
-                                        skip_local, cfg.d)
-        else:
-            occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
-            blocked, _vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
-            filt = None
-    return _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt)
+        occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
+        blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+        filt = None
+    _stat(stats, "shadow_rays", lambda: (pool_ldist > 0).sum())
+    _stat(stats, "occl_chunks_visited", vis.sum)
+    return blocked, filt
+
+
+def _occlusion_shards(arrs, cfg, oT, dT, ldist, skip, clamp_exit):
+    """``occlusion`` over a pool split into prim shards: each shard queries
+    its pool (and the first one the solids) on its own device, and the
+    results are merged on the rays' device as the JAX package merges them
+    (``_occlusion_finish``): ``blocked`` ORed, ``filt`` multiplied in shard
+    order, left to right, the order in which XLA reduces its all_gather's
+    product on the CPU."""
+    dev = oT.device
+    blocked = filt = None
+    for j, sarrs, scfg, sdev in _shard_parts(arrs, cfg):
+        with _on(sdev):
+            soT, sdT, sldist, sskip = _to(sdev, oT, dT, ldist, skip)
+            b, f = _occlusion_walk(sarrs, scfg, soT, sdT, sldist, sskip,
+                                   clamp_exit, None)
+            b, f = _occlusion_finish(sarrs, scfg, soT, sdT, sldist, sskip, b,
+                                     f, solids=j == 0)
+        b, f = _to(dev, b, f)
+        blocked = b if blocked is None else blocked | b
+        if f is not None:
+            filt = f if filt is None else filt * f
+    return blocked, filt
 
 
 def occlusion_scan(arrs, cfg: SceneConfig, oT, dT, ldist, skip):
@@ -969,10 +1173,12 @@ def occlusion_scan(arrs, cfg: SceneConfig, oT, dT, ldist, skip):
             torch.tensor(visits, dtype=torch.int32))
 
 
-def _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt):
+def _occlusion_finish(arrs, cfg, oT, dT, ldist, skip, blocked, filt,
+                      solids=True):
     """The solids of a shadow query, tested against the unclamped
-    ``ldist``: an opaque one blocks, a glass one multiplies ``filt``."""
-    for s in range(cfg.n_solids):
+    ``ldist``: an opaque one blocks, a glass one multiplies ``filt``.  A
+    prim shard other than the first (``solids`` False) tests none."""
+    for s in range(cfg.n_solids if solids else 0):
         st, _sp, _sn = _solid_test(arrs, s, oT, dT, cfg.d)
         svalid = (st > 0) & (st < ldist) & (skip != arrs["sol_base"] + s)
         s_op = _solid_opacity(arrs, s)
@@ -989,13 +1195,14 @@ def _note(masks, name, rays):
 
 
 def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
-                  dyn, active=None, masks=None):
+                  dyn, active=None, masks=None, stats=None):
     """Local shading (tracer.hpp:1768-1854): (d, R) geometry -> (3, R)
     color, (3, R) child coefficient, (d, R) child direction.  With
     ``cfg.shadows`` every light casts one occlusion query from the hit
     points (skipping the surface ``pid`` they lie on), for the rays in
     ``active`` that face the light.  ``masks`` (a dict, see
-    ``frame_colors``) gathers what the queries found."""
+    ``frame_colors``) gathers what the queries found, ``stats`` (see
+    ``frame_stats``) counts them."""
     R = dT.shape[1]
     dev = dT.device
     rowT = arrs["mat_pack"][mi.long()].T
@@ -1041,7 +1248,7 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
                 want = want & active
             blocked, filt = occlusion(arrs, cfg, pointT, lv,
                                       torch.where(want, dist, 0.0), pid,
-                                      clamp_exit=False)
+                                      clamp_exit=False, stats=stats)
             note_query(want, blocked, filt, sine)
             ok = want & ~blocked
             filteredT = plc[:, None] if filt is None \
@@ -1065,7 +1272,8 @@ def shade_local_T(arrs, cfg: SceneConfig, dT, pointT, normalT, pid, mi, depth,
                 want = want & active
             ldT = (-gld)[:, None].expand_as(pointT).contiguous()
             blocked, filt = occlusion(arrs, cfg, pointT, ldT,
-                                      torch.where(want, REAL_MAX, 0.0), pid)
+                                      torch.where(want, REAL_MAX, 0.0), pid,
+                                      stats=stats)
             note_query(want, blocked, filt, sine)
             ok = want & ~blocked
             filteredT = glc[:, None] if filt is None \
@@ -1115,14 +1323,16 @@ def _primary_masks(res):
     return masks
 
 
-def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
+def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None,
+                  stats=None):
     """Color of (d, R) rays (ray_color, tracer.hpp:1856-1883) with
     reflections unrolled into a weighted bounce loop: bounce rays trace
     with an active mask and skip the surface they leave.  -> (3, R) rows,
     ready for the channel packer (the JAX package's
     ``ray_colors_packable`` on its transposed pipeline).  A dict passed as
     ``masks`` is filled with the frame's diagnostic masks (see
-    ``frame_colors``)."""
+    ``frame_colors``), one passed as ``stats`` with its counters (see
+    ``frame_stats``)."""
     R = oT.shape[1]
     dev = oT.device
     out = torch.zeros((3, R), dtype=f32, device=dev)
@@ -1132,10 +1342,12 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
     max_bounces = cfg.max_reflect_depth if cfg.has_reflectivity else 0
 
     for depth in range(max_bounces + 1):
+        if depth:
+            _bounce_stats(stats, depth, active)
         res = trace_pool(arrs, cfg, oT, dT, skip,
                          shared_origin=oT[:, 0] if depth == 0 else None,
                          active=None if depth == 0 else active,
-                         pctx=pctx if depth == 0 else None)
+                         pctx=pctx if depth == 0 else None, stats=stats)
         if masks is not None and depth == 0:
             masks.update(_primary_masks(res))
         dist = aabb_distance_T(cfg, arrs, oT, dT)
@@ -1143,13 +1355,14 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
         live = hit if depth == 0 else hit & active
         localT, child_coefT, child_dirT = shade_local_T(
             arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"],
-            res["mat"], depth, dyn, active=live, masks=masks)
+            res["mat"], depth, dyn, active=live, masks=masks, stats=stats)
         bgT = background_T(cfg, dyn, dT)
         color_hereT = torch.where(hit[None, :], localT, bgT)
         weight_scale = None
         if cfg.has_transparency:
             color_hereT, weight_scale = _compose_transparent_T(
-                arrs, cfg, dyn, oT, dT, res, color_hereT, depth, masks=masks)
+                arrs, cfg, dyn, oT, dT, res, color_hereT, depth, masks=masks,
+                stats=stats)
         out = out + torch.where(active[None, :], weight * color_hereT, 0.0)
         if depth == max_bounces:
             break
@@ -1163,8 +1376,20 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None):
     return out
 
 
+def _bounce_stats(stats, depth, active):
+    """The JAX package's bounce counters: the live rays at ``depth`` and
+    the ray blocks of ``min(RAY_BLOCK, R)`` rays with a live ray (one
+    block when R is not a multiple of it)."""
+    R = active.shape[0]
+    rb = min(rk.RAY_BLOCK, R)
+    _stat(stats, f"bounce_live_rays_d{depth}", active.sum)
+    _stat(stats, f"bounce_live_blocks_d{depth}",
+          lambda: active.reshape(R // rb, rb).any(dim=1).sum()
+          if R % rb == 0 else 1)
+
+
 def _compose_transparent_T(arrs, cfg, dyn, oT, dT, res, base_colorT, depth,
-                           masks=None):
+                           masks=None, stats=None):
     """Far-to-near composition (tracer.hpp:1870-1880) of the K transparent
     hits of ``res`` over (3, R) color rows: every valid slot is shaded like
     a surface (its own shadow queries included) and laid over what is behind
@@ -1182,7 +1407,7 @@ def _compose_transparent_T(arrs, cfg, dyn, oT, dT, res, base_colorT, depth,
         localT, _coef, _dir = shade_local_T(
             arrs, cfg, dT, pointT, res["tnormT"][:, k],
             torch.where(valid, tid, 0), mi, depth, dyn, active=valid,
-            masks=masks)
+            masks=masks, stats=stats)
         op = arrs["mat_pack"][mi.long(), 6]
         new = localT * op[None, :] + color * (1 - op)[None, :]
         color = torch.where(valid[None, :], new, color)
@@ -1227,15 +1452,17 @@ def _box_colors(d, cam_origin, cam_t, fov_params, xs, ys):
 
 
 def _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t, fov_params,
-                            groups, w, key, masks=None):
+                            groups, w, key, masks=None, stats=None):
     """One frame of a composite scene in one pass over all its rays ->
     packed int32 stream (or, with ``key=None``, (R, 3) float colors in
     linear pixel order; a dict passed as ``masks`` then receives the
-    frame's diagnostic masks in the same order)."""
+    frame's diagnostic masks in the same order, one passed as ``stats`` its
+    counters)."""
     pctx = primary_ctx(arrs, cfg, cam_origin)
     xs, ys, unswz = _frame_coords(groups, w, cam_origin.device)
     oT, dT = make_rays(cam_origin, cam_t, *fov_params, xs, ys)
-    colorsT = _ray_colors_T(arrs, cfg, dyn, oT, dT, pctx=pctx, masks=masks)
+    colorsT = _ray_colors_T(arrs, cfg, dyn, oT, dT, pctx=pctx, masks=masks,
+                            stats=stats)
     if masks is not None:
         for name in masks:
             masks[name] = unswz(masks[name])
@@ -1270,7 +1497,7 @@ def _camera(scene, width, height, device):
     return fov, cam_origin, cam_t
 
 
-def _frame(scene, width, height, key, device, masks=None):
+def _frame(scene, width, height, key, device, masks=None, stats=None):
     """Dispatch one frame on ``device``; returns the device tensor."""
     device = torch.device(device)
     fov, cam_origin, cam_t = _camera(scene, width, height, device)
@@ -1280,7 +1507,7 @@ def _frame(scene, width, height, key, device, masks=None):
         cfg, arrs, _flat = get_device_scene(scene, device)
         return _frame_packed_composite(arrs, cfg, _scene_dyn(scene, device),
                                        cam_origin, cam_t, fov, groups, width,
-                                       key, masks=masks)
+                                       key, masks=masks, stats=stats)
     return _frame_packed_box(scene.dimension, cam_origin, cam_t, fov, groups,
                              width, key)
 
@@ -1316,6 +1543,45 @@ def frame_colors(scene, width, height, device, masks=False):
         "hit", "layered", "full", "shadowed", "filtered", "grazing")}
 
 
+def frame_stats(scene, width, height, device="cuda"):
+    """The counters of one frame of the composite ``scene`` at ``width`` x
+    ``height`` on ``device`` (the JAX package's ``frame_stats``), as Python
+    ints: ``rays_traced`` and ``chunks_visited`` (the traces: rays and
+    chunk visits of the walks, or the chunk scan's chunk runs; the grid
+    walk counts rays only), ``shadow_rays`` and ``occl_chunks_visited``
+    (the shadow queries' active rays and visits; the grid walk counts
+    neither), and at each bounce depth n the live rays
+    ``bounce_live_rays_d{n}`` and the 512-ray blocks with a live ray
+    ``bounce_live_blocks_d{n}``.  The frame is rendered as ``_frame`` does,
+    in its groups (``_frame_groups``), and not pulled."""
+    check_scene(scene, CompositeScene)
+    stats = {}
+    _frame(scene, width, height, None, device, stats=stats)
+    return {k: int(v) for k, v in stats.items()}
+
+
+def render_devices(device):
+    """The devices a renderer of ``device`` renders on: every card for the
+    unindexed ``"cuda"`` (a frame is then split by pixels over them, as the
+    JAX package splits it over ``jax.devices()``), else ``device``
+    alone."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _ready(out):
+    """A CUDA event recorded after the work that makes ``out``, on its
+    device's current stream (None on the CPU)."""
+    if not out.is_cuda:
+        return None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(out.device))
+    return ready
+
+
 def dispatch_packed(scene, fmt, device):
     """Dispatch one full frame on ``device``; returns its slabs,
     ``[(start_px, tensor, ready)]``, whose pulls complete the frame.
@@ -1323,16 +1589,19 @@ def dispatch_packed(scene, fmt, device):
     The frame is one pass over all its rays; its output is cut into the
     JAX package's slabs (``_frame_slabs``), views of the one tensor, so
     abort is polled as often as there.  ``ready`` is a CUDA event recorded
-    after the pass on the device's current stream (None on the CPU).  All
+    after the pass on the device's current stream (None on the CPU).  When
+    ``render_devices`` gives several devices, the frame is split by pixels
+    over them (``parallel.mesh.dispatch_sharded``), one slab a device.  All
     scene state is captured here: the caller may change the scene as soon
     as this returns."""
+    devices = render_devices(device)
+    if len(devices) > 1:
+        from ..parallel import mesh as pmesh
+        return pmesh.dispatch_sharded(scene, fmt, devices)
     out = frame_device_arrays(scene, fmt, device)
     # a row of the packed stream holds 4 pixels, a row of colors one
     rows_px = 4 if out.dtype == torch.int32 else 1
-    ready = None
-    if out.is_cuda:
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(out.device))
+    ready = _ready(out)
     n_tiles = -(-(fmt.width * fmt.height) // TILE)
     return [(s0 * TILE,
              out[s0 * TILE // rows_px:(s0 + nt) * TILE // rows_px], ready)

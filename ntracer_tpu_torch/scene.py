@@ -206,6 +206,7 @@ class CompositeScene(Scene):
         self._src = None
         self._version = 0
         self._torch_cache = None
+        self._torch_mesh_cache = None
 
     # --- config API (ntracer_body.hpp:833-933) -----------------------------
     @property
@@ -229,6 +230,7 @@ class CompositeScene(Scene):
         self._ensure_unlocked()
         self._version += 1
         self._torch_cache = None
+        self._torch_mesh_cache = None
 
     def _mutate_config(self):
         """Config-only mutation (camera, fov, flags): device arrays stay

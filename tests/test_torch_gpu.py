@@ -1670,3 +1670,58 @@ def test_card_wide_channel_frame_equals_cpu_bytes(cuda):
     np.testing.assert_allclose(colors, pwf.frame_colors(scene, W, H, "cpu"),
                                rtol=2e-6, atol=2e-7)
     assert card == cpu
+
+
+def test_card_px_mesh_frame_equals_single_frame(cuda, monkeypatch):
+    """The renderer's px path on the card: a frame split over four shards
+    of cuda:0 (``render_devices`` monkeypatched) has the bytes of the
+    single frame, one walk launched a shard, one slab a shard with its
+    own event."""
+    fmt = rgb8(W, 2 * H)
+    scene = polytope_scene()
+    single = bytearray(fmt.pitch * 2 * H)
+    assert BlockingRenderer().render(single, fmt, scene)
+    monkeypatch.setattr(pwf, "render_devices",
+                        lambda device: [torch.device("cuda", 0)] * 4)
+    slabs = pwf.dispatch_packed(scene, fmt, "cuda")
+    assert len(slabs) == 4 and all(r is not None for _s, _t, r in slabs)
+    n0 = prk.nearest_hit.launches
+    multi = bytearray(fmt.pitch * 2 * H)
+    assert BlockingRenderer().render(multi, fmt, scene)
+    assert prk.nearest_hit.launches == n0 + 4
+    assert bytes(multi) == bytes(single)
+
+
+@pytest.mark.parametrize("make", [lit_scene_3d,
+                                  lambda: glass_scene(600, lit=True)])
+def test_card_prim_mesh_frame_matches_single_frame(cuda, make):
+    """A 1x2 prim mesh of cuda:0: each shard's walks run on the card, and
+    the frame is within one code of the single frame (colors within 2e-5)
+    and equal to the same mesh's frame on the CPU."""
+    from ntracer_tpu_torch.parallel import mesh as pmesh
+    scene = make()
+    fmt = rgb8(W, H)
+    single = pwf.frame_colors(scene, W, H, cuda)
+    walks = (prk.nearest_hit, prk.nearest_hit_transparent, prk.occluded,
+             prk.occluded_transparent)
+    before = [f.launches for f in walks]
+    got = pmesh.render_frame(scene, fmt, pmesh.make_mesh(
+        1, 2, [torch.device("cuda", 0)] * 2))
+    launched = [f.launches - b for f, b in zip(walks, before)]
+    assert launched[0] + launched[1] == 2 and launched[2] + launched[3] >= 4
+    np.testing.assert_allclose(got, single, rtol=0, atol=2e-5)
+    codes = [pwf.packing.pack_flat(c.reshape(-1, 3), fmt).astype(int)
+             for c in (got, single)]
+    assert np.abs(codes[0] - codes[1]).max() <= 1
+    cpu = pmesh.render_frame(scene, fmt, pmesh.make_mesh(1, 2, ["cpu"] * 2))
+    np.testing.assert_allclose(got, cpu, rtol=2e-6, atol=2e-7)
+
+
+def test_card_frame_stats_equal_cpu(cuda, monkeypatch):
+    """``frame_stats`` on the card equals the CPU's (the kernels equal
+    their twins, visits included), TILE lowered to 1,024 rays."""
+    monkeypatch.setattr(pwf, "TILE", 1024)
+    for scene in (lit_scene_3d(), glass_scene(200, lit=True)):
+        got = pwf.frame_stats(scene, 32, 32, cuda)
+        assert got == pwf.frame_stats(scene, 32, 32, "cpu")
+        assert got["rays_traced"] == 1024 and got["occl_chunks_visited"] > 0

@@ -12,10 +12,11 @@ FORBIDDEN = ("jax", "ntracer", "ntracer_tpu")
 
 
 def test_port_runs_without_the_jax_package():
-    """A fresh process imports the port (its pygame renderer and its
-    launcher too), builds a small lit scene, a lit scene of glass, a mesh
-    from an OBJ file and a lit 9-D scene (the grid walks), renders them on
-    the CPU and unpickles one of its objects; no forbidden module was
+    """A fresh process imports the port (its pygame renderer, its launcher
+    and its mesh module too), builds a small lit scene, a lit scene of
+    glass, a mesh from an OBJ file and a lit 9-D scene (the grid walks),
+    renders them on the CPU (and over a 2x2 mesh of the CPU, and counts
+    their frames) and unpickles one of its objects; no forbidden module was
     loaded on the way."""
     code = (
         "import pickle, sys\n"
@@ -29,6 +30,7 @@ def test_port_runs_without_the_jax_package():
         "from ntracer_tpu_torch.engine import (_build, grid_kernels,\n"
         "                                      wavefront)\n"
         "from ntracer_tpu_torch.wavefront_obj import load_obj\n"
+        "from ntracer_tpu_torch.parallel import mesh as pmesh\n"
         "from _torch_helpers import (glass_scene, lit_scene_3d, rgb8,\n"
         "                            orthoplex_scene)\n"
         "import os, tempfile\n"
@@ -46,6 +48,9 @@ def test_port_runs_without_the_jax_package():
         "    buf = bytearray(fmt.pitch * 32)\n"
         "    assert BlockingRenderer(device='cpu').render(buf, fmt, scene)\n"
         "    assert any(buf)\n"
+        "    grid = pmesh.make_mesh(2, 2, devices=['cpu'] * 4)\n"
+        "    assert pmesh.render_frame(scene, fmt, grid).shape == (32, 32, 3)\n"
+        "    assert wavefront.frame_stats(scene, 32, 32, 'cpu')\n"
         "v = pickle.loads(pickle.dumps(NTracer(4).Vector(1, 2, 3, 4)))\n"
         "assert type(v).__module__ == 'ntracer_tpu_torch.api'\n"
         "m = pickle.loads(pickle.dumps(Material((1, 0, 0), opacity=0.5)))\n"
