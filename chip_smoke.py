@@ -44,6 +44,11 @@ at 1024x1024, 8-bit RGB:
     launches a frame;
   * one frame of scripts/tpu_parity.py's "generic d=10" (40 random 10-D
     simplices, ``NTracer(10, force_generic=True)``) under the same lights;
+  * the wide d=20: the regular 20-simplex (``polytope_vertices([3] *
+    19)``, scripts/polytope.py with nineteen 3s: 21 facets) among 200
+    random 20-D simplices (``wide_scene``), the camera turned 0.6 rad off
+    the axis view, the same lights, a 4-frame orbit: past d = 16 the grid
+    walks run their wide bodies, one 2.9 and two 2.10 launches a frame;
   * solids, each scene hand-built into one k-d leaf (``leaf_scene``; the
     reference's build misplaces solids, PARITY.md defects 6 and 9):
     "solids d=4", scripts/tpu_parity.py's cube, sphere and 12 triangles
@@ -100,8 +105,14 @@ groups of one, so the two share t and the opaque slot, and their times
 compare the group sizes); the grid kernels against their twins at the
 orthoplex's full
 wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
-rays to three lights and a dead wavefront), and at d = 9 (the 9-orthoplex)
-and d = 16 (200 random simplices, rays aimed at them) for other d.  The script checks 64 pixels of each frame against the scalar NumPy
+rays to three lights and a dead wavefront), at d = 9 (the 9-orthoplex)
+and d = 16 (200 random simplices, rays aimed at them) for other d, and
+past d = 16 (the wide bodies) on the wide d=20 frame's primary and shadow
+wavefronts and on pools of 200 random simplices at d = 17, 24 and 32
+built straight from their rows (``simplex_pool``: the k-d build of such
+scenes takes minutes), rays aimed at them from the camera (for 2.10 the
+same rays up to the next float past their hit on even rays, up to the hit
+on odd rays).  The script checks 64 pixels of each frame against the scalar NumPy
 oracle, computed by forked worker processes on the host (5e-5;
 5e-4 for the composed pixels of the transparent frames), chosen from the
 engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
@@ -117,8 +128,9 @@ meets a solid).
 Each kernel's launch count is set to 0 before a path is driven and read
 after it; one more glass 120-cell frame counts kernel 2.4's live launches
 (a block visited a chunk).  The script prints the launch of 2.1 at d = 4
-and 6 and of 2.4 (stream_walk.cuh's bodies), of 2.9 and 2.10 at d = 9, 10
-and 16 (registers, spills, blocks an SM, ring slots, rays a thread), and
+and 6 and of 2.4 (stream_walk.cuh's bodies), of 2.9 and 2.10 at d = 9, 10,
+16, 17, 20, 24 and 32 (registers, spills, blocks an SM, ring slots, rays a
+thread), and
 the time of 2.1's entry pass alone on the flagship pool.  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
 kernel's numbers and ``{"ok": true, "device": {...}}``.
@@ -136,6 +148,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -180,6 +193,12 @@ REDESIGNED = "ntracer_tpu_torch/csrc/stream_walk.cuh"
 # straight-line pair test with warp-uniform skips, a TMA ring of sub-tiles).
 GRID_REDESIGNED = ("ntracer_tpu_torch/csrc/grid_walk.cu: grid_pair and "
                    "grid_tiles")
+# Past d = 16 they run the wide bodies wide_nearest_kernel<SHARED> and
+# wide_occluded_kernel (d at run time, the rays staged in shared memory, no
+# ring): held against their twins on pools of these d.
+WIDE_BODIES = ("ntracer_tpu_torch/csrc/grid_walk.cu: wide_nearest_kernel, "
+               "wide_occluded_kernel (d >= 17)")
+WIDE_POOL_DS = (17, 24, 32)
 DIV_PROBE = r"""
 extern "C" __global__ void ntr_div_probe(float* a, const float* b) {
   a[threadIdx.x] = a[threadIdx.x] / b[threadIdx.x];
@@ -448,9 +467,7 @@ def random_pool(nt, material, n, seed=3):
     large d: ``aimed`` makes rays that meet them.  Returns (scene,
     simplices (n, d, d))."""
     d = nt.dimension
-    rng = np.random.RandomState(seed)
-    pts = (rng.uniform(-2, 2, (n, 1, d))
-           + rng.uniform(-0.7, 0.7, (n, d, d))).astype(np.float32)
+    pts = random_simplices(n, d, seed)
     scene = nt.build_composite_scene(
         nt.TrianglePrototype.batch_from_points(pts, [material] * n))
     camera = nt.Camera()
@@ -473,6 +490,83 @@ def aimed(origin, simplices, n, seed=11):
         - np.asarray(origin, np.float64)
     return np.ascontiguousarray(
         (v / np.linalg.norm(v, axis=1, keepdims=True)).T, np.float32)
+
+
+def random_simplices(n, d, seed=3):
+    """``n`` random simplices of dimension ``d`` (n, d, d): bases in
+    [-2, 2]^d, vertices within 0.7 of them (lit_scene's spread)."""
+    rng = np.random.RandomState(seed)
+    return (rng.uniform(-2, 2, (n, 1, d))
+            + rng.uniform(-0.7, 0.7, (n, d, d))).astype(np.float32)
+
+
+def wide_scene(nt, material, n=200, seed=3, cam_distance=-4.0):
+    """The regular simplex of ``nt``'s dimension d (``polytope_vertices([3]
+    * (d - 1))``, d + 1 facets: scripts/polytope.py with d - 1 threes) among
+    ``n`` random simplices (``random_simplices``), camera at
+    ``cam_distance`` on axis 2 turned ``OBLIQUE`` off the axis view, fov
+    0.8, under ``two_lights`` with the point light at (0, 3, -3, 1, 0, ...).
+    Returns (scene, camera, simplices)."""
+    d = nt.dimension
+    pts = np.concatenate([hull_simplices(polytope_vertices([3] * (d - 1))),
+                          random_simplices(n, d, seed)])
+    scene = nt.build_composite_scene(
+        nt.TrianglePrototype.batch_from_points(pts, [material] * len(pts)))
+    camera = nt.Camera()
+    turn(nt, scene, camera, cam_distance, OBLIQUE)
+    scene.set_fov(0.8)
+    two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    return scene, camera, len(pts)
+
+
+def simplex_rows(pts):
+    """The per-triangle rows of simplices ``pts`` (n, d, d) that
+    ``flatten`` takes from their prototypes -- p1, the face normal fn (the
+    edges' cross product), the edge normals en (n, d - 1, d), with
+    en_i . (p1 - x) the barycentric coordinate i of x, dc = -fn . p1, and the
+    vertex box lo/hi -- without a scene.  Computed in float64 and rounded
+    to float32: the prototypes' rows to within rounding (the prototypes'
+    float32 cofactors run Python loops that grow as d^5, a scene's k-d
+    build faster still)."""
+    pts = np.asarray(pts, np.float64)
+    n, d, _ = pts.shape
+    p1 = pts[:, 0]
+    edges = pts[:, 1:] - p1[:, None]                     # (n, d - 1, d)
+    fn = np.empty((n, d))
+    for k in range(d):
+        minor = np.delete(edges, k, axis=2)               # (n, d - 1, d - 1)
+        fn[:, k] = (-1.0) ** (k + d + 1) * np.linalg.det(minor)
+    # -en_i is column i of the inverse of the rows [edges; fn]: en_i . e_j
+    # = -[i == j], en_i . fn = 0
+    inv = np.linalg.inv(np.concatenate([edges, fn[:, None]], axis=1))
+    en = -inv[:, :, :d - 1].transpose(0, 2, 1)
+    f32 = np.float32
+    return dict(p1=p1.astype(f32), fn=fn.astype(f32), en=en.astype(f32),
+                dc=(-np.einsum("nd,nd->n", fn, p1)).astype(f32),
+                lo=pts.min(axis=1).astype(f32), hi=pts.max(axis=1).astype(f32))
+
+
+def simplex_pool(pts, dev):
+    """The grid walks' pool of simplices ``pts`` (n, d, d), in their order,
+    straight from their rows (``simplex_rows``) with no scene: the device
+    scene's ``kern_*`` arrays (``grid_kernels.prepare_tri_arrays``, padded
+    to whole 512-triangle tiles) and the plane records ``kern_grec``."""
+    from ntracer_tpu_torch.engine import grid_kernels as gk
+    rows = simplex_rows(pts)
+    n, d = rows["p1"].shape
+    T = -(-n // gk.TRI_BLOCK) * gk.TRI_BLOCK
+
+    def pad(a):
+        return np.concatenate([a, np.zeros((T - n,) + a.shape[1:], a.dtype)])
+
+    kern = gk.prepare_tri_arrays(*(pad(rows[k]) for k in
+                                   ("p1", "fn", "en", "dc", "lo", "hi")), d)
+    arrs = {"kern_" + short: torch.from_numpy(kern[k]).to(dev)
+            for k, short in (("gt", "gt"), ("ci", "ci"), ("k_lo", "klo"),
+                             ("k_hi", "khi"), ("k_any", "kany"),
+                             ("b_lo", "blo"), ("b_hi", "bhi"))}
+    arrs["kern_grec"] = gk.plane_records(arrs["kern_gt"], d)
+    return arrs
 
 
 def mesh_d3_scene(nt, material, n, seed=3):
@@ -1738,8 +1832,28 @@ def main():
           f"{tuple(o9arrs['kern_gt'].shape)}; random d=16: 200 simplices, "
           f"pool {tuple(p16arrs['kern_gt'].shape)}, built in "
           f"{time.perf_counter() - t1:.2f} s")
+    # past d = 16 (the wide bodies): the wide d=20 path's scene, and pools
+    # of 200 random simplices at d = 17, 24 and 32 straight from their rows
+    # (the k-d build of such scenes takes minutes), in the camera's view
+    # from -8 on axis 2
+    t1 = time.perf_counter()
+    nt20 = NTracer(20)
+    wide, wide_camera, n_wide = wide_scene(nt20, opaque)
+    wcfg, warrs, _flat = wf.get_device_scene(wide, dev)
+    t2 = time.perf_counter()
+    wide_pools = {}
+    for d_ in WIDE_POOL_DS:
+        pts_ = random_simplices(200, d_)
+        wide_pools[d_] = (pts_, simplex_pool(pts_, dev))
+    print(f"   wide d=20: {n_wide} simplices (the 20-simplex's 21 facets and "
+          f"200 random), pool {tuple(warrs['kern_gt'].shape)}, "
+          f"{wcfg.n_point_lights} point and {wcfg.n_global_lights} global "
+          f"light, shadows {wcfg.shadows}, built in {t2 - t1:.2f} s; random "
+          f"pools at d = {', '.join(map(str, WIDE_POOL_DS))}: 200 simplices, "
+          f"pools {[tuple(p['kern_gt'].shape) for _s, p in wide_pools.values()]}"
+          f", {time.perf_counter() - t2:.2f} s")
     if not all("kern_gt" in a and not any(k.startswith("res_") for k in a)
-               for a in (oarrs, o9arrs, p16arrs)):
+               for a in (oarrs, o9arrs, p16arrs, warrs)):
         raise SystemExit("a d > 8 scene has no grid layout")
     done(t0)
 
@@ -2444,13 +2558,15 @@ def main():
 
     # Kernels 2.9 and 2.10 at full wavefronts, each against its twin: the
     # grid walks of the 10-orthoplex (two 512-triangle tiles), the
-    # 9-orthoplex (one) and a 16-D random pool (one), for other d.  A
-    # twin's one call takes seconds: it is timed once.
+    # 9-orthoplex (one) and a 16-D random pool (one), for other d; past
+    # d = 16 (the wide bodies) the wide d=20 path's wavefronts and random
+    # pools at d = 17, 24 and 32 (one tile each).  A twin's one call takes
+    # seconds: it is timed once.
     t0 = phase("grid nearest_hit kernel vs twin")
     # kernel 2.9 as it launches: registers, spills, blocks an SM, ring
     # slots, rays a thread, with the shared rows and without
     grid_info = {}
-    for d_ in (9, 10, 16):
+    for d_ in (9, 10, 16, 17, 20, 24, 32):
         for shared in (True, False):
             grid_info[d_, shared] = gk.launch_info(d_, shared)
             print(f"   grid_nearest_hit at d = {d_}"
@@ -2483,6 +2599,29 @@ def main():
         "random16 aimed": (p16cfg, p16arrs, p16kern, p16oT, p16dT, skip,
                            dict(sh=p16pctx["sh_kern"])),
     }
+    # the wide bodies: the random pools' rays from the camera at -8 on axis
+    # 2 aimed at their simplices (at d = 17 also without the shared rows:
+    # the body that stages the origins), and the wide d=20 path's primary
+    # wavefront
+    wide_rays = {}
+    for d_, (pts_, parrs_) in wide_pools.items():
+        cam_ = torch.zeros((d_,), dtype=torch.float32, device=dev)
+        cam_[2] = -8.0
+        oT_ = cam_[:, None].expand(d_, R).contiguous()
+        dT_ = torch.as_tensor(aimed(cam_.cpu().numpy(), pts_, R), device=dev)
+        kern_ = wf._kern_dict(parrs_)
+        wide_rays[d_] = (oT_, dT_)
+        cfg_ = types.SimpleNamespace(d=d_)
+        gmodes[f"random{d_} aimed"] = (
+            cfg_, parrs_, kern_, oT_, dT_, skip,
+            dict(sh=gk.shared_rows(kern_["gt"], kern_["ci"], cam_, d_)))
+        if d_ == WIDE_POOL_DS[0]:
+            gmodes[f"random{d_} own origins"] = (cfg_, parrs_, kern_, oT_,
+                                                 dT_, skip, {})
+    _f, wcam_o, _t, woT, wdT, wpctx, wskip, whit = primary(wide, wcfg, warrs)
+    wkern = wf._kern_dict(warrs)
+    gmodes["wide20 primary"] = (wcfg, warrs, wkern, woT, wdT, wskip,
+                                dict(sh=wpctx["sh_kern"]))
     near_g = {}
     for label, (cfg_, arrs_, kern_, o_, d_, s_, kw) in gmodes.items():
         args = (kern_, o_, d_, s_, cfg_.d)
@@ -2503,9 +2642,12 @@ def main():
             cfg_.d, "sh" in kw, need, read,
             grid_walk_stages(*args, ktl, sh=kw.get("sh"), t=kt), nj,
             grid_pool_bytes(arrs_), 0, R * 8 + ktl.numel() * 4)
-        near_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, err=err,
+        near_g[label] = dict(d=cfg_.d, ms=ms, plain_ms=twin_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, err=err,
                              tiles_per_block=float(ktl.float().mean()))
+        if label.endswith("aimed") and cfg_.d >= gk.WIDE_D:
+            # the hits, for the occlusion rays of kernel 2.10
+            wide_rays[cfg_.d] += (kt, kid)
         print(f"   {label}: d={cfg_.d}, {R} rays, {int(need.sum())} to test, "
               f"{int((kid >= 0).sum())} hits, {int((ktl > 0).sum())} live "
               f"blocks, tiles/block {float(ktl.float().mean()):.4f} of {nj}; "
@@ -2530,7 +2672,7 @@ def main():
     # kernel 2.10 as it launches: registers, spills, blocks an SM, ring
     # slots, rays a thread
     occl_info = {}
-    for d_ in (9, 10, 16):
+    for d_ in (9, 10, 16, 17, 20, 24, 32):
         occl_info[d_] = gk.launch_info(d_, walk="occluded")
         print(f"   grid_occluded at d = {d_}: {occl_info[d_]}")
     gcases = {
@@ -2547,6 +2689,22 @@ def main():
                                   grid_shadow_rays(
                                       p16hit, light_dir=p16arrs["gl_dir"][0])),
     }
+    # the wide bodies: the random pools' aimed rays again, from the camera
+    # to just past their nearest hit on even rays (blocked there, or
+    # nearer) and to the hit on odd rays (an occluder at ldist does not
+    # block), misses inactive; and the wide d=20 path's shadow rays along
+    # its global light
+    for d_, (pts_, parrs_) in wide_pools.items():
+        oT_, dT_, kt_, kid_ = wide_rays[d_]
+        even = torch.arange(R, device=dev) % 2 == 0
+        ldist_ = torch.where(kid_ >= 0,
+                             torch.where(even, next_up(kt_), kt_), 0.0)
+        gcases[f"random{d_} through the hits"] = (
+            types.SimpleNamespace(d=d_), parrs_, wf._kern_dict(parrs_),
+            dict(pid=skip), (oT_, dT_, ldist_))
+    gcases["wide20 global light"] = (wcfg, warrs, wkern, whit,
+                                     grid_shadow_rays(
+                                         whit, light_dir=warrs["gl_dir"][0]))
     occ_g = {}
     for label, (cfg_, arrs_, kern_, hit_, (point, dirs, ldist)) in \
             gcases.items():
@@ -2563,8 +2721,9 @@ def main():
             grid_walk_stages(kern_, point, dirs, hit_["pid"], cfg_.d, ktl,
                              ldist=ldist, blocked=kb), nj,
             grid_pool_bytes(arrs_), 4, R + ktl.numel() * 4, early=kb)
-        occ_g[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, err=float(diffs["blocked"]),
+        occ_g[label] = dict(d=cfg_.d, ms=ms, plain_ms=twin_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            err=float(diffs["blocked"]),
                             tiles_per_block=float(ktl.float().mean()))
         print(f"   {label}: d={cfg_.d}, {R} rays, {int((ldist > 0).sum())} "
               f"active, {int(kb.sum())} blocked, live blocks "
@@ -2862,9 +3021,32 @@ def main():
           f"scene), launches {json.dumps(launches['generic d=10'])} "
           f"[{name_limit}]")
     only("generic d=10", {"grid_nearest_hit": 1, "grid_occluded": 2})
+    done(t0)
+
+    # past d = 16: the wide bodies of 2.9 and 2.10, one grid walk and two
+    # grid occlusion walks a frame
+    t0 = phase("wide d=20 frame")
+    reset_launches()
+    frame_s = orbit(nt20, wide, wide_camera, -4.0, LIT_FRAMES, renderer, buf,
+                    fmt)
+    launches["wide d=20"] = read_launches()
+    print(f"   launches in {LIT_FRAMES + 1} renders: "
+          f"{json.dumps(launches['wide d=20'])}")
+    only("wide d=20", {"grid_nearest_hit": LIT_FRAMES + 1,
+                       "grid_occluded": 2 * (LIT_FRAMES + 1)})
+    report_frames("wide d=20", frame_s, buf, name_limit)
+
+    def wide_stages(c):
+        point, ld, ldist = grid_shadow_rays(c["hit"],
+                                            light_dir=warrs["gl_dir"][0])
+        return {"shadow": lambda: wf.occlusion(warrs, wcfg, point, ld, ldist,
+                                               c["hit"]["pid"])}
+
+    stage_ms = stage_times(wide, wcfg, warrs, wide_stages)
+    print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
     # the paths of d <= 8 take no grid walk
     for path, got in launches.items():
-        if path not in ("orthoplex d=10", "generic d=10") and \
+        if path not in ("orthoplex d=10", "generic d=10", "wide d=20") and \
                 any(got[n] for n in GRID):
             raise SystemExit(f"the {path} path launched a grid walk")
     done(t0)
@@ -3250,6 +3432,18 @@ def main():
             tol=tol)
         print(f"   {label} oracle {time.perf_counter() - t2:.2f} s "
               f"({ORACLE_WORKERS} processes)")
+    # the wide d=20 frame from its turned camera
+    turn(nt20, wide, nt20.Camera(), -4.0, OBLIQUE)
+    t1 = time.perf_counter()
+    colors, masks = wf.frame_colors(wide, W, H, dev, masks=True)
+    pixels = pick_pixels(rng, {"hit": 48, None: 16}, masks)
+    print(f"   wide d=20 frame: {int(masks['hit'].sum())} pixels hit a "
+          f"simplex, {int(masks['shadowed'].sum())} shadowed "
+          f"({int((masks['shadowed'] & masks['grazing']).sum())} by a "
+          f"grazing light)")
+    oracle_check(wide, colors, pixels)
+    print(f"   wide d=20 oracle {time.perf_counter() - t1:.2f} s "
+          f"({ORACLE_WORKERS} processes)")
     done(t0)
 
     # the sharded paths: a mesh on the one card, its shards one after
@@ -3281,11 +3475,16 @@ def main():
         raise SystemExit(f"the bound counts DIV_OPS = {DIV_OPS}, the card's "
                          f"division executes {div_ops}")
 
-    def kernel_entry(name, source, replaces, path, cases, main_case, **more):
+    def kernel_entry(name, source, replaces, path, cases, main_case,
+                     wrapper=None, **more):
+        """The kernels line's entry of one kernel; ``wrapper`` is the name
+        of the wrapper that counts its launches (``name`` by default)."""
         c = cases[main_case]
+        wrapper = wrapper or name
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[path][name],
-                "launches_by_path": {p: n[name] for p, n in launches.items()},
+                "replaces": replaces, "launches": launches[path][wrapper],
+                "launches_by_path": {p: n[wrapper]
+                                     for p, n in launches.items()},
                 "max_abs_err": max(float(v["err"]) for v in cases.values()),
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -3338,16 +3537,42 @@ def main():
                      launch=stream_info["occluded_transparent_hbm", 3]),
     ]
     pallas = "ntracer_tpu/engine/pallas_kernels.py:"
+
+    def by_body(cases, wide):
+        """The cases of the templated bodies (d < WIDE_D) or the wide."""
+        return {k: v for k, v in cases.items()
+                if (v["d"] >= gk.WIDE_D) == wide}
+
+    # the templated bodies (d <= 16) and, past d = 16, the wide bodies:
+    # one wrapper each walk, so the wide entries count the wide d=20 path's
+    # launches
     kernels += [
         kernel_entry("grid_nearest_hit", csrc + "grid_walk.cu",
-                     pallas + "222", "orthoplex d=10", near_g,
-                     "orthoplex primary", redesigned=GRID_REDESIGNED,
+                     pallas + "222", "orthoplex d=10",
+                     by_body(near_g, False), "orthoplex primary",
+                     redesigned=GRID_REDESIGNED,
                      launch={f"d={d_}{' shared' if sh_ else ''}": v
-                             for (d_, sh_), v in grid_info.items()}),
+                             for (d_, sh_), v in grid_info.items()
+                             if d_ < gk.WIDE_D}),
         kernel_entry("grid_occluded", csrc + "grid_walk.cu", pallas + "346",
-                     "orthoplex d=10", occ_g, "orthoplex global light",
-                     dead_ms=dead_g_ms, redesigned=GRID_REDESIGNED,
-                     launch={f"d={d_}": v for d_, v in occl_info.items()}),
+                     "orthoplex d=10", by_body(occ_g, False),
+                     "orthoplex global light", dead_ms=dead_g_ms,
+                     redesigned=GRID_REDESIGNED,
+                     launch={f"d={d_}": v for d_, v in occl_info.items()
+                             if d_ < gk.WIDE_D}),
+        kernel_entry("grid_nearest_hit_wide", csrc + "grid_walk.cu",
+                     pallas + "222", "wide d=20", by_body(near_g, True),
+                     "wide20 primary", wrapper="grid_nearest_hit",
+                     body=WIDE_BODIES,
+                     launch={f"d={d_}{' shared' if sh_ else ''}": v
+                             for (d_, sh_), v in grid_info.items()
+                             if d_ >= gk.WIDE_D}),
+        kernel_entry("grid_occluded_wide", csrc + "grid_walk.cu",
+                     pallas + "346", "wide d=20", by_body(occ_g, True),
+                     "wide20 global light", wrapper="grid_occluded",
+                     body=WIDE_BODIES,
+                     launch={f"d={d_}": v for d_, v in occl_info.items()
+                             if d_ >= gk.WIDE_D}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

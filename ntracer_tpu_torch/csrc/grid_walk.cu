@@ -29,7 +29,8 @@
 // 450 KB) and sits in L2.
 //
 // Both kernels are built for that (`grid_nearest_kernel<D, SHARED, RPT>`
-// for 2.9, `grid_occluded_kernel<D, RPT>` for 2.10):
+// for 2.9, `grid_occluded_kernel<D, RPT>` for 2.10; past d = 16 the wide
+// bodies `wide_nearest_kernel<SHARED>` and `wide_occluded_kernel`, below):
 //   * Templated on d (3..16), so every dot runs at the exact width; a ray's
 //     direction (and, for rays that do not share one origin, its origin)
 //     is all it keeps in registers through the triangle loop: the tile
@@ -448,28 +449,37 @@ cudaError_t grid_ring_config(Kernel kernel, int threads, int* n_slots,
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
 }
 
-// A grid kernel at D as it launches (threads a block: RB / RPT):
-// info[0..5] = registers a thread, local (spill) bytes a thread, blocks per
-// SM, ring slots, shared bytes a block, rays a thread.
-template <int D, int RPT, class Kernel>
-int grid_info(Kernel kernel, int* info) {
-  int n_slots = 0, smem = 0, blocks = 0;
-  cudaError_t err =
-      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
+// A grid kernel as it launches, blocks of RB / rpt threads with `smem`
+// bytes of dynamic shared memory: info[0..5] = registers a thread, local
+// (spill) bytes a thread, blocks per SM, ring slots (`n_slots`), shared
+// bytes a block, rays a thread.
+template <class Kernel>
+int launch_numbers(Kernel kernel, int rpt, int smem, int n_slots,
+                   int* info) {
   cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   int active = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
-                                                        RB / RPT, smem);
+                                                        RB / rpt, smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = fa.numRegs;
   info[1] = (int)fa.localSizeBytes;
   info[2] = active;
   info[3] = n_slots;
   info[4] = smem + (int)fa.sharedSizeBytes;
-  info[5] = RPT;
+  info[5] = rpt;
   return 0;
+}
+
+// A templated grid kernel at D as it launches: launch_numbers.
+template <int D, int RPT, class Kernel>
+int grid_info(Kernel kernel, int* info) {
+  int n_slots = 0, smem = 0, blocks = 0;
+  const cudaError_t err =
+      grid_ring_config<D>(kernel, RB / RPT, &n_slots, &smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  return launch_numbers(kernel, RPT, smem, n_slots, info);
 }
 
 template <int D, bool SHARED>
@@ -593,6 +603,334 @@ int launch_occluded(const float* oT, const float* dT, const int* skip,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernels 2.9 and 2.10 past d = 16: the wide bodies
+// ---------------------------------------------------------------------------
+//
+// Past d = 16 a ray's coordinates no longer fit in registers beside the pair
+// test's (2.9's templated body already runs one block an SM at d = 16), and
+// a ring slot (grid_slot_floats: GS * d * pw + d * GS floats) outgrows two
+// slots a block at d = 32.  So each walk has one body that takes d at run
+// time, `wide_nearest_kernel<SHARED>` (2.9) and `wide_occluded_kernel`
+// (2.10):
+//   * One ray a thread (a block is 512 threads).  Its direction and, unless
+//     the shared rows carry its origin dots, its origin are staged in shared
+//     memory, lane-major (coordinate k of thread tid's ray at k * RB + tid:
+//     a warp reads 32 consecutive words), each thread its own column, so no
+//     sync.  A block holds `wide_smem` bytes: 68 KB at d = 17, 128 KB at
+//     d = 32 (half that with the shared rows).  Where a block cannot hold
+//     them (d > 56 on an H100, d > 113 with the shared rows) the launch is
+//     refused with cudaErrorInvalidConfiguration.
+//   * No ring: the plane records and offset rows are read straight from
+//     global memory by warp-uniform loads (a plane's values as float4s),
+//     which L2 and L1 serve.  A pool of these d is small: the 20-D path's
+//     221 simplices are one tile, 800 KB of records.
+//   * The templated bodies' vote, tile loop and pair test (tile_entry_d,
+//     grid_tiles, grid_pair) with a loop over d where they unroll D,
+//     operation for operation: the bits are theirs and the twins'.
+// What bounds them is what bounds the templated bodies, the pair tests,
+// with each multiply-add of a dot waiting on a load of the ray's coordinate
+// from shared memory.
+
+// The least d the wide bodies take; the templates of NTR_GRID_DS take
+// 3 .. WIDE_D - 1.  wide_dots unrolls the 16 coordinates every wide ray has.
+constexpr int WIDE_D = 17;
+static_assert(WIDE_D > 16, "wide_dots unrolls 16 coordinates");
+
+// A staged column: coordinate k of a ray's vector at p[k * RB] in shared
+// memory.
+struct StagedCol {
+  const float* p;
+  __device__ __forceinline__ float operator[](int k) const {
+    return p[k * RB];
+  }
+};
+
+// A ray's column of a lane-major (d, R) input: coordinate k at p[k * R].
+struct InputCol {
+  const float* p;
+  int R;
+  __device__ __forceinline__ float operator[](int k) const {
+    return p[(size_t)k * R];
+  }
+};
+
+// Shared bytes a block of a wide body holds: `columns` vectors of d floats
+// for each of its 512 rays.
+__host__ __device__ constexpr int wide_smem(int d, int columns) {
+  return columns * d * RB * 4;
+}
+
+// Stage ray r's vector of the lane-major (d, R) input `x` in column `c` of
+// the block's shared memory `s` (thread tid's own: no other thread reads
+// it).
+__device__ __forceinline__ StagedCol wide_stage(const float* __restrict__ x,
+                                                float* s, int c, int d, int R,
+                                                int r) {
+  float* col = s + c * d * RB + threadIdx.x;
+#pragma unroll 4
+  for (int k = 0; k < d; ++k) col[k * RB] = x[(size_t)k * R + r];
+  return {col};
+}
+
+// tile_entry_d at a run-time d: the entry distance of a ray (origin `o`,
+// direction `dv`) into a tile's box (lo/hi: its d bounds).
+template <class O>
+__device__ __forceinline__ float wide_entry(int d, O o, StagedCol dv,
+                                            const float* __restrict__ lo,
+                                            const float* __restrict__ hi) {
+  float tn = -BIG, tf = BIG;
+#pragma unroll 1
+  for (int c = 0; c < d; ++c) {
+    const float l = lo[c], h = hi[c], oc = o[c], dc = dv[c];
+    const bool par = dc == 0.f;
+    const float inv = par ? 0.f : 1.f / dc;
+    const float a = (l - oc) * inv;
+    const float b = (h - oc) * inv;
+    const bool ins = (oc >= l) && (oc <= h);
+    const float t0 = par ? (ins ? -BIG : BIG) : nan_min(a, b);
+    const float t1 = par ? (ins ? BIG : -BIG) : nan_max(a, b);
+    tn = nan_max(tn, t0);
+    tf = nan_min(tf, t1);
+  }
+  const float entry = nan_max(tn, 0.f);
+  return (tf >= entry && tf >= 0.f) ? entry : INFINITY;
+}
+
+// plane_dots of one wide ray with one plane (`g`, its (d + 3) / 4 float4s):
+// each sum from its first product, coordinate by coordinate, the first 16
+// unrolled and the rest up to d (never over the padding: a zero product
+// could turn a -0 sum into +0).  SHARED: no origin dot.
+template <bool SHARED>
+__device__ __forceinline__ void wide_dots(const float4* __restrict__ g, int d,
+                                          StagedCol o, StagedCol dv,
+                                          float& od, float& dd) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 g4 = g[m];
+    const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * m + e;
+      if constexpr (!SHARED) od = k == 0 ? o[0] * gv[e] : od + o[k] * gv[e];
+      dd = k == 0 ? dv[0] * gv[e] : dd + dv[k] * gv[e];
+    }
+  }
+#pragma unroll 1
+  for (int m = 4; 4 * m < d; ++m) {
+    const float4 g4 = g[m];
+    const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * m + e;
+      if (k < d) {
+        if constexpr (!SHARED) od = od + o[k] * gv[e];
+        dd = dd + dv[k] * gv[e];
+      }
+    }
+  }
+}
+
+// grid_pair for the one wide ray of a thread against pool triangle `id`
+// (its plane records at `rec`, pw4 float4s a plane; its offset rows, or
+// the shared rows, at cp[p * T]): the same stages, the same warp-uniform
+// skips, the same rounding.  Returns whether the warp ran every stage.
+template <bool SHARED, class Hit>
+__device__ __forceinline__ bool wide_pair(const float4* __restrict__ rec,
+                                          int pw4,
+                                          const float* __restrict__ cp,
+                                          int T, int id, int d, StagedCol o,
+                                          StagedCol dv, int sk, float cut,
+                                          bool want, Hit hit) {
+  float od = 0.f, dd;
+  wide_dots<SHARED>(rec, d, o, dv, od, dd);
+  const float c0 = cp[0];
+  const float num = SHARED ? c0 : c0 - od;
+  const bool pos = (num > 0.f) & (dd > 0.f);
+  const bool neg = (num < 0.f) & (dd < 0.f);
+  bool go = (id != sk) & want & (pos | neg);
+  if (!__any_sync(FULL, go)) return false;
+  const float t = num / (go ? dd : 1.f);
+  go = go && t > 0.f && t < cut;
+  if (!__any_sync(FULL, go)) return false;
+  float tot = 0.f;
+#pragma unroll 1
+  for (int i = 1; i < d; ++i) {
+    wide_dots<SHARED>(rec + i * pw4, d, o, dv, od, dd);
+    const float cv = cp[(size_t)i * T];
+    const float a = SHARED ? cv - t * dd : (cv - od) - t * dd;
+    go = go && (a >= -FUZZ) && (a <= 1.f + FUZZ);
+    tot = i == 1 ? a : tot + a;
+    if (!__any_sync(FULL, go)) return false;
+  }
+  if (go && tot <= 1.f + FUZZ) hit(t);
+  return true;
+}
+
+// grid_tiles without the ring: before tile j the block votes with the carry
+// from before it, and a tile that runs is `test(j)`, its 512 triangles in
+// lane order.  Returns the tiles run.
+template <class Vote, class Test>
+__device__ __forceinline__ int wide_tiles(const float* __restrict__ k_any,
+                                          int T, Vote vote, Test test) {
+  int ntiles = 0;
+  for (int j = 0; j < T / TB; ++j) {
+    if (!__syncthreads_or(vote(j)) || !(k_any[j] != 0.f)) continue;
+    ++ntiles;
+    test(j);
+  }
+  return ntiles;
+}
+
+// Kernel 2.9 past d = 16: grid_nearest_kernel's arguments, with d at run
+// time and wide_smem(d, SHARED ? 1 : 2) bytes of dynamic shared memory.
+template <bool SHARED>
+__global__ void __launch_bounds__(RB) wide_nearest_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ init_t,
+    const float* __restrict__ grec, const float* __restrict__ ci,
+    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
+    const float* __restrict__ k_any, int T, int R, int d,
+    float* __restrict__ out_t, int* __restrict__ out_id,
+    int* __restrict__ tiles) {
+  extern __shared__ float s_cols[];
+  const int r = blockIdx.x * RB + threadIdx.x;
+  const int pw4 = (d + 3) / 4;
+  const StagedCol dv = wide_stage(dT, s_cols, 0, d, R, r);
+  StagedCol o = dv;                    // no origin dots with the shared rows
+  if constexpr (!SHARED) o = wide_stage(oT, s_cols, 1, d, R, r);
+  const int sk = skip[r];
+  float best = init_t[r];
+  int bid = -1;
+  // the vote reads a shared origin in place
+  auto vote = [&](int j) {
+    const float* lo = k_lo + (size_t)j * d;
+    const float* hi = k_hi + (size_t)j * d;
+    if constexpr (SHARED)
+      return wide_entry(d, InputCol{oT + r, R}, dv, lo, hi) < best;
+    else
+      return wide_entry(d, o, dv, lo, hi) < best;
+  };
+  auto test = [&](int j) {
+#pragma unroll 1
+    for (int l = 0; l < TB; ++l) {
+      const int id = j * TB + l;
+      wide_pair<SHARED>(
+          reinterpret_cast<const float4*>(grec) + (size_t)id * d * pw4, pw4,
+          ci + id, T, id, d, o, dv, sk, best, true,
+          [&](float t) {               // t < best: the strict < update
+            best = t;
+            bid = id;
+          });
+    }
+  };
+  const int ntiles = wide_tiles(k_any, T, vote, test);
+  out_t[r] = best;
+  out_id[r] = bid;
+  if (threadIdx.x == 0) tiles[blockIdx.x] = ntiles;
+}
+
+// Kernel 2.10 past d = 16: grid_occluded_kernel's rule (a dead ray takes no
+// vote and no pair test, a warp of dead rays skips the rest of a tile) on
+// the wide body, wide_smem(d, 2) bytes of dynamic shared memory.
+__global__ void __launch_bounds__(RB) wide_occluded_kernel(
+    const float* __restrict__ oT, const float* __restrict__ dT,
+    const int* __restrict__ skip, const float* __restrict__ ldist,
+    const float* __restrict__ grec, const float* __restrict__ ci,
+    const float* __restrict__ k_lo, const float* __restrict__ k_hi,
+    const float* __restrict__ k_any, int T, int R, int d,
+    unsigned char* __restrict__ out_blocked, int* __restrict__ tiles) {
+  extern __shared__ float s_cols[];
+  const int r = blockIdx.x * RB + threadIdx.x;
+  const int pw4 = (d + 3) / 4;
+  const StagedCol dv = wide_stage(dT, s_cols, 0, d, R, r);
+  const StagedCol o = wide_stage(oT, s_cols, 1, d, R, r);
+  const int sk = skip[r];
+  const float ld = ldist[r];
+  bool live = ld > 0.f, blocked = false;
+  auto vote = [&](int j) {
+    return live && wide_entry(d, o, dv, k_lo + (size_t)j * d,
+                              k_hi + (size_t)j * d) < ld;
+  };
+  auto test = [&](int j) {
+    if (!__any_sync(FULL, live)) return;
+#pragma unroll 1
+    for (int l = 0; l < TB; ++l) {
+      const int id = j * TB + l;
+      if (!wide_pair<false>(
+              reinterpret_cast<const float4*>(grec) + (size_t)id * d * pw4,
+              pw4, ci + id, T, id, d, o, dv, sk, ld, live,
+              [&](float) {             // 0 < t < ldist: blocked for good
+                blocked = true;
+                live = false;
+              }))
+        continue;
+      if (!__any_sync(FULL, live)) return;
+    }
+  };
+  const int ntiles = wide_tiles(k_any, T, vote, test);
+  out_blocked[r] = blocked ? 1 : 0;
+  if (threadIdx.x == 0) tiles[blockIdx.x] = ntiles;
+}
+
+// Let a wide body take `smem` bytes of dynamic shared memory a block:
+// cudaErrorInvalidConfiguration where a block cannot hold them.
+template <class Kernel>
+cudaError_t wide_config(Kernel kernel, int smem) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  if (smem + (int)fa.sharedSizeBytes > optin)
+    return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <bool SHARED>
+int launch_wide_nearest(const float* oT, const float* dT, const int* skip,
+                        const float* init_t, const float* grec,
+                        const float* ci, const float* k_lo, const float* k_hi,
+                        const float* k_any, int T, int R, int d, float* out_t,
+                        int* out_id, int* tiles, cudaStream_t stream) {
+  auto kernel = wide_nearest_kernel<SHARED>;
+  const int smem = wide_smem(d, SHARED ? 1 : 2);
+  const cudaError_t err = wide_config(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<R / RB, RB, smem, stream>>>(oT, dT, skip, init_t, grec, ci, k_lo,
+                                       k_hi, k_any, T, R, d, out_t, out_id,
+                                       tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_wide_occluded(const float* oT, const float* dT, const int* skip,
+                         const float* ldist, const float* grec,
+                         const float* ci, const float* k_lo,
+                         const float* k_hi, const float* k_any, int T, int R,
+                         int d, unsigned char* blocked, int* tiles,
+                         cudaStream_t stream) {
+  const int smem = wide_smem(d, 2);
+  const cudaError_t err = wide_config(wide_occluded_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  wide_occluded_kernel<<<R / RB, RB, smem, stream>>>(
+      oT, dT, skip, ldist, grec, ci, k_lo, k_hi, k_any, T, R, d, blocked,
+      tiles);
+  return (int)cudaGetLastError();
+}
+
+// A wide body as it launches: info as grid_info's (no ring: 0 slots, one
+// ray a thread).
+template <class Kernel>
+int wide_info(Kernel kernel, int smem, int* info) {
+  const cudaError_t err = wide_config(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return launch_numbers(kernel, 1, smem, 0, info);
+}
+
 int check(int T, int R) {
   if (R % RB || R == 0 || T % TB || T == 0)
     return (int)cudaErrorInvalidValue;
@@ -601,7 +939,8 @@ int check(int T, int R) {
 
 }  // namespace
 
-// every d that the wrappers take: 3 .. 16 (a ray's registers)
+// the d of the templated bodies: 3 .. 16 (a ray's registers); the wide
+// bodies take every d from WIDE_D = 17 up
 #define NTR_GRID_DS(X)                                                      \
   X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15)    \
   X(16)
@@ -609,12 +948,15 @@ int check(int T, int R) {
 extern "C" {
 
 // Launch the nearest-hit grid walk (kernel 2.9) on `stream`.  Rays are
-// lane-major (d, R) with 3 <= d <= 16 and R a multiple of 512; skip (R,)
+// lane-major (d, R) with d >= 3 and R a multiple of 512; skip (R,)
 // i32; init_t (R,) the start distance; grec (T, d, pw) the plane records
 // (grid_kernels.plane_records, pw = 4 * ceil(d / 4)), ci (d, T) (the
 // shared rows when `shared`), both 16-byte aligned; k_lo/k_hi (T/512, 1,
 // d), k_any (T/512, 1, 1), T a multiple of 512; out_t (R,), out_id (R,)
-// i32, tiles (R/512,) i32.  Returns cudaGetLastError() after the launch.
+// i32, tiles (R/512,) i32.  d < WIDE_D takes the body templated on d, a
+// larger d the wide body.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidConfiguration, no launch, where a block cannot stage the
+// wide body's rays).
 int ntr_grid_nearest_hit(const float* oT, const float* dT, const int* skip,
                          const float* init_t, const float* grec,
                          const float* ci, const float* k_lo,
@@ -635,7 +977,13 @@ int ntr_grid_nearest_hit(const float* oT, const float* dT, const int* skip,
   switch (d) {
     NTR_GRID_DS(NTR_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d < WIDE_D) return (int)cudaErrorInvalidValue;
+      return shared ? launch_wide_nearest<true>(oT, dT, skip, init_t, grec,
+                                                ci, k_lo, k_hi, k_any, T, R,
+                                                d, out_t, out_id, tiles, s)
+                    : launch_wide_nearest<false>(oT, dT, skip, init_t, grec,
+                                                 ci, k_lo, k_hi, k_any, T, R,
+                                                 d, out_t, out_id, tiles, s);
   }
 #undef NTR_CASE
 }
@@ -651,7 +999,11 @@ int ntr_grid_nearest_hit_info(int d, int shared, int* info) {
   switch (d) {
     NTR_GRID_DS(NTR_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d < WIDE_D) return (int)cudaErrorInvalidValue;
+      return shared ? wide_info(wide_nearest_kernel<true>, wide_smem(d, 1),
+                                info)
+                    : wide_info(wide_nearest_kernel<false>, wide_smem(d, 2),
+                                info);
   }
 #undef NTR_CASE
 }
@@ -675,7 +1027,9 @@ int ntr_grid_occluded(const float* oT, const float* dT, const int* skip,
   switch (d) {
     NTR_GRID_DS(NTR_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d < WIDE_D) return (int)cudaErrorInvalidValue;
+      return launch_wide_occluded(oT, dT, skip, ldist, grec, ci, k_lo, k_hi,
+                                  k_any, T, R, d, blocked, tiles, s);
   }
 #undef NTR_CASE
 }
@@ -690,7 +1044,8 @@ int ntr_grid_occluded_info(int d, int* info) {
   switch (d) {
     NTR_GRID_DS(NTR_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d < WIDE_D) return (int)cudaErrorInvalidValue;
+      return wide_info(wide_occluded_kernel, wide_smem(d, 2), info);
   }
 #undef NTR_CASE
 }

@@ -41,9 +41,11 @@ from . import resident_kernels as rk
 
 RAY_BLOCK = 512   # rays per block: one 32x16-pixel tile of the frame
 TRI_BLOCK = 512   # triangles per tile
-# the largest d the CUDA kernels take (their per-ray registers); the twins
-# take any d
-MAX_D = 16
+# the least d the CUDA kernels run on their wide bodies (d at run time, the
+# rays' coordinates staged in shared memory); d = 3..16 take the bodies
+# templated on d.  The twins take any d.
+WIDE_D = 17
+_INVALID_CONFIGURATION = 9        # cudaErrorInvalidConfiguration
 
 
 # ---------------------------------------------------------------------------
@@ -287,24 +289,44 @@ GRID_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
              "shared_bytes", "rays_per_thread")
 
 
+def wide_shared_bytes(d, shared=False):
+    """Shared memory a block of a wide body (d >= ``WIDE_D``) holds: the
+    512 rays' directions and, unless the shared rows carry the origin dots
+    (kernel 2.9's primary rays), their origins, d float32 each."""
+    return (1 if shared else 2) * d * RAY_BLOCK * 4
+
+
+def _refused(name, d, shared, err):
+    """Raise for the error ``err`` of a grid kernel's C entry at ``d``:
+    where a wide body's block cannot stage its rays, name the bytes."""
+    if err == _INVALID_CONFIGURATION and d >= WIDE_D:
+        raise RuntimeError(
+            f"{name} at d={d} needs {wide_shared_bytes(d, shared)} bytes of "
+            f"shared memory a block (the coordinates of its {RAY_BLOCK} "
+            f"rays), more than a block of this card holds")
+    from . import _build
+    raise RuntimeError(f"{name} failed: {_build.error_string(err)} ({err})")
+
+
 def launch_info(d, shared=False, walk="nearest_hit"):
     """A grid kernel at dimension ``d`` as it launches on the current card:
     kernel 2.9 (``walk="nearest_hit"``) in its ``shared`` (primary rays)
     variant or not, or kernel 2.10 (``walk="occluded"``; rays of their own
     origins).  Registers and local (spill) bytes a thread, blocks per SM,
-    ring slots and shared bytes a block, rays a thread (``GRID_INFO``)."""
+    ring slots and shared bytes a block, rays a thread (``GRID_INFO``).  A
+    wide body (d >= ``WIDE_D``) has no ring: 0 slots."""
     from . import _build
     lib = _build.load()
     info = torch.zeros((len(GRID_INFO),), dtype=torch.int32)
     if walk == "nearest_hit":
         err = lib.ntr_grid_nearest_hit_info(d, int(shared), info.data_ptr())
     elif walk == "occluded":
+        shared = False
         err = lib.ntr_grid_occluded_info(d, info.data_ptr())
     else:
         raise ValueError(f"no grid walk {walk!r}")
     if err:
-        raise RuntimeError(f"kernel query failed: {_build.error_string(err)} "
-                           f"({err})")
+        _refused(f"grid {walk} kernel query", d, shared, err)
     return dict(zip(GRID_INFO, info.tolist()))
 
 
@@ -328,9 +350,8 @@ def _check_grid(w, dev):
     d = w["d"]
     R = w["oT"].shape[1]
     T = w["gt"].shape[1]
-    if not 3 <= d <= MAX_D:
-        raise ValueError(f"the CUDA grid kernels take 3 <= d <= {MAX_D}, "
-                         f"not d={d}")
+    if d < 3:
+        raise ValueError(f"the CUDA grid kernels take d >= 3, not d={d}")
     if T == 0 or T % TRI_BLOCK:
         raise ValueError(f"pool of {T} triangles is not a positive multiple "
                          f"of {TRI_BLOCK}")
@@ -379,6 +400,8 @@ def nearest_hit(kern, oT, dT, skip, d, sh=None):
         w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
         int(w["shared"]), out_t.data_ptr(), out_id.data_ptr(),
         tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _refused("grid nearest_hit kernel launch", d, w["shared"], err)
     rk._launched("grid nearest_hit", nearest_hit, err)
     return out_t, out_id, tiles
 
@@ -413,6 +436,8 @@ def occluded(kern, oT, dT, ldist, skip, d):
         w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
         blocked.data_ptr(), tiles.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _refused("grid occluded kernel launch", d, False, err)
     rk._launched("grid occluded", occluded, err)
     return blocked, tiles
 

@@ -57,8 +57,10 @@ the host (three calls back to back, no synchronisation between them: a
 launch that waits for an earlier one shows the kernel's time there).  It
 prints, for each tree, ptxas's registers and spills of the kernels at d =
 3 (2.3, 2.5, 2.7), 4 (2.1, 2.2, 2.3, 2.4), 6 (2.2), 10 and 16 (2.9, 2.10)
-and, for each wavefront, the mean times in ms with the card's name and
-power limit.
+and of 2.9's and 2.10's wide bodies (d > 16), each grid walk's launch at
+d = 16 and 17 (the last d of the bodies templated on d and the first of
+the wide ones; a tree without wide bodies refuses 17) and, for each
+wavefront, the mean times in ms with the card's name and power limit.
 Needs one CUDA card; the port never imports it.
 """
 
@@ -99,9 +101,10 @@ KERNELS = {
     "2.7": ("nearest_hit_transparent.cu", "ntr_nearest_t_hbm",
             _build._NEAREST_T_ARGS, r"nearest_t\w*kernelILi3E"),
     "2.9": ("grid_walk.cu", "ntr_grid_nearest_hit",
-            _build._GRID_NEAREST_ARGS, r"grid_nearest_kernelILi1[06]E"),
+            _build._GRID_NEAREST_ARGS,
+            r"grid_nearest_kernelILi1[06]E|wide_nearest_kernel"),
     "2.10": ("grid_walk.cu", "ntr_grid_occluded", _build._GRID_OCCLUDED_ARGS,
-             r"grid_occluded_kernel(ILi1[06]E|EPK)"),
+             r"grid_occluded_kernel(ILi1[06]E|EPK)|wide_occluded_kernel"),
 }
 
 
@@ -151,6 +154,29 @@ def ptxas_rows(log, kernels):
         if any(re.search(KERNELS[k][3], m.group(1)) for k in kernels):
             rows.append((m.group(1), int(m.group(4)), int(m.group(2)),
                          int(m.group(3))))
+    return rows
+
+
+def grid_boundary(lib, kernels):
+    """Each chosen grid walk's launch from ``lib`` at d = 16 and 17 (2.9
+    with the shared rows and without): ``grid_kernels.GRID_INFO``'s numbers,
+    or the error the query returned.  -> [(walk, d, shared, numbers)]."""
+    rows = []
+    for k, entry in (("2.9", "ntr_grid_nearest_hit_info"),
+                     ("2.10", "ntr_grid_occluded_info")):
+        if k not in kernels or not hasattr(lib, entry):
+            continue
+        query = getattr(lib, entry)
+        for d in (16, gk.WIDE_D):
+            for shared in ((True, False) if k == "2.9" else (False,)):
+                info = torch.zeros((len(gk.GRID_INFO),), dtype=torch.int32)
+                args = (d, int(shared)) if k == "2.9" else (d,)
+                query.argtypes = [ctypes.c_int] * len(args) + \
+                    [ctypes.c_void_p]
+                query.restype = ctypes.c_int
+                err = query(*args, info.data_ptr())
+                rows.append((k, d, shared, f"error {err}" if err else
+                             dict(zip(gk.GRID_INFO, info.tolist()))))
     return rows
 
 
@@ -499,10 +525,13 @@ def main():
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as out:
         libs = build(trees, kernels, out)
-        for name, (_lib, log) in libs.items():
+        for name, (lib, log) in libs.items():
             for row in ptxas_rows(log, kernels):
                 print(f"{name}: {row[0]}: {row[1]} registers, spill stores "
                       f"{row[2]} B, loads {row[3]} B")
+            for k, d, shared, info in grid_boundary(lib, kernels):
+                print(f"{name}: {k} at d = {d}"
+                      f"{' (shared rows)' if shared else ''}: {info}")
         # the wavefronts, with this tree's library
         cases = {}
         if "2.1" in kernels:

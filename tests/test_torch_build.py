@@ -142,20 +142,28 @@ def _entry_body(src, entry):
 
 
 def test_grid_kernels_take_d_up_to_16():
-    """The CUDA grid kernels hold a ray's coordinates in registers, one
-    instantiation for each d up to MAX_D, and every entry refuses a larger
-    d (the switch's default): the wrappers' cap is the source's."""
+    """The CUDA grid kernels' templates hold a ray's coordinates in
+    registers, one instantiation for each d up to 16; every entry sends a
+    larger d to the wide body (the switch's default, from WIDE_D = 17) and
+    refuses d < 3, so the wrappers check only d >= 3."""
     from ntracer_tpu_torch.engine import grid_kernels as gk
     src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
-    assert max(_grid_ds(src)) == gk.MAX_D
-    for entry in ("ntr_grid_nearest_hit", "ntr_grid_nearest_hit_info",
-                  "ntr_grid_occluded", "ntr_grid_occluded_info"):
+    assert max(_grid_ds(src)) == gk.WIDE_D - 1 == 16
+    assert re.search(r"constexpr int WIDE_D = %d;" % gk.WIDE_D, src)
+    for entry, wide in (
+            ("ntr_grid_nearest_hit", "launch_wide_nearest<true>("),
+            ("ntr_grid_nearest_hit_info", "wide_info(wide_nearest_kernel<"),
+            ("ntr_grid_occluded", "launch_wide_occluded("),
+            ("ntr_grid_occluded_info", "wide_info(wide_occluded_kernel,")):
         body = _entry_body(src, entry)
         assert "NTR_GRID_DS(NTR_CASE)" in body, entry
-        assert "default:\n      return (int)cudaErrorInvalidValue;" in body
+        default = body[body.index("default:"):]
+        assert default.startswith("default:\n      if (d < WIDE_D) return "
+                                  "(int)cudaErrorInvalidValue;"), entry
+        assert wide in default, entry
     assert re.search(r"constexpr int TB = %d;" % gk.TRI_BLOCK, src)
     assert re.search(r"constexpr int RB = %d;" % gk.RAY_BLOCK, src)
-    assert gk.MAX_D >= 16
+    assert not hasattr(gk, "MAX_D")
 
 
 def _defines(name, fn):
@@ -212,7 +220,8 @@ def test_grid_nearest_launch_info_signature():
 
 def test_grid_nearest_kernel_instantiated_for_every_d():
     """2.9 is a template on D with no run-time d in its dots, switched at
-    launch for every d the wrappers take (3..MAX_D), both variants."""
+    launch for every d = 3..16, both variants; a larger d reaches the wide
+    body, both variants, whose dots loop to d (not over the padding)."""
     from ntracer_tpu_torch.engine import grid_kernels as gk
     src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
     assert re.search(r"template <int D, bool SHARED, int RPT>\s*__global__ "
@@ -220,35 +229,52 @@ def test_grid_nearest_kernel_instantiated_for_every_d():
                      src)
     listed = re.search(r"#define NTR_GRID_DS\(X\)(.*?)\n\n", src, re.S)
     ds = [int(x) for x in re.findall(r"X\((\d+)\)", listed.group(1))]
-    assert ds == list(range(3, gk.MAX_D + 1))
+    assert ds == list(range(3, gk.WIDE_D))
     for entry in ("ntr_grid_nearest_hit", "ntr_grid_nearest_hit_info"):
         body = re.search(r"int %s\(.*?\)\s*\{(.*?)\n\}" % entry, src, re.S)
         assert "NTR_GRID_DS(NTR_CASE)" in body.group(1), entry
         assert "<DD, true>" in body.group(1) and "<DD, false>" in body.group(1)
+        assert "wide_nearest_kernel<true>" in body.group(1) or \
+            "launch_wide_nearest<true>" in body.group(1), entry
+        assert "wide_nearest_kernel<false>" in body.group(1) or \
+            "launch_wide_nearest<false>" in body.group(1), entry
     # the nearest-hit walk's dots run at the exact width: no `k < d` guard
     kernel = src[src.index("// Kernel 2.9: the nearest-hit grid walk"):
                  src.index("// Kernel 2.10: the occlusion grid walk")]
     assert "k < d" not in kernel and "MAXD" not in kernel
     assert "__any_sync" in kernel
+    # the wide bodies take d at run time: their dots stop at d
+    wide = src[src.index("// Kernels 2.9 and 2.10 past d = 16"):
+               src.index("}  // namespace")]
+    assert re.search(r"template <bool SHARED>\s*__global__ void "
+                     r"__launch_bounds__\(RB\) wide_nearest_kernel", wide)
+    assert "if (k < d)" in wide and "int T, int R, int d," in wide
 
 
 def test_grid_occluded_kernel_instantiated_for_every_d():
     """2.10 is a template on D (and rays a thread) with no run-time d,
-    switched at launch for every d the wrappers take; it reads the plane
-    records `grec`, and the first port's run-time-d pieces are gone."""
+    switched at launch for every d = 3..16; it reads the plane records
+    `grec`, and the first port's run-time-d pieces are gone.  A larger d
+    reaches the wide body, which reads `grec` too."""
     from ntracer_tpu_torch.engine import grid_kernels as gk
     src = open(os.path.join(_build.CSRC_DIR, "grid_walk.cu")).read()
     assert re.search(r"template <int D, int RPT>\s*__global__ void "
                      r"__launch_bounds__\(RB / RPT\) grid_occluded_kernel",
                      src)
-    assert _grid_ds(src) == list(range(3, gk.MAX_D + 1))
+    assert _grid_ds(src) == list(range(3, gk.WIDE_D))
     for entry in ("ntr_grid_occluded", "ntr_grid_occluded_info"):
         assert "<DD>" in _entry_body(src, entry) or \
             "<DD, OCCL_RAYS>" in _entry_body(src, entry), entry
+        assert "wide_occluded" in _entry_body(src, entry), entry
     kernel = src[src.index("// Kernel 2.10: the occlusion grid walk"):
-                 src.index("}  // namespace")]
+                 src.index("// Kernels 2.9 and 2.10 past d = 16")]
     assert "k < d" not in kernel and "__any_sync" in kernel
     assert re.search(r"const float\* __restrict__ grec", kernel)
+    wide = src[src.index("__global__ void __launch_bounds__(RB) "
+                         "wide_occluded_kernel"):
+               src.index("}  // namespace")]
+    assert re.search(r"const float\* __restrict__ grec", wide)
+    assert "wide_pair<false>(" in wide and "wide_tiles(" in wide
     for gone in (r"\bMAXD\b", r"\bSUB\b", r"struct Ray\b", r"\bload_ray\(",
                  r"\bstage\(", r"\btile_entry\("):
         assert not re.search(gone, src), gone

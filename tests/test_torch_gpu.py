@@ -1256,11 +1256,11 @@ def test_streaming_occlusion_kernels_two_blocks_an_sm(cuda):
             assert info["ring_slots"] >= 2
 
 
-def _random16():
-    """A 16-D pool of 200 random simplices (chip_smoke.random_pool), with
+def _random(d):
+    """A d-D pool of 200 random simplices (chip_smoke.random_pool), with
     the simplices for rays aimed at them."""
     a = api()
-    return _smoke().random_pool(a.NTracer(16), a.Material((0.8, 0.5, 0.9)),
+    return _smoke().random_pool(a.NTracer(d), a.Material((0.8, 0.5, 0.9)),
                                 200)
 
 
@@ -1268,7 +1268,8 @@ GRID = {
     "orthoplex9": lambda: (orthoplex_scene(9), None),
     "orthoplex10_shade": lambda: (orthoplex_scene(10, companion="shade"),
                                   None),
-    "random16": _random16,
+    "random16": lambda: _random(16),
+    "random20": lambda: _random(20),
 }
 
 
@@ -1283,7 +1284,8 @@ def _grid_equal(got, ref):
 
 @pytest.mark.parametrize("name", sorted(GRID))
 def test_grid_kernels_match_twins(cuda, name):
-    """Kernels 2.9 and 2.10 (d > 8; here d = 9, 10 and 16) equal their twins
+    """Kernels 2.9 and 2.10 (d > 8; here d = 9, 10, 16 and, on the wide
+    bodies, 20) equal their twins
     bit for bit, tiles run included: primary rays with the shared rows (for
     the 16-D pool aimed at its simplices from the camera), the bounce
     wavefront of the reflections off the primary hits (every ray, the
@@ -1369,7 +1371,11 @@ def _grid_corner_cases(d, dev, n=300, ties=600, seed=3):
     (chip_smoke.random_pool's spread) and ``ties`` identical copies of one
     simplex in the plane x_2 = -4 (``_tie_vertices``), in front of them
     from the camera at -8 on axis 2: 1,024 pool slots, two tiles, and the
-    copies fill lanes of both.  Six 512-ray blocks from the camera:
+    copies fill lanes of both.  Past d = 16 (the wide bodies) the k-d build
+    of such a scene takes minutes: the pool is built straight from the
+    simplices' rows (``chip_smoke.simplex_pool``), the copies between the
+    two halves of the random simplices.  Six 512-ray blocks from the
+    camera:
       0. aimed at the copies: t tied across lanes and tiles;
       1. the same, each skipping the winner's pool id;
       2. the same with every other origin NaN;
@@ -1379,25 +1385,39 @@ def _grid_corner_cases(d, dev, n=300, ties=600, seed=3):
       5. aimed at random simplices of the second tile, with no valid pair
          in the first.
     Returns (kern, oT, dT, skip, sh, facts), facts the twin's view."""
-    a = api()
-    nt = a.NTracer(d)
+    smoke = _smoke()
+    wide = d >= gk.WIDE_D
     rng = np.random.RandomState(seed)
     pts = (rng.uniform(-2, 2, (n, 1, d))
            + rng.uniform(-0.7, 0.7, (n, d, d))).astype(np.float32)
     tie = np.asarray(_tie_vertices(d, (-0.6, -0.6, -4.0), 1.6), np.float32)
-    allp = np.concatenate([pts, np.broadcast_to(tie, (ties, d, d))])
-    mat = a.Material((0.8, 0.5, 0.9))
-    scene = nt.build_composite_scene(
-        nt.TrianglePrototype.batch_from_points(allp, [mat] * len(allp)))
-    cam = nt.Camera()
-    cam.translate(nt.Vector.axis(2, -8))
-    scene.set_camera(cam)
-    cfg, arrs, flat = pwf.get_device_scene(scene, dev)
+    copies_ = np.broadcast_to(tie, (ties, d, d))
+    if wide:
+        allp = np.concatenate([pts[:n // 2], copies_, pts[n // 2:]])
+        arrs = smoke.simplex_pool(allp, dev)
+        cam_o = torch.zeros((d,), dtype=torch.float32, device=dev)
+        cam_o[2] = -8.0
+
+        def vertices(ids):
+            return allp[ids]
+    else:
+        a = api()
+        nt = a.NTracer(d)
+        allp = np.concatenate([pts, copies_])
+        mat = a.Material((0.8, 0.5, 0.9))
+        scene = nt.build_composite_scene(
+            nt.TrianglePrototype.batch_from_points(allp, [mat] * len(allp)))
+        cam = nt.Camera()
+        cam.translate(nt.Vector.axis(2, -8))
+        scene.set_camera(cam)
+        cfg, arrs, flat = pwf.get_device_scene(scene, dev)
+        cam_o = torch.as_tensor(np.asarray(scene._cam._origin, np.float32),
+                                device=dev)
+
+        def vertices(ids):
+            return _pool_vertices(flat.arrays, ids)
     kern = pwf._kern_dict(arrs)
     assert "kern_gt" in arrs and kern["gt"].shape[1] == 2 * gk.TRI_BLOCK
-    cam_o = torch.as_tensor(np.asarray(scene._cam._origin, np.float32),
-                            device=dev)
-    smoke = _smoke()
     none = torch.full((512,), -1, dtype=torch.int32, device=dev)
 
     def twin(o, dv, sk, k_any=None):
@@ -1430,10 +1450,10 @@ def _grid_corner_cases(d, dev, n=300, ties=600, seed=3):
     assert miss.numel() > 0
     d_miss = d_miss[:, miss[torch.arange(512, device=dev) % miss.numel()]]
     # 5: aimed at random simplices of the second tile
+    real = torch.linalg.vector_norm(kern["gt"][:d], dim=0) > 0
     second = [i for i in range(gk.TRI_BLOCK, 2 * gk.TRI_BLOCK)
-              if i not in set(copies.tolist())
-              and np.linalg.norm(flat.arrays["tri_fn"][i]) > 0]
-    verts = _pool_vertices(flat.arrays, second)
+              if i not in set(copies.tolist()) and bool(real[i])]
+    verts = vertices(second)
     d_2nd = torch.as_tensor(smoke.aimed(cam_o.cpu().numpy(), verts, 4096,
                                         seed=7), device=dev)
     o4k = cam_o[:, None].expand(d, 4096)
@@ -1487,12 +1507,13 @@ def _pool_vertices(a, ids):
     return np.asarray(out, np.float32)
 
 
-@pytest.mark.parametrize("d", [9, 10, 12, 16])
+@pytest.mark.parametrize("d", [9, 10, 12, 16, 17, 20, 24, 32])
 def test_grid_nearest_kernel_corner_cases(cuda, d):
     """Kernel 2.9 on ``_grid_corner_cases(d)`` -- ties across lanes and
     tiles, the winner skipped, NaN origins, a dead block, a live block
     without hits, hits only in the second tile -- with the shared rows and
-    without: t, ids and tiles equal the twin's bit for bit."""
+    without: t, ids and tiles equal the twin's bit for bit (past d = 16
+    on the wide bodies)."""
     kern, oT, dT, skip, sh, facts = _grid_corner_cases(d, cuda)
     print(f"d = {d}: {facts}")
     assert facts["copies"] == 600 and facts["copy_tiles"] == 2
@@ -1509,8 +1530,8 @@ def test_grid_nearest_kernel_corner_cases(cuda, d):
 
 def _grid_occlusion_cases(d, dev):
     """Kernel 2.10's corner cases at dimension ``d`` over the pool of
-    ``_grid_corner_cases(d)`` (the tie copies fill lanes 300.. of the first
-    tile and the second tile), seven 512-ray blocks of shadow rays from its
+    ``_grid_corner_cases(d)`` (the tie copies fill lanes of the first tile
+    and the second tile), seven 512-ray blocks of shadow rays from its
     camera, ldist from the twin's nearest hit t:
       0. aimed at the copies, ldist just above t on even rays (blocked),
          ldist = t on odd rays (an occluder at t = ldist: not blocked);
@@ -1523,8 +1544,9 @@ def _grid_occlusion_cases(d, dev):
          first), ldist just above the hit, even rays skipping what they hit
          (the first tile runs where the block's rays enter its box before
          their ldist);
-      6. aimed at the copies with ldist inf: every ray blocked at lane 300
-         of the first tile, so whole warps end blocked inside it.
+      6. aimed at the copies with ldist inf: every ray blocked at the
+         first copy's lane of the first tile, so whole warps end blocked
+         inside it.
     Returns (kern, oT, dT, ldist, skip, facts), facts the twin's view."""
     kern, oT, dT, skip, _sh, _facts = _grid_corner_cases(d, dev)
     t, ids, _tiles = gk.nearest_hit_ref(kern, oT, dT, skip, d)
@@ -1562,7 +1584,7 @@ def _grid_occlusion_cases(d, dev):
     return kern, o, dv, ld, sk, facts
 
 
-@pytest.mark.parametrize("d", [9, 10, 12, 16])
+@pytest.mark.parametrize("d", [9, 10, 12, 16, 17, 20, 24, 32])
 def test_grid_occluded_kernel_corner_cases(cuda, d):
     """Kernel 2.10 on ``_grid_occlusion_cases(d)`` -- an occluder just below
     ldist and one at ldist, the skipped id, NaN origins, a dead block,
@@ -1585,27 +1607,124 @@ def test_grid_occluded_kernel_corner_cases(cuda, d):
 
 
 def test_grid_occluded_kernel_launch_info(cuda):
-    """Kernel 2.10 as it launches at d = 9, 10 and 16: one ray a thread, a
-    ring of at least two slots, at least one block an SM, no spill."""
-    for d in (9, 10, 16):
+    """Kernel 2.10 as it launches at d = 9, 10 and 16 (the templated
+    bodies: one ray a thread, a ring of at least two slots) and at d = 17,
+    20, 24 and 32 (the wide body: one ray a thread, no ring, the rays'
+    origins and directions staged in shared memory); at least one block an
+    SM."""
+    for d in (9, 10, 16, 17, 20, 24, 32):
         info = gk.launch_info(d, walk="occluded")
         print(f"2.10 d = {d}: {info}")
         assert info["rays_per_thread"] == 1
-        assert info["ring_slots"] >= 2 and info["blocks_per_sm"] >= 1
-        assert info["registers"] <= 255
+        if d < gk.WIDE_D:
+            assert info["ring_slots"] >= 2
+        else:
+            assert info["ring_slots"] == 0
+            assert info["shared_bytes"] == gk.wide_shared_bytes(d)
+        assert info["blocks_per_sm"] >= 1 and info["registers"] <= 255
 
 
 def test_grid_nearest_kernel_launch_info(cuda):
-    """Kernel 2.9 as it launches at d = 9, 10 and 16 (both variants): two
-    rays a thread with the shared rows, one without, a ring of at least two
-    slots, at least one block an SM."""
-    for d in (9, 10, 16):
+    """Kernel 2.9 as it launches at d = 9, 10 and 16 (the templated bodies,
+    both variants: two rays a thread with the shared rows, one without, a
+    ring of at least two slots) and at d = 17, 20, 24 and 32 (the wide
+    body: one ray a thread, no ring, the directions and, without the shared
+    rows, the origins staged in shared memory); at least one block an
+    SM."""
+    for d in (9, 10, 16, 17, 20, 24, 32):
         for shared in (True, False):
             info = gk.launch_info(d, shared)
             print(f"2.9 d = {d} shared={shared}: {info}")
-            assert info["rays_per_thread"] == (2 if shared else 1)
-            assert info["ring_slots"] >= 2 and info["blocks_per_sm"] >= 1
-            assert info["registers"] <= 255
+            if d < gk.WIDE_D:
+                assert info["rays_per_thread"] == (2 if shared else 1)
+                assert info["ring_slots"] >= 2
+            else:
+                assert info["rays_per_thread"] == 1
+                assert info["ring_slots"] == 0
+                assert info["shared_bytes"] == gk.wide_shared_bytes(d, shared)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] <= 255
+
+
+# Kernels 2.9 and 2.10 at d = 10 and 16 as they launched on the H100 (nvcc
+# 12.8) before the wide bodies came, by chip_smoke.py's launch lines:
+# (walk, d, shared) -> grid_kernels.GRID_INFO's six numbers
+TEMPLATED_LAUNCH = {
+    ("nearest_hit", 10, True): (111, 0, 2, 4, 66688, 2),
+    ("nearest_hit", 10, False): (62, 0, 2, 4, 66688, 1),
+    ("nearest_hit", 16, True): (162, 0, 1, 4, 139392, 2),
+    ("nearest_hit", 16, False): (64, 56, 2, 3, 104576, 1),
+    ("occluded", 10, False): (62, 0, 2, 4, 66688, 1),
+    ("occluded", 16, False): (64, 56, 2, 3, 104576, 1),
+}
+
+
+def test_grid_kernels_keep_their_templated_bodies_to_d16(cuda):
+    """At d = 10 and 16 both grid walks still launch their bodies templated
+    on d, with the launch they had before the wide bodies; d = 17 is the
+    first to take a wide body (no ring)."""
+    for (walk, d, shared), want in TEMPLATED_LAUNCH.items():
+        info = gk.launch_info(d, shared, walk)
+        print(f"{walk} d = {d} shared={shared}: {info}")
+        assert tuple(info[k] for k in gk.GRID_INFO) == want
+    for walk in ("nearest_hit", "occluded"):
+        assert gk.launch_info(gk.WIDE_D - 1, walk=walk)["ring_slots"] > 0
+        assert gk.launch_info(gk.WIDE_D, walk=walk)["ring_slots"] == 0
+
+
+def test_wide_bodies_name_the_shared_memory_they_lack(cuda):
+    """A wide body stages its 512 rays' coordinates in shared memory: where
+    a block cannot hold them (d = 60 without the shared rows: 240 KB), the
+    query and the launch raise naming the bytes; with the shared rows (half
+    of it) d = 60 launches."""
+    d = 60
+    need = gk.wide_shared_bytes(d)
+    assert need == 2 * d * 512 * 4
+    with pytest.raises(RuntimeError, match=f"needs {need} bytes"):
+        gk.launch_info(d, walk="occluded")
+    with pytest.raises(RuntimeError, match=f"needs {need} bytes"):
+        gk.launch_info(d, shared=False)
+    assert gk.launch_info(d, shared=True)["shared_bytes"] == need // 2
+    z = np.zeros((gk.TRI_BLOCK, d), np.float32)
+    kern = {k: torch.from_numpy(v).to(cuda) for k, v in gk.prepare_tri_arrays(
+        z, z, np.zeros((gk.TRI_BLOCK, d - 1, d), np.float32), z[:, 0], z, z,
+        d).items()}
+    rays = torch.zeros((d, 512), device=cuda)
+    skip = torch.full((512,), -1, dtype=torch.int32, device=cuda)
+    n0 = gk.occluded.launches
+    with pytest.raises(RuntimeError, match=f"needs {need} bytes"):
+        gk.occluded(kern, rays, rays, torch.ones(512, device=cuda), skip, d)
+    assert gk.occluded.launches == n0
+
+
+@pytest.mark.parametrize("d", [17, 24, 32])
+def test_card_renders_the_regular_simplex_past_d16(cuda, d):
+    """An opaque scene of more than 16 dimensions renders on the card
+    through the renderer: the regular d-simplex (d + 1 facets,
+    ``chip_smoke.wide_scene`` without its random simplices) from the
+    turned camera under two lights, shadows on.  Each frame launches one
+    2.9 and two 2.10 (the wide bodies), hits the body, and equals the CPU's
+    frame (colors, and bytes within one code)."""
+    a = api()
+    scene, _cam, n = _smoke().wide_scene(a.NTracer(d),
+                                         a.Material((1, 0.5, 0.5)), n=0)
+    assert n == d + 1
+    g0, o0 = gk.nearest_hit.launches, gk.occluded.launches
+    got, masks = pwf.frame_colors(scene, W, H, cuda, masks=True)
+    assert (gk.nearest_hit.launches - g0, gk.occluded.launches - o0) \
+        == (1, 2)
+    print(f"d = {d}: {int(masks['hit'].sum())} pixels hit the simplex")
+    assert masks["hit"].sum() > 0
+    ref = pwf.frame_colors(scene, W, H, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
+    fmt = rgb8(W, H)
+    card_bytes = bytearray(fmt.pitch * H)
+    cpu_bytes = bytearray(fmt.pitch * H)
+    assert BlockingRenderer().render(card_bytes, fmt, scene)
+    assert BlockingRenderer(device="cpu").render(cpu_bytes, fmt, scene)
+    diff = np.abs(np.frombuffer(bytes(card_bytes), np.uint8).astype(int)
+                  - np.frombuffer(bytes(cpu_bytes), np.uint8).astype(int))
+    assert diff.max() <= 1 and np.frombuffer(bytes(card_bytes),
+                                             np.uint8).max() > 0
 
 
 def test_card_callback_frames_equal_blocking_frames(cuda):

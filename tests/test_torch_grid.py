@@ -278,13 +278,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     with pytest.raises(ValueError, match="cuda or cpu"):
         gk.nearest_hit(meta, om, om, torch.zeros(512, dtype=torch.int32,
                                                  device="meta"), d)
-    # the CUDA kernels hold at most MAX_D coordinates a ray
     w = gk._grid_inputs(case["pk"], torch.zeros((d, 512)),
                         torch.zeros((d, 512)),
                         torch.zeros(512, dtype=torch.int32), d)
-    w["d"] = gk.MAX_D + 1
-    with pytest.raises(ValueError, match="d <= 16"):
-        gk._check_grid(w, torch.device("cpu"))
-    w["d"] = d
     assert gk._check_grid(w, torch.device("cpu")) == (
         512, case["arrs"]["kern_gt"].shape[1])
+    # the CUDA kernels take any d >= 3 (past 16 their wide bodies), and no
+    # smaller d
+    for dd in (gk.WIDE_D, 2):
+        z = np.zeros((gk.TRI_BLOCK, dd), np.float32)
+        kern = {k: torch.from_numpy(v) for k, v in gk.prepare_tri_arrays(
+            z, z, np.zeros((gk.TRI_BLOCK, dd - 1, dd), np.float32),
+            z[:, 0], z, z, dd).items()}
+        w = gk._grid_inputs(kern, torch.zeros((dd, 512)),
+                            torch.zeros((dd, 512)),
+                            torch.zeros(512, dtype=torch.int32), dd)
+        if dd < 3:
+            with pytest.raises(ValueError, match="d >= 3"):
+                gk._check_grid(w, torch.device("cpu"))
+        else:
+            assert gk._check_grid(w, torch.device("cpu")) == (512, 512)
