@@ -1,0 +1,7 @@
+"""walk_roofline.mesh: the walk's share of its roofline in the first traced frame (the mesh cell's frames), in percent: the frozen bound of gbench/walkbound.py over the frame's nearest_stream_kernel time."""
+
+from gbench import walkbound
+
+
+def read(run):
+    return walkbound.read(run)
