@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import threading
 
+from .. import tracing
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
@@ -113,6 +115,11 @@ def build():
     out = library_path()
     if os.path.exists(out):
         return out
+    with tracing.span("kernels.build"):
+        return _build(srcs, out)
+
+
+def _build(srcs, out):
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{os.path.basename(out)}.{os.getpid()}"
@@ -146,45 +153,51 @@ def build():
 
 
 def load():
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (the span ``kernels.load``,
+    its build ``kernels.build``)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.ntr_nearest_hit.argtypes = _NEAREST_ARGS
-            lib.ntr_nearest_hit.restype = ctypes.c_int
-            lib.ntr_occluded.argtypes = _OCCLUDED_ARGS
-            lib.ntr_occluded.restype = ctypes.c_int
-            lib.ntr_nearest_t.argtypes = _NEAREST_T_ARGS
-            lib.ntr_nearest_t.restype = ctypes.c_int
-            lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
-            lib.ntr_occluded_t.restype = ctypes.c_int
-            lib.ntr_grid_nearest_hit.argtypes = _GRID_NEAREST_ARGS
-            lib.ntr_grid_nearest_hit.restype = ctypes.c_int
-            lib.ntr_grid_occluded.argtypes = _GRID_OCCLUDED_ARGS
-            lib.ntr_grid_occluded.restype = ctypes.c_int
-            # the streaming walks take the arguments of the walks that
-            # share their bodies, and the launch queries a d (and the
-            # nearest-hit walks' shared flag) and five ints
-            stream = (
-                ("ntr_nearest_hit_hbm", _NEAREST_ARGS),
-                ("ntr_occluded_hbm", _OCCLUDED_ARGS),
-                ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
-                ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
-                ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
-                ("ntr_occluded_hbm_info", _INFO_ARGS),
-                ("ntr_nearest_t_info", _NEAREST_INFO_ARGS),
-                ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
-                ("ntr_occluded_t_hbm_info", _INFO_ARGS),
-                ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS),
-                ("ntr_grid_occluded_info", _INFO_ARGS))
-            for name, args in stream:
-                getattr(lib, name).argtypes = args
-                getattr(lib, name).restype = ctypes.c_int
-            lib.ntr_error_string.argtypes = [ctypes.c_int]
-            lib.ntr_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with tracing.span("kernels.load"):
+                _lib = _load()
         return _lib
+
+
+def _load():
+    lib = ctypes.CDLL(build())
+    lib.ntr_nearest_hit.argtypes = _NEAREST_ARGS
+    lib.ntr_nearest_hit.restype = ctypes.c_int
+    lib.ntr_occluded.argtypes = _OCCLUDED_ARGS
+    lib.ntr_occluded.restype = ctypes.c_int
+    lib.ntr_nearest_t.argtypes = _NEAREST_T_ARGS
+    lib.ntr_nearest_t.restype = ctypes.c_int
+    lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
+    lib.ntr_occluded_t.restype = ctypes.c_int
+    lib.ntr_grid_nearest_hit.argtypes = _GRID_NEAREST_ARGS
+    lib.ntr_grid_nearest_hit.restype = ctypes.c_int
+    lib.ntr_grid_occluded.argtypes = _GRID_OCCLUDED_ARGS
+    lib.ntr_grid_occluded.restype = ctypes.c_int
+    # the streaming walks take the arguments of the walks that
+    # share their bodies, and the launch queries a d (and the
+    # nearest-hit walks' shared flag) and five ints
+    stream = (
+        ("ntr_nearest_hit_hbm", _NEAREST_ARGS),
+        ("ntr_occluded_hbm", _OCCLUDED_ARGS),
+        ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
+        ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
+        ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
+        ("ntr_occluded_hbm_info", _INFO_ARGS),
+        ("ntr_nearest_t_info", _NEAREST_INFO_ARGS),
+        ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
+        ("ntr_occluded_t_hbm_info", _INFO_ARGS),
+        ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS),
+        ("ntr_grid_occluded_info", _INFO_ARGS))
+    for name, args in stream:
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    lib.ntr_error_string.argtypes = [ctypes.c_int]
+    lib.ntr_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def error_string(err):

@@ -52,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from . import grid_kernels as gk
 from . import packing
 from . import resident_kernels as rk
@@ -139,13 +140,14 @@ def _powf(x, y):
 def make_rays(cam_origin, cam_t, fovI, half_w, half_h, xs, ys):
     """flat_origin_ray_source: dir = unit(fwd + right*fovI*(x-hw)
     - up*fovI*(y-hh)).  Returns (oT, dT), both (d, R)."""
-    right, up, fwd = cam_t[0], cam_t[1], cam_t[2]
-    a = fovI * (xs - half_w)
-    b = fovI * (ys - half_h)
-    dT = (fwd[:, None] + right[:, None] * a[None, :]) \
-        - up[:, None] * b[None, :]
-    dT = _unitT(dT)
-    oT = cam_origin[:, None].expand_as(dT).contiguous()
+    with tracing.span("dispatch.raygen"):
+        right, up, fwd = cam_t[0], cam_t[1], cam_t[2]
+        a = fovI * (xs - half_w)
+        b = fovI * (ys - half_h)
+        dT = (fwd[:, None] + right[:, None] * a[None, :]) \
+            - up[:, None] * b[None, :]
+        dT = _unitT(dT)
+        oT = cam_origin[:, None].expand_as(dT).contiguous()
     return oT, dT
 
 
@@ -208,11 +210,13 @@ def _frame_coords(groups, w, device):
     """Concatenated coordinates of ``groups`` and the frame's unswizzle:
     a function taking per-ray values (R, ...) to linear pixel order."""
     xs, ys, swzs = [], [], []
-    for start, count in groups:
-        x, y, swz = _ray_coords(start, w, count, device)
-        xs.append(x)
-        ys.append(y)
-        swzs.append(swz)
+    with tracing.span("dispatch.raygen"):
+        for start, count in groups:
+            x, y, swz = _ray_coords(start, w, count, device)
+            xs.append(x)
+            ys.append(y)
+            swzs.append(swz)
+        xs, ys = torch.cat(xs), torch.cat(ys)
 
     def unswizzle(v):
         parts = []
@@ -223,7 +227,7 @@ def _frame_coords(groups, w, device):
             off += count
         return torch.cat(parts)
 
-    return torch.cat(xs), torch.cat(ys), unswizzle
+    return xs, ys, unswizzle
 
 
 # ---------------------------------------------------------------------------
@@ -418,9 +422,13 @@ def get_device_scene(scene, device):
     key = (scene._version, str(device))
     cache = scene._torch_cache
     if cache is None or cache[0] != key:
-        flat = flatten_composite(scene, chunk=CHUNK)
-        cache = (key, flat.config,
-                 tensors_from_arrays(device_arrays(flat), device), flat)
+        with tracing.span("scene.device", cached=False):
+            with tracing.span("scene.flatten"):
+                flat = flatten_composite(scene, chunk=CHUNK)
+                host = device_arrays(flat)
+            with tracing.span("scene.upload"):
+                arrs = tensors_from_arrays(host, device)
+        cache = (key, flat.config, arrs, flat)
         scene._torch_cache = cache
     _key, cfg, arrs, flat = cache
     return scene_config(scene, cfg), arrs, flat
@@ -457,8 +465,9 @@ def _to_device(device, *arrays):
 
 def _scene_dyn(scene, device):
     keys = ("ambient", "bg1", "bg2", "bg3")
-    return dict(zip(keys, _to_device(device, *(list(getattr(scene, k))
-                                                for k in keys))))
+    with tracing.span("dispatch.camera"):
+        return dict(zip(keys, _to_device(device, *(list(getattr(scene, k))
+                                                    for k in keys))))
 
 
 # ---------------------------------------------------------------------------
@@ -506,11 +515,16 @@ def primary_ctx(arrs, cfg, origin):
     grid walks (d > 8) the hoisted rows alone (``sh_kern``); nothing for
     the chunk scan; for a pool split into prim shards each shard's, on its
     device (``shards``)."""
+    with tracing.span("dispatch.primary_ctx"):
+        return _primary_ctx(arrs, cfg, origin)
+
+
+def _primary_ctx(arrs, cfg, origin):
     if "shards" in arrs:
         ctx = []
         for _j, sarrs, scfg, sdev in _shard_parts(arrs, cfg):
             with _on(sdev):
-                ctx.append(primary_ctx(sarrs, scfg, origin.to(sdev)))
+                ctx.append(_primary_ctx(sarrs, scfg, origin.to(sdev)))
         return {"shards": ctx}
     if _grid(arrs):
         return {"sh_kern": gk.shared_rows(arrs["kern_gt"], arrs["kern_ci"],
@@ -691,7 +705,7 @@ def _local_skip(arrs, skip):
 
 
 def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
-               active=None, pctx=None, stats=None):
+               active=None, pctx=None, stats=None, depth=0):
     """Nearest opaque hit of (d, R) rays over the triangle pool and the
     solids and, for a scene with a transparent material, the K =
     ``cfg.max_transparent_hits`` nearest transparent hits in front of it.
@@ -702,7 +716,8 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
     (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty.
     ``stats`` (a dict, or None) accumulates the counters ``rays_traced``
-    and ``chunks_visited``.
+    and ``chunks_visited``; ``depth``, the bounce the rays serve, labels
+    the walk's span (``dispatch.walk``).
 
     A pool of d > 8 takes the grid walk, or with a transparent material the
     chunk scan, and gathers its hit rows by pool id from ``tri_pack``; as in
@@ -716,34 +731,39 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
         pctx = primary_ctx(arrs, cfg, shared_origin)
     shared = shared_origin is not None
     if "shards" in arrs:
-        res = _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K)
+        res = _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K,
+                            depth)
     else:
         res = _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K,
-                          stats)
+                          stats, depth)
         res = _trace_finish_T(arrs, cfg, oT, dT, skip, res, K)
     return _trace_close(res, K)
 
 
-def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats):
+def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
+                depth=0):
     """The pool's walk (or chunk scan) and its hit rows: t, pid, mat,
     pointT, normalT and, with K, the slots ``ttT`` and their keys
-    ``tkeyT``, for ``_trace_finish_T``."""
+    ``tkeyT``, for ``_trace_finish_T``.  The walk's call is the span
+    ``dispatch.walk``."""
     d = cfg.d
     R = oT.shape[1]
     skip_local = _local_skip(arrs, skip)
     res = {}
     if _grid(arrs) or _scan(arrs):
         if _grid(arrs):
-            kt, kid, _tiles = gk.nearest_hit(
-                _kern_dict(arrs), oT, dT, skip_local, d,
-                sh=pctx["sh_kern"] if shared else None)
+            with tracing.span("dispatch.walk", depth=depth):
+                kt, kid, _tiles = gk.nearest_hit(
+                    _kern_dict(arrs), oT, dT, skip_local, d,
+                    sh=pctx["sh_kern"] if shared else None)
             # the JAX package's grid branch counts rays, not tiles
             _stat(stats, "rays_traced", lambda: R)
             t = torch.where(kid >= 0, kt, REAL_MAX)
             pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
         else:
-            t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
-                                                active=active)
+            with tracing.span("dispatch.walk", depth=depth):
+                t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
+                                                    active=active)
             _stat(stats, "chunks_visited", vis.sum)
             _stat(stats, "rays_traced",
                   lambda: R if active is None else active.sum())
@@ -757,9 +777,10 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats):
         if K:
             nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
                 else rk.nearest_hit_transparent
-            kt, slot, ktt, ktslot, vis = nearest_t(
-                res_k, oT, dT, skip_local, d, K, order=order, active=active,
-                sh=sh)
+            with tracing.span("dispatch.walk", depth=depth):
+                kt, slot, ktt, ktslot, vis = nearest_t(
+                    res_k, oT, dT, skip_local, d, K, order=order,
+                    active=active, sh=sh)
             # stable, as jnp.argsort is: exactly tied surfaces keep slot
             # order
             order_k = torch.argsort(ktt, dim=0, stable=True)
@@ -767,8 +788,9 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats):
             res["tkeyT"] = torch.gather(ktslot, 0, order_k)
         else:
             nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-            kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
-                                    order=order, active=active, sh=sh)
+            with tracing.span("dispatch.walk", depth=depth):
+                kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
+                                        order=order, active=active, sh=sh)
         _stat(stats, "rays_traced",
               lambda: R if active is None else active.sum())
         _stat(stats, "chunks_visited", vis.sum)
@@ -813,7 +835,8 @@ def _to(device, *tensors):
     return [None if x is None else x.to(device) for x in tensors]
 
 
-def _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K):
+def _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K,
+                  depth=0):
     """``trace_pool`` over a pool split into prim shards: each shard runs
     its walk and its finish (the solids on the first shard only, and the
     K-slot rows) on its own device, and the results come back to the rays'
@@ -828,7 +851,8 @@ def _trace_shards(arrs, cfg, oT, dT, skip, shared, active, pctx, K):
         with _on(sdev):
             soT, sdT, sskip, sactive = _to(sdev, oT, dT, skip, active)
             res = _trace_walk(sarrs, scfg, soT, sdT, sskip, shared, sactive,
-                              pctx["shards"][j] if shared else None, K, None)
+                              pctx["shards"][j] if shared else None, K, None,
+                              depth)
             res = _trace_finish_T(sarrs, scfg, soT, sdT, sskip, res, K,
                                   solids=j == 0)
         parts.append(dict(zip(res, _to(dev, *res.values()))))
@@ -1076,14 +1100,18 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True,
 
 def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     """The pool's part of a shadow query: (blocked, filt) of its walk or
-    chunk scan, without the solids."""
+    chunk scan, without the solids.  The walk's call is the span
+    ``dispatch.occlusion``."""
     skip_local = _local_skip(arrs, skip)
     if _grid(arrs):
-        blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
-                                      skip_local, cfg.d)
+        with tracing.span("dispatch.occlusion"):
+            blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
+                                          skip_local, cfg.d)
         return blocked, None
     if _scan(arrs):
-        blocked, filt, vis = occlusion_scan(arrs, cfg, oT, dT, ldist, skip)
+        with tracing.span("dispatch.occlusion"):
+            blocked, filt, vis = occlusion_scan(arrs, cfg, oT, dT, ldist,
+                                                skip)
         _stat(stats, "shadow_rays", lambda: (ldist > 0).sum())
         _stat(stats, "occl_chunks_visited", vis.sum)
         return blocked, filt
@@ -1093,11 +1121,13 @@ def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     if cfg.has_transparency:
         occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
             else rk.occluded_transparent
-        blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
-                                   cfg.d)
+        with tracing.span("dispatch.occlusion"):
+            blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
+                                       cfg.d)
     else:
         occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
-        blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+        with tracing.span("dispatch.occlusion"):
+            blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
         filt = None
     _stat(stats, "shadow_rays", lambda: (pool_ldist > 0).sum())
     _stat(stats, "occl_chunks_visited", vis.sum)
@@ -1347,32 +1377,36 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None,
         res = trace_pool(arrs, cfg, oT, dT, skip,
                          shared_origin=oT[:, 0] if depth == 0 else None,
                          active=None if depth == 0 else active,
-                         pctx=pctx if depth == 0 else None, stats=stats)
+                         pctx=pctx if depth == 0 else None, stats=stats,
+                         depth=depth)
         if masks is not None and depth == 0:
             masks.update(_primary_masks(res))
-        dist = aabb_distance_T(cfg, arrs, oT, dT)
-        hit = res["hit"] & (dist >= 0)
-        live = hit if depth == 0 else hit & active
-        localT, child_coefT, child_dirT = shade_local_T(
-            arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"],
-            res["mat"], depth, dyn, active=live, masks=masks, stats=stats)
-        bgT = background_T(cfg, dyn, dT)
-        color_hereT = torch.where(hit[None, :], localT, bgT)
-        weight_scale = None
-        if cfg.has_transparency:
-            color_hereT, weight_scale = _compose_transparent_T(
-                arrs, cfg, dyn, oT, dT, res, color_hereT, depth, masks=masks,
+        with tracing.span("dispatch.shade", depth=depth):
+            dist = aabb_distance_T(cfg, arrs, oT, dT)
+            hit = res["hit"] & (dist >= 0)
+            live = hit if depth == 0 else hit & active
+            localT, child_coefT, child_dirT = shade_local_T(
+                arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"],
+                res["mat"], depth, dyn, active=live, masks=masks,
                 stats=stats)
-        out = out + torch.where(active[None, :], weight * color_hereT, 0.0)
-        if depth == max_bounces:
-            break
-        weight = weight * child_coefT
-        if weight_scale is not None:
-            weight = weight * weight_scale[None, :]
-        active = active & hit & torch.any(child_coefT > 0, dim=0)
-        oT = res["pointT"]
-        dT = _unitT(child_dirT)
-        skip = res["pid"]
+            bgT = background_T(cfg, dyn, dT)
+            color_hereT = torch.where(hit[None, :], localT, bgT)
+            weight_scale = None
+            if cfg.has_transparency:
+                color_hereT, weight_scale = _compose_transparent_T(
+                    arrs, cfg, dyn, oT, dT, res, color_hereT, depth,
+                    masks=masks, stats=stats)
+            out = out + torch.where(active[None, :], weight * color_hereT,
+                                    0.0)
+            if depth == max_bounces:
+                break
+            weight = weight * child_coefT
+            if weight_scale is not None:
+                weight = weight * weight_scale[None, :]
+            active = active & hit & torch.any(child_coefT > 0, dim=0)
+            oT = res["pointT"]
+            dT = _unitT(child_dirT)
+            skip = res["pid"]
     return out
 
 
@@ -1468,7 +1502,8 @@ def _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t, fov_params,
             masks[name] = unswz(masks[name])
     if key is None:
         return unswz(colorsT.T)
-    return packing.pack_device_stream(colorsT, key, permute=unswz)
+    with tracing.span("dispatch.pack"):
+        return packing.pack_device_stream(colorsT, key, permute=unswz)
 
 
 def _frame_packed_box(d, cam_origin, cam_t, fov_params, groups, w, key):
@@ -1476,7 +1511,8 @@ def _frame_packed_box(d, cam_origin, cam_t, fov_params, groups, w, key):
     colorsT = _box_colors(d, cam_origin, cam_t, fov_params, xs, ys)
     if key is None:
         return unswz(colorsT.T)
-    return packing.pack_device_stream(colorsT, key, permute=unswz)
+    with tracing.span("dispatch.pack"):
+        return packing.pack_device_stream(colorsT, key, permute=unswz)
 
 
 def _needs_host_pack(fmt) -> bool:
@@ -1490,15 +1526,20 @@ def _needs_host_pack(fmt) -> bool:
 def _camera(scene, width, height, device):
     """The view's ray parameters and the camera's origin and axes on
     ``device``."""
-    scene._set_view_size(width, height)
-    fov = _fov_params(width, height, scene.fov)
-    cam_origin, cam_t = _to_device(device, scene._cam._origin,
-                                   scene._cam._t)
+    with tracing.span("dispatch.camera"):
+        scene._set_view_size(width, height)
+        fov = _fov_params(width, height, scene.fov)
+        cam_origin, cam_t = _to_device(device, scene._cam._origin,
+                                       scene._cam._t)
     return fov, cam_origin, cam_t
 
 
 def _frame(scene, width, height, key, device, masks=None, stats=None):
-    """Dispatch one frame on ``device``; returns the device tensor."""
+    """Dispatch one frame on ``device``; returns the device tensor.  While
+    tracing is on, a frame given no ``stats`` counts into the recorder's
+    dict for its frame (``tracing.frame_counters``)."""
+    if stats is None:
+        stats = tracing.frame_counters()
     device = torch.device(device)
     fov, cam_origin, cam_t = _camera(scene, width, height, device)
     groups = _frame_groups(-(-(width * height) // TILE))
@@ -1582,9 +1623,20 @@ def _ready(out):
     return ready
 
 
+class Slabs(list):
+    """A dispatched frame's slabs, ``[(start_px, tensor, ready)]``, and its
+    frame id (``tracing.new_frame``; None while tracing is off), which the
+    spans of its pull carry."""
+
+    def __init__(self, slabs, frame=None):
+        super().__init__(slabs)
+        self.frame = frame
+
+
 def dispatch_packed(scene, fmt, device):
-    """Dispatch one full frame on ``device``; returns its slabs,
-    ``[(start_px, tensor, ready)]``, whose pulls complete the frame.
+    """Dispatch one full frame on ``device``; returns its slabs
+    (``Slabs``), ``[(start_px, tensor, ready)]``, whose pulls complete the
+    frame.
 
     The frame is one pass over all its rays; its output is cut into the
     JAX package's slabs (``_frame_slabs``), views of the one tensor, so
@@ -1593,19 +1645,23 @@ def dispatch_packed(scene, fmt, device):
     ``render_devices`` gives several devices, the frame is split by pixels
     over them (``parallel.mesh.dispatch_sharded``), one slab a device.  All
     scene state is captured here: the caller may change the scene as soon
-    as this returns."""
-    devices = render_devices(device)
-    if len(devices) > 1:
-        from ..parallel import mesh as pmesh
-        return pmesh.dispatch_sharded(scene, fmt, devices)
-    out = frame_device_arrays(scene, fmt, device)
-    # a row of the packed stream holds 4 pixels, a row of colors one
-    rows_px = 4 if out.dtype == torch.int32 else 1
-    ready = _ready(out)
+    as this returns.  The dispatch is the span ``frame.dispatch`` of a new
+    frame."""
+    frame = tracing.new_frame()
+    with tracing.span("frame.dispatch", frame=frame):
+        devices = render_devices(device)
+        if len(devices) > 1:
+            from ..parallel import mesh as pmesh
+            return Slabs(pmesh.dispatch_sharded(scene, fmt, devices), frame)
+        out = frame_device_arrays(scene, fmt, device)
+        # a row of the packed stream holds 4 pixels, a row of colors one
+        rows_px = 4 if out.dtype == torch.int32 else 1
+        ready = _ready(out)
     n_tiles = -(-(fmt.width * fmt.height) // TILE)
-    return [(s0 * TILE,
-             out[s0 * TILE // rows_px:(s0 + nt) * TILE // rows_px], ready)
-            for s0, nt in _frame_slabs(n_tiles)]
+    return Slabs([(s0 * TILE,
+                   out[s0 * TILE // rows_px:(s0 + nt) * TILE // rows_px],
+                   ready)
+                  for s0, nt in _frame_slabs(n_tiles)], frame)
 
 
 def _write_pixels(view, fmt, data, start_px, total):
@@ -1652,17 +1708,24 @@ def _to_host(data, ready):
 def pull_packed(slabs, fmt, view, abort_check) -> bool:
     """Pull dispatched slabs into the writable byte ``view``; returns
     False when aborted (polled before each slab).  A packed int32 stream is
-    the pixels' bytes; float colors are packed here, exactly."""
+    the pixels' bytes; float colors are packed here, exactly.  The pull is
+    the span ``frame.pull`` of the slabs' frame, each slab's copy and wait
+    ``pull.wait``, its host packing ``pull.pack`` and its write into
+    ``view`` ``pull.write``."""
     total = fmt.width * fmt.height
-    for start_px, dev, ready in slabs:
-        if abort_check():
-            return False
-        data = _to_host(dev, ready)
-        if data.dtype == np.int32:
-            data = data.view(np.uint8).reshape(-1, fmt.bytes_per_pixel)
-        else:
-            data = packing.pack_flat(data[:total - start_px], fmt)
-        _write_pixels(view, fmt, data, start_px, total)
+    with tracing.span("frame.pull", frame=getattr(slabs, "frame", None)):
+        for start_px, dev, ready in slabs:
+            if abort_check():
+                return False
+            with tracing.span("pull.wait"):
+                data = _to_host(dev, ready)
+            if data.dtype == np.int32:
+                data = data.view(np.uint8).reshape(-1, fmt.bytes_per_pixel)
+            else:
+                with tracing.span("pull.pack"):
+                    data = packing.pack_flat(data[:total - start_px], fmt)
+            with tracing.span("pull.write"):
+                _write_pixels(view, fmt, data, start_px, total)
     return True
 
 

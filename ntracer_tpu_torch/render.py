@@ -25,6 +25,7 @@ import traceback
 import numpy as np
 import torch
 
+from . import tracing
 from ._codec import encode_floats, decode_floats
 
 f32 = np.float32
@@ -441,7 +442,8 @@ def _byte_view(dest, fmt):
 
 
 class BlockingRenderer(_RendererBase):
-    """Synchronous frame renderer (render.cpp:769-966)."""
+    """Synchronous frame renderer (render.cpp:769-966).  A frame is the
+    span ``frame.render`` (``tracing``)."""
 
     def __init__(self, threads=-1, device="cuda"):
         super().__init__(device)
@@ -455,7 +457,8 @@ class BlockingRenderer(_RendererBase):
             self._abort = False
         scene._lock()
         try:
-            finished = self._draw(dest, format, scene)
+            with tracing.span("frame.render"):
+                finished = self._draw(dest, format, scene)
         finally:
             scene._unlock()
             with self._mut:
@@ -479,7 +482,12 @@ class CallbackRenderer(_RendererBase):
     the frame in flight, so an animation loop can dispatch frame N+1 with
     a moved camera while frame N's bytes are pulled.  On the card each
     slab's pull runs on a copy stream that waits only for its own frame
-    (``wavefront._to_host``)."""
+    (``wavefront._to_host``).
+
+    Spans (``tracing``): ``frame.begin``, the caller's ``begin_render``;
+    ``frame.queue``, from the frame's entry into the queue to the worker's
+    taking it; ``frame.callback``, the user's callback; all with the
+    frame's id."""
 
     def __init__(self, threads=0, device="cuda"):
         super().__init__(device)
@@ -492,21 +500,24 @@ class CallbackRenderer(_RendererBase):
     def begin_render(self, dest, format, scene, callback):
         from .engine import wavefront
 
-        view = _byte_view(dest, format)
-        scene._lock()
-        try:
-            slabs = wavefront.dispatch_packed(scene, format, self._device)
-        finally:
-            scene._unlock()
+        with tracing.span("frame.begin"):
+            view = _byte_view(dest, format)
+            scene._lock()
+            try:
+                slabs = wavefront.dispatch_packed(scene, format, self._device)
+            finally:
+                scene._unlock()
 
-        with self._mut:
-            self._busy = True
-            self._jobs += 1
-            self._queue.append((slabs, view, format, callback))
-            if self._worker is None:
-                self._worker = threading.Thread(target=self._run, daemon=True)
-                self._worker.start()
-            self._done.notify_all()
+            with self._mut:
+                self._busy = True
+                self._jobs += 1
+                self._queue.append((slabs, view, format, callback,
+                                    tracing.now()))
+                if self._worker is None:
+                    self._worker = threading.Thread(target=self._run,
+                                                    daemon=True)
+                    self._worker.start()
+                self._done.notify_all()
 
     def _run(self):
         # one persistent pull worker, parked on the condition between jobs
@@ -517,7 +528,9 @@ class CallbackRenderer(_RendererBase):
                 while not self._queue:
                     self._busy = False
                     self._done.wait()
-                slabs, view, fmt, callback = self._queue.pop(0)
+                slabs, view, fmt, callback, queued = self._queue.pop(0)
+            frame = getattr(slabs, "frame", None)
+            tracing.record("frame.queue", queued, frame=frame)
             try:
                 ok = False
                 try:
@@ -533,7 +546,8 @@ class CallbackRenderer(_RendererBase):
                     # the callback runs before the job count drops, so
                     # abort_render's wait covers it
                     try:
-                        callback(self)
+                        with tracing.span("frame.callback", frame=frame):
+                            callback(self)
                     except Exception:
                         traceback.print_exc()
             finally:

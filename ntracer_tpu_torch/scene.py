@@ -14,6 +14,7 @@ import numpy as np
 
 from . import _vecmath as vm
 from . import kdtree
+from . import tracing
 from .api import Vector, Camera, AABB, _vector_arg, _RaySource, check_dimension
 from .kdnodes import (KDNode, KDLeaf, KDBranch, _SkipTarget, _TraversalState,
                       _intersects, _occludes, _safe_inv)
@@ -584,8 +585,9 @@ def build_kdtree(primitives, extra_threads=-1, *, max_depth=None,
 def build_composite_scene(primitives, extra_threads=-1, *, max_depth=None,
                           split_threshold=None, traversal_cost=None,
                           intersection_cost=None, update_primitives=False):
-    b_start, b_end, root = _build(primitives, extra_threads, max_depth,
-                                  split_threshold, traversal_cost,
-                                  intersection_cost, update_primitives,
-                                  primitives)
+    with tracing.span("scene.kd_build"):
+        b_start, b_end, root = _build(primitives, extra_threads, max_depth,
+                                      split_threshold, traversal_cost,
+                                      intersection_cost, update_primitives,
+                                      primitives)
     return CompositeScene(AABB._wrap(b_start, b_end), root)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import render
+from . import tracing
 from . import wrapper
 
 
@@ -64,7 +65,12 @@ def _parse(file):
 
 def load_obj(file, nt=None):
     """Load a 3-D OBJ mesh as a list of TrianglePrototypes (fan
-    triangulation, default white material)."""
+    triangulation, default white material); the span ``scene.load_obj``."""
+    with tracing.span("scene.load_obj"):
+        return _load_obj(file, nt)
+
+
+def _load_obj(file, nt):
     if nt is None:
         nt = wrapper.NTracer(3)
     elif nt.dimension != 3:
