@@ -1631,8 +1631,8 @@ def live_launches(entry, run):
     launch = rk._occlusion_kernel
     visits = []
 
-    def recording(name, w, dev):
-        err, out = launch(name, w, dev)
+    def recording(name, w, dev, then=None):
+        err, out = launch(name, w, dev, then)
         if name == entry:
             visits.append(out[-1])
         return err, out
@@ -2905,6 +2905,9 @@ def main():
         raise SystemExit("the glass 120-cell path did not go through both "
                          "transparent kernels")
     report_frames("glass 120-cell", frame_s, buf, name_limit)
+    # an eager frame: a frame replayed from its graphs (engine/graphs.py)
+    # calls the C entries from its record, not through _occlusion_kernel
+    glass._torch_graphs = None
     live_t = live_launches("ntr_occluded_t",
                            lambda: renderer.render(buf, fmt, glass))
     print(f"   kernel 2.4 in one glass 120-cell frame: {live_t[0]} live "

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import graphs
 from . import resident_kernels as rk
 
 RAY_BLOCK = 512   # rays per block: one 32x16-pixel tile of the frame
@@ -349,6 +350,37 @@ def _check_grid(w, dev):
     return R, T
 
 
+def _grid_kernel(w, kern, dev, then=None):
+    """Launch kernel 2.9 (walk inputs ``w`` with ``init_t``) or 2.10 (with
+    ``ldist``) through ``graphs.launch`` (which calls ``then(error
+    code)``), reading the plane rows as ``kern["grec"]``
+    (``plane_records``, made here when ``kern`` has none); returns (error
+    code, its outputs as the twin returns them)."""
+    from . import _build
+    lib = _build.load()
+    R, T = _check_grid(w, dev)
+    grec = _plane_records(kern, w, dev, T)
+    tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
+    head = (w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr())
+    rows = (grec.data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
+            w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, w["d"])
+    if "ldist" in w:
+        rk._check("ldist", w["ldist"], torch.float32, (R,), dev)
+        blocked = torch.empty((R,), dtype=torch.bool, device=dev)
+        err = graphs.launch(lib.ntr_grid_occluded, (
+            *head, w["ldist"].data_ptr(), *rows, blocked.data_ptr(),
+            tiles.data_ptr()), dev, (w, grec, blocked, tiles), then)
+        return err, (blocked, tiles)
+    init_t = w["init_t"].contiguous()
+    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_id = torch.empty((R,), dtype=torch.int32, device=dev)
+    err = graphs.launch(lib.ntr_grid_nearest_hit, (
+        *head, init_t.data_ptr(), *rows, int(w["shared"]), out_t.data_ptr(),
+        out_id.data_ptr(), tiles.data_ptr()), dev,
+        (w, grec, init_t, out_t, out_id, tiles), then)
+    return err, (out_t, out_id, tiles)
+
+
 def nearest_hit(kern, oT, dT, skip, d, sh=None):
     """Nearest opaque hit of each ray over the flat pool ``kern`` (the
     tensors of ``prepare_tri_arrays``).
@@ -366,23 +398,9 @@ def nearest_hit(kern, oT, dT, skip, d, sh=None):
     w = _grid_inputs(kern, oT, dT, skip, d, sh=sh)
     if not rk._device("grid nearest_hit", oT.device):
         return _grid_ref(w)
-    from . import _build
-    lib = _build.load()
-    dev = oT.device
-    R, T = _check_grid(w, dev)
-    grec = _plane_records(kern, w, dev, T)
-    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
-    out_id = torch.empty((R,), dtype=torch.int32, device=dev)
-    tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
-    init_t = w["init_t"].contiguous()
-    err = lib.ntr_grid_nearest_hit(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), init_t.data_ptr(),
-        grec.data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
-        w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
-        int(w["shared"]), out_t.data_ptr(), out_id.data_ptr(),
-        tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    rk._launched("grid nearest_hit", nearest_hit, err)
-    return out_t, out_id, tiles
+    _err, out = _grid_kernel(w, kern, oT.device, rk._counted(
+        "grid nearest_hit", nearest_hit))
+    return out
 
 
 nearest_hit.launches = 0
@@ -401,22 +419,9 @@ def occluded(kern, oT, dT, ldist, skip, d):
     w = _grid_inputs(kern, oT, dT, skip, d, ldist=ldist)
     if not rk._device("grid occluded", oT.device):
         return _grid_ref(w)
-    from . import _build
-    lib = _build.load()
-    dev = oT.device
-    R, T = _check_grid(w, dev)
-    rk._check("ldist", ldist, torch.float32, (R,), dev)
-    grec = _plane_records(kern, w, dev, T)
-    blocked = torch.empty((R,), dtype=torch.bool, device=dev)
-    tiles = torch.empty((R // RAY_BLOCK,), dtype=torch.int32, device=dev)
-    err = lib.ntr_grid_occluded(
-        oT.data_ptr(), dT.data_ptr(), skip.data_ptr(), ldist.data_ptr(),
-        grec.data_ptr(), w["ci"].data_ptr(), w["k_lo"].data_ptr(),
-        w["k_hi"].data_ptr(), w["k_any"].data_ptr(), T, R, d,
-        blocked.data_ptr(), tiles.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    rk._launched("grid occluded", occluded, err)
-    return blocked, tiles
+    _err, out = _grid_kernel(w, kern, oT.device, rk._counted(
+        "grid occluded", occluded))
+    return out
 
 
 occluded.launches = 0

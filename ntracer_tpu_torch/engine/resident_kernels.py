@@ -64,8 +64,12 @@ in groups of one candidate.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from . import graphs
 
 RAY_BLOCK = 512   # rays per walk block: one 32x16-pixel tile
 CK = 128          # triangle slots per chunk
@@ -820,10 +824,11 @@ def _launched(name, fn, err):
     fn.launches += 1
 
 
-def _nearest_kernel(name, w, dev):
+def _nearest_kernel(name, w, dev, then=None):
     """Launch the C entry ``name`` (a nearest-hit walk, with ``w["K"]``
-    the K-slot one) on the walk inputs ``w``; returns its outputs as the
-    twin does."""
+    the K-slot one) on the walk inputs ``w`` through ``graphs.launch``
+    (which calls ``then(error code)``); returns (error code, its outputs as
+    the twin returns them)."""
     from . import _build
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
@@ -837,29 +842,32 @@ def _nearest_kernel(name, w, dev):
     out_slot = torch.empty((R,), dtype=i32, device=dev)
     visits = torch.empty((nb,), dtype=i32, device=dev)
     emin = torch.empty((max(nb * n, 1),), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     head = (w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
             init_t.data_ptr(), w["order"].data_ptr(), n, blive.data_ptr(),
             w["klo_t"].data_ptr(), w["khi_t"].data_ptr(), ncp,
             w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr())
+    keep = (w, init_t, blive, out_t, out_slot, visits, emin)
     if not K:
-        err = getattr(lib, name)(
+        err = graphs.launch(getattr(lib, name), (
             *head, pr, R, w["d"], int(w["shared"]), out_t.data_ptr(),
-            out_slot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+            out_slot.data_ptr(), visits.data_ptr(), emin.data_ptr()),
+            dev, keep, then)
         return err, (out_t, out_slot, visits)
     out_tt = torch.empty((K, R), dtype=f32, device=dev)
     out_tslot = torch.empty((K, R), dtype=i32, device=dev)
-    err = getattr(lib, name)(
+    err = graphs.launch(getattr(lib, name), (
         *head, w["opa"].data_ptr(), pr, R, w["d"], int(w["shared"]), K,
         out_t.data_ptr(), out_slot.data_ptr(), out_tt.data_ptr(),
-        out_tslot.data_ptr(), visits.data_ptr(), emin.data_ptr(), stream)
+        out_tslot.data_ptr(), visits.data_ptr(), emin.data_ptr()),
+        dev, (*keep, out_tt, out_tslot), then)
     return err, (out_t, out_slot, out_tt, out_tslot, visits)
 
 
-def _occlusion_kernel(name, w, dev):
+def _occlusion_kernel(name, w, dev, then=None):
     """Launch the C entry ``name`` (an occlusion walk, with ``w["opa"]``
-    the filtered one) on the walk inputs ``w``; returns its outputs as the
-    twin does."""
+    the filtered one) on the walk inputs ``w`` through ``graphs.launch``
+    (which calls ``then(error code)``); returns (error code, its outputs as
+    the twin returns them)."""
     from . import _build
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
@@ -870,20 +878,27 @@ def _occlusion_kernel(name, w, dev):
     blocked = torch.empty((R,), dtype=torch.bool, device=dev)
     visits = torch.empty((nb,), dtype=torch.int32, device=dev)
     emin = torch.empty((max(nb * n, 1),), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     head = (w["oT"].data_ptr(), w["dT"].data_ptr(), w["skip"].data_ptr(),
             w["ldist"].data_ptr(), w["order"].data_ptr(), n,
             blive.data_ptr(), w["klo_t"].data_ptr(), w["khi_t"].data_ptr(),
             ncp, w["gt"].data_ptr(), w["ci"].data_ptr(), w["ids"].data_ptr())
+    keep = (w, blive, blocked, visits, emin)
     if w["opa"] is None:
-        err = getattr(lib, name)(*head, pr, R, w["d"], blocked.data_ptr(),
-                                 visits.data_ptr(), emin.data_ptr(), stream)
+        err = graphs.launch(getattr(lib, name), (
+            *head, pr, R, w["d"], blocked.data_ptr(), visits.data_ptr(),
+            emin.data_ptr()), dev, keep, then)
         return err, (blocked, visits)
     filt = torch.empty((R,), dtype=torch.float32, device=dev)
-    err = getattr(lib, name)(*head, w["opa"].data_ptr(), pr, R, w["d"],
-                             blocked.data_ptr(), filt.data_ptr(),
-                             visits.data_ptr(), emin.data_ptr(), stream)
+    err = graphs.launch(getattr(lib, name), (
+        *head, w["opa"].data_ptr(), pr, R, w["d"], blocked.data_ptr(),
+        filt.data_ptr(), visits.data_ptr(), emin.data_ptr()),
+        dev, (*keep, filt), then)
     return err, (blocked, filt, visits)
+
+
+def _counted(name, fn):
+    """The ``then`` of a wrapper's launch: ``_launched`` for ``fn``."""
+    return functools.partial(_launched, name, fn)
 
 
 def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
@@ -902,8 +917,8 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
     if not _device("nearest_hit", oT.device):
         return _walk_ref(w)
-    err, out = _nearest_kernel("ntr_nearest_hit", w, oT.device)
-    _launched("nearest_hit", nearest_hit, err)
+    _err, out = _nearest_kernel("ntr_nearest_hit", w, oT.device,
+                                _counted("nearest_hit", nearest_hit))
     return out
 
 
@@ -920,8 +935,8 @@ def nearest_hit_hbm(res, oT, dT, skip, d, order=None, active=None,
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
     if not _device("nearest_hit_hbm", oT.device):
         return _walk_ref(w)
-    err, out = _nearest_kernel("ntr_nearest_hit_hbm", w, oT.device)
-    _launched("nearest_hit_hbm", nearest_hit_hbm, err)
+    _err, out = _nearest_kernel("ntr_nearest_hit_hbm", w, oT.device,
+                                _counted("nearest_hit_hbm", nearest_hit_hbm))
     return out
 
 
@@ -944,8 +959,8 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
     if not _device("occluded", oT.device):
         return occluded_ref(res, oT, dT, ldist, skip, d, order=order)
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
-    err, out = _occlusion_kernel("ntr_occluded", w, oT.device)
-    _launched("occluded", occluded, err)
+    _err, out = _occlusion_kernel("ntr_occluded", w, oT.device,
+                                  _counted("occluded", occluded))
     return out
 
 
@@ -960,8 +975,8 @@ def occluded_hbm(res, oT, dT, ldist, skip, d, order=None):
     if not _device("occluded_hbm", oT.device):
         return occluded_hbm_ref(res, oT, dT, ldist, skip, d, order=order)
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
-    err, out = _occlusion_kernel("ntr_occluded_hbm", w, oT.device)
-    _launched("occluded_hbm", occluded_hbm, err)
+    _err, out = _occlusion_kernel("ntr_occluded_hbm", w, oT.device,
+                                  _counted("occluded_hbm", occluded_hbm))
     return out
 
 
@@ -985,8 +1000,9 @@ def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
     if not _device("nearest_hit_transparent", oT.device):
         return _walk_ref(w)
-    err, out = _nearest_kernel("ntr_nearest_t", w, oT.device)
-    _launched("nearest_hit_transparent", nearest_hit_transparent, err)
+    _err, out = _nearest_kernel(
+        "ntr_nearest_t", w, oT.device,
+        _counted("nearest_hit_transparent", nearest_hit_transparent))
     return out
 
 
@@ -1009,9 +1025,9 @@ def nearest_hit_transparent_hbm(res, oT, dT, skip, d, K, order=None,
     w["grouped"] = True
     if not _device("nearest_hit_transparent_hbm", oT.device):
         return _walk_ref(w)
-    err, out = _nearest_kernel("ntr_nearest_t_hbm", w, oT.device)
-    _launched("nearest_hit_transparent_hbm", nearest_hit_transparent_hbm,
-              err)
+    _err, out = _nearest_kernel(
+        "ntr_nearest_t_hbm", w, oT.device,
+        _counted("nearest_hit_transparent_hbm", nearest_hit_transparent_hbm))
     return out
 
 
@@ -1033,8 +1049,9 @@ def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
         return occluded_transparent_ref(res, oT, dT, ldist, skip, d,
                                         order=order)
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
-    err, out = _occlusion_kernel("ntr_occluded_t", w, oT.device)
-    _launched("occluded_transparent", occluded_transparent, err)
+    _err, out = _occlusion_kernel(
+        "ntr_occluded_t", w, oT.device,
+        _counted("occluded_transparent", occluded_transparent))
     return out
 
 
@@ -1050,8 +1067,9 @@ def occluded_transparent_hbm(res, oT, dT, ldist, skip, d, order=None):
         return occluded_transparent_hbm_ref(res, oT, dT, ldist, skip, d,
                                             order=order)
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
-    err, out = _occlusion_kernel("ntr_occluded_t_hbm", w, oT.device)
-    _launched("occluded_transparent_hbm", occluded_transparent_hbm, err)
+    _err, out = _occlusion_kernel(
+        "ntr_occluded_t_hbm", w, oT.device,
+        _counted("occluded_transparent_hbm", occluded_transparent_hbm))
     return out
 
 

@@ -30,10 +30,13 @@ device; nothing falls back to another device.
 A frame is one device pass whose output is cut into the JAX package's
 slabs (``dispatch_packed``); ``pull_packed`` polls abort before each slab,
 and on the card copies each on a copy stream of its own, so a frame's pull
-overlaps the passes dispatched after it.  A format with an integer channel
-wider than 23 bits ships float colors, packed on the host by the exact
-packer (``packing.pack_flat``).  Strips (``render_strip_composite``,
-``render_strip_box``) trace a band of rows in linear pixel order.
+overlaps the passes dispatched after it.  On one card a composite frame's
+glue -- everything but the walks' launches -- is captured as CUDA graphs
+and replayed, the walks launched eagerly between them (``graphs``).  A
+format with an integer channel wider than 23 bits ships float colors,
+packed on the host by the exact packer (``packing.pack_flat``).  Strips
+(``render_strip_composite``, ``render_strip_box``) trace a band of rows in
+linear pixel order.
 
 Several devices (``parallel.mesh``): a renderer of the unindexed ``"cuda"``
 splits a frame's pixels over every card (``render_devices``); a pool split
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from . import graphs
 from . import grid_kernels as gk
 from . import packing
 from . import resident_kernels as rk
@@ -463,11 +467,14 @@ def _to_device(device, *arrays):
     return out
 
 
+# the scene's colors a frame reads: ``_scene_dyn``'s keys
+_DYN = ("ambient", "bg1", "bg2", "bg3")
+
+
 def _scene_dyn(scene, device):
-    keys = ("ambient", "bg1", "bg2", "bg3")
     with tracing.span("dispatch.camera"):
-        return dict(zip(keys, _to_device(device, *(list(getattr(scene, k))
-                                                    for k in keys))))
+        return dict(zip(_DYN, _to_device(device, *(list(getattr(scene, k))
+                                                    for k in _DYN))))
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +604,8 @@ def _solid_test(arrs, s, oT, dT, d):
 
 
 def _solid_opacity(arrs, s):
-    return arrs["mat_pack"][arrs["sol_mat"][s].long(), 6]
+    # a one-element index: indexing by a 0-d tensor reads it on the host
+    return arrs["mat_pack"][arrs["sol_mat"][s:s + 1].long(), 6][0]
 
 
 # ---------------------------------------------------------------------------
@@ -752,7 +760,7 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
     res = {}
     if _grid(arrs) or _scan(arrs):
         if _grid(arrs):
-            with tracing.span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth):
                 kt, kid, _tiles = gk.nearest_hit(
                     _kern_dict(arrs), oT, dT, skip_local, d,
                     sh=pctx["sh_kern"] if shared else None)
@@ -761,7 +769,7 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
             t = torch.where(kid >= 0, kt, REAL_MAX)
             pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
         else:
-            with tracing.span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth):
                 t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
                                                     active=active)
             _stat(stats, "chunks_visited", vis.sum)
@@ -777,7 +785,7 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
         if K:
             nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
                 else rk.nearest_hit_transparent
-            with tracing.span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth):
                 kt, slot, ktt, ktslot, vis = nearest_t(
                     res_k, oT, dT, skip_local, d, K, order=order,
                     active=active, sh=sh)
@@ -788,7 +796,7 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
             res["tkeyT"] = torch.gather(ktslot, 0, order_k)
         else:
             nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-            with tracing.span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth):
                 kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
                                         order=order, active=active, sh=sh)
         _stat(stats, "rays_traced",
@@ -1104,12 +1112,12 @@ def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     ``dispatch.occlusion``."""
     skip_local = _local_skip(arrs, skip)
     if _grid(arrs):
-        with tracing.span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion"):
             blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
                                           skip_local, cfg.d)
         return blocked, None
     if _scan(arrs):
-        with tracing.span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion"):
             blocked, filt, vis = occlusion_scan(arrs, cfg, oT, dT, ldist,
                                                 skip)
         _stat(stats, "shadow_rays", lambda: (ldist > 0).sum())
@@ -1121,12 +1129,12 @@ def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     if cfg.has_transparency:
         occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
             else rk.occluded_transparent
-        with tracing.span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion"):
             blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
                                        cfg.d)
     else:
         occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
-        with tracing.span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion"):
             blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
         filt = None
     _stat(stats, "shadow_rays", lambda: (pool_ldist > 0).sum())
@@ -1534,23 +1542,64 @@ def _camera(scene, width, height, device):
     return fov, cam_origin, cam_t
 
 
+def _frame_inputs(scene):
+    """What a composite frame takes from the scene that may change between
+    frames of one graph key: the camera's origin and axes and the ambient
+    and background colors, as one float32 vector."""
+    return np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in (
+        scene._cam._origin, scene._cam._t,
+        *(list(getattr(scene, k)) for k in _DYN))])
+
+
+def _split_inputs(inputs, d):
+    """``_frame_inputs`` on the device -> (camera origin (d,), axes (d, d),
+    the dict of colors ``_scene_dyn`` gives), views of ``inputs``."""
+    dyn = inputs[d + d * d:].view(len(_DYN), 3)
+    return (inputs[:d], inputs[d:d + d * d].view(d, d),
+            dict(zip(_DYN, dyn)))
+
+
 def _frame(scene, width, height, key, device, masks=None, stats=None):
     """Dispatch one frame on ``device``; returns the device tensor.  While
     tracing is on, a frame given no ``stats`` counts into the recorder's
-    dict for its frame (``tracing.frame_counters``)."""
+    dict for its frame (``tracing.frame_counters``).  A composite frame
+    that ``graphs.eligible`` takes runs from its CUDA graphs from the
+    second frame of its key (``graphs.frame_key``) on; the counters
+    ``graphs.COUNTERS`` say whether it replayed and captured."""
     if stats is None:
         stats = tracing.frame_counters()
     device = torch.device(device)
-    fov, cam_origin, cam_t = _camera(scene, width, height, device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     groups = _frame_groups(-(-(width * height) // TILE))
     check_scene(scene, (CompositeScene, BoxScene))
-    if isinstance(scene, CompositeScene):
-        cfg, arrs, _flat = get_device_scene(scene, device)
-        return _frame_packed_composite(arrs, cfg, _scene_dyn(scene, device),
-                                       cam_origin, cam_t, fov, groups, width,
-                                       key, masks=masks, stats=stats)
-    return _frame_packed_box(scene.dimension, cam_origin, cam_t, fov, groups,
-                             width, key)
+    if not isinstance(scene, CompositeScene):
+        fov, cam_origin, cam_t = _camera(scene, width, height, device)
+        return _frame_packed_box(scene.dimension, cam_origin, cam_t, fov,
+                                 groups, width, key)
+    cfg, arrs, _flat = get_device_scene(scene, device)
+    with tracing.span("dispatch.camera"):
+        scene._set_view_size(width, height)
+        fov = _fov_params(width, height, scene.fov)
+        host = _frame_inputs(scene)
+
+    def body(inputs, stats):
+        cam_origin, cam_t, dyn = _split_inputs(inputs, cfg.d)
+        return _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t,
+                                       fov, groups, width, key, masks=masks,
+                                       stats=stats)
+
+    if stats is not None:
+        stats.update(dict.fromkeys(graphs.COUNTERS, 0))
+    if graphs.eligible(device, arrs, masks, _scan(arrs)):
+        out = graphs.frame(scene, graphs.frame_key(
+            scene, cfg, device, width, height, key, fov, stats is not None),
+            device, host, body, stats)
+        if out is not None:
+            return out
+    with tracing.span("dispatch.camera"):
+        inputs, = _to_device(device, host)
+    return body(inputs, stats)
 
 
 def frame_device_arrays(scene, fmt, device):
@@ -1593,8 +1642,10 @@ def frame_stats(scene, width, height, device="cuda"):
     (the shadow queries' active rays and visits; the grid walk counts
     neither), and at each bounce depth n the live rays
     ``bounce_live_rays_d{n}`` and the 512-ray blocks with a live ray
-    ``bounce_live_blocks_d{n}``.  The frame is rendered as ``_frame`` does,
-    in its groups (``_frame_groups``), and not pulled."""
+    ``bounce_live_blocks_d{n}``, and ``graphs.COUNTERS`` (1 where the
+    frame replayed, and captured, its glue's CUDA graphs).  The frame is
+    rendered as ``_frame`` does, in its groups (``_frame_groups``), and not
+    pulled."""
     check_scene(scene, CompositeScene)
     stats = {}
     _frame(scene, width, height, None, device, stats=stats)

@@ -208,6 +208,7 @@ class CompositeScene(Scene):
         self._version = 0
         self._torch_cache = None
         self._torch_mesh_cache = None
+        self._torch_graphs = None
 
     # --- config API (ntracer_body.hpp:833-933) -----------------------------
     @property
@@ -232,6 +233,7 @@ class CompositeScene(Scene):
         self._version += 1
         self._torch_cache = None
         self._torch_mesh_cache = None
+        self._torch_graphs = None
 
     def _mutate_config(self):
         """Config-only mutation (camera, fov, flags): device arrays stay

@@ -22,7 +22,16 @@ frame waiting in ``CallbackRenderer``'s queue) is recorded whole by
 The per-frame counters are ``wavefront.frame_stats``'s: while tracing is on,
 ``wavefront._frame`` counts into a fresh dict that the recorder keeps under
 the frame id (``frame_counters``).  Its values stay on the device until
-``drain`` turns them into ints.
+``drain`` turns them into ints.  They include ``glue_graph_replays`` and
+``glue_graph_captures``, 1 in a frame that replayed its glue from CUDA
+graphs and in one that captured them (``engine/graphs.py``).
+
+A frame replayed from its graphs has, under ``frame.dispatch``, the spans
+``dispatch.camera``, one ``dispatch.graph`` a segment (``seg``) and between
+them the walks' ``dispatch.walk`` and ``dispatch.occlusion``; the glue's
+spans (``dispatch.primary_ctx``, ``dispatch.raygen``, ``dispatch.shade``,
+``dispatch.pack``) appear only in eager frames and, inside
+``dispatch.capture``, in the frame that captures.
 
 Off, ``span`` returns one shared object that does nothing (no clock is
 read, nothing is kept), ``now`` and ``new_frame`` return None and

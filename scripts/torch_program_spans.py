@@ -13,7 +13,8 @@ The first form runs the cell once as the benchmark's traced run does
 CallbackRenderer loop).  It prints one JSON line: the harness's per-layer
 metrics and, with the port's tracing on, the metrics its records give
 (glue, walk launch, pull wait and write a frame, chunk visits a frame,
-idle share in the glue, the set-up's spans), the host milliseconds a
+idle share in the glue, the set-up's spans), the window's frames that
+replayed and captured their glue's CUDA graphs, the host milliseconds a
 window frame in each program span, the traced frames' idle seconds by the
 innermost program span, whether each traced walk kernel starts inside its
 spans on the mapped clock and, for a callback mix, the slow frames' time
@@ -98,8 +99,13 @@ def one_run(name, seed, seconds, on, device="cuda:0", overrides=None):
         return rec
     frames = program.window_frames(run)
     names = sorted({s["name"] for s in program.spans(run)})
+    counters = run["program"]["counters"]
     rec.update(
         window_frames=len(frames),
+        # frames of the window that replayed or captured their glue's
+        # CUDA graphs (ntracer_tpu_torch/engine/graphs.py)
+        graph_frames={k: sum(counters.get(f, {}).get(k, 0) for f in frames)
+                      for k in ("glue_graph_replays", "glue_graph_captures")},
         program=program.read(run, suffix(name)),
         span_ms={n: program.ms_per_frame(run, (n,), frames) for n in names},
         setup_spans_s={n: program.setup_s(run, n) for n in names})

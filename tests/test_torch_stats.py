@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from ntracer_tpu.engine import resident_kernels as jrk
 from ntracer_tpu.engine import wavefront as jwf
+from ntracer_tpu_torch.engine import graphs as pgraphs
 from ntracer_tpu_torch.engine import resident_kernels as prk
 from ntracer_tpu_torch.engine import wavefront as pwf
 
@@ -118,6 +119,9 @@ def test_frame_stats_sum_of_groups(monkeypatch):
     for group in groups:
         pwf._frame_packed_composite(arrs, cfg, dyn, cam_o, cam_t, fov,
                                     [group], w, None, stats=total)
+    # the frame's own counters: a CPU frame runs eagerly, from no graphs
+    assert {k: got.pop(k) for k in pgraphs.COUNTERS} == dict.fromkeys(
+        pgraphs.COUNTERS, 0)
     assert got == _counts(total)
     assert got["shadow_rays"] > 0
 
