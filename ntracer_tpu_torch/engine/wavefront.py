@@ -43,8 +43,9 @@ splits a frame's pixels over every card (``render_devices``); a pool split
 into prim shards (``arrs["shards"]``) is walked shard by shard, each on its
 device, and merged on the rays' device (``_trace_shards``,
 ``_occlusion_shards``).  ``frame_stats`` counts a frame's rays, chunk
-visits, shadow rays and live bounce rays as the JAX package does; without a
-``stats`` dict the frame runs none of the counting ops.
+visits, shadow rays and live bounce rays as the JAX package does, and the
+grid walks' tiles; without a ``stats`` dict the frame runs none of the
+counting ops.
 """
 
 from __future__ import annotations
@@ -724,8 +725,9 @@ def trace_pool(arrs, cfg: SceneConfig, oT, dT, skip, shared_origin=None,
     normalT (d, R); with K also ttT, tidT, tmatT (K, R) and tnormT
     (d, K, R), slots sorted ascending by t, ``tidT`` -1 where empty.
     ``stats`` (a dict, or None) accumulates the counters ``rays_traced``
-    and ``chunks_visited``; ``depth``, the bounce the rays serve, labels
-    the walk's span (``dispatch.walk``).
+    and ``chunks_visited`` (the grid walk: ``grid_tiles_visited``);
+    ``depth``, the bounce the rays serve, labels the walk's span
+    (``dispatch.walk``).
 
     A pool of d > 8 takes the grid walk, or with a transparent material the
     chunk scan, and gathers its hit rows by pool id from ``tri_pack``; as in
@@ -753,23 +755,26 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
     """The pool's walk (or chunk scan) and its hit rows: t, pid, mat,
     pointT, normalT and, with K, the slots ``ttT`` and their keys
     ``tkeyT``, for ``_trace_finish_T``.  The walk's call is the span
-    ``dispatch.walk``."""
+    ``dispatch.walk``, its attribute ``walk`` the kind: ``"stream"`` (the
+    chunk walks, kernels 2.1-2.8), ``"grid"`` (2.9) or ``"scan"``."""
     d = cfg.d
     R = oT.shape[1]
     skip_local = _local_skip(arrs, skip)
     res = {}
     if _grid(arrs) or _scan(arrs):
         if _grid(arrs):
-            with graphs.walk_span("dispatch.walk", depth=depth):
-                kt, kid, _tiles = gk.nearest_hit(
+            with graphs.walk_span("dispatch.walk", depth=depth, walk="grid"):
+                kt, kid, tiles = gk.nearest_hit(
                     _kern_dict(arrs), oT, dT, skip_local, d,
                     sh=pctx["sh_kern"] if shared else None)
-            # the JAX package's grid branch counts rays, not tiles
+            # the JAX package's grid branch counts rays only; the tiles the
+            # blocks ran are the port's own counter
             _stat(stats, "rays_traced", lambda: R)
+            _stat(stats, "grid_tiles_visited", tiles.sum)
             t = torch.where(kid >= 0, kt, REAL_MAX)
             pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
         else:
-            with graphs.walk_span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth, walk="scan"):
                 t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
                                                     active=active)
             _stat(stats, "chunks_visited", vis.sum)
@@ -785,7 +790,8 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
         if K:
             nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
                 else rk.nearest_hit_transparent
-            with graphs.walk_span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth,
+                                  walk="stream"):
                 kt, slot, ktt, ktslot, vis = nearest_t(
                     res_k, oT, dT, skip_local, d, K, order=order,
                     active=active, sh=sh)
@@ -796,7 +802,8 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
             res["tkeyT"] = torch.gather(ktslot, 0, order_k)
         else:
             nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-            with graphs.walk_span("dispatch.walk", depth=depth):
+            with graphs.walk_span("dispatch.walk", depth=depth,
+                                  walk="stream"):
                 kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
                                         order=order, active=active, sh=sh)
         _stat(stats, "rays_traced",
@@ -1097,8 +1104,9 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True,
     do.  ``skip`` is the pool id of the surface the ray leaves.  ``stats``
     (a dict, or None) accumulates ``shadow_rays`` and
     ``occl_chunks_visited`` as the JAX package counts them (its grid branch
-    counts neither).  A pool split into prim shards is queried shard by
-    shard (``_occlusion_shards``)."""
+    counts neither; the port's grid walk counts ``occl_grid_tiles_visited``
+    instead).  A pool split into prim shards is queried shard by shard
+    (``_occlusion_shards``)."""
     if "shards" in arrs:
         return _occlusion_shards(arrs, cfg, oT, dT, ldist, skip, clamp_exit)
     blocked, filt = _occlusion_walk(arrs, cfg, oT, dT, ldist, skip,
@@ -1109,15 +1117,17 @@ def occlusion(arrs, cfg: SceneConfig, oT, dT, ldist, skip, clamp_exit=True,
 def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     """The pool's part of a shadow query: (blocked, filt) of its walk or
     chunk scan, without the solids.  The walk's call is the span
-    ``dispatch.occlusion``."""
+    ``dispatch.occlusion``, its attribute ``walk`` the kind as in
+    ``_trace_walk`` (``"grid"``: 2.10)."""
     skip_local = _local_skip(arrs, skip)
     if _grid(arrs):
-        with graphs.walk_span("dispatch.occlusion"):
-            blocked, _tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
-                                          skip_local, cfg.d)
+        with graphs.walk_span("dispatch.occlusion", walk="grid"):
+            blocked, tiles = gk.occluded(_kern_dict(arrs), oT, dT, ldist,
+                                         skip_local, cfg.d)
+        _stat(stats, "occl_grid_tiles_visited", tiles.sum)
         return blocked, None
     if _scan(arrs):
-        with graphs.walk_span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion", walk="scan"):
             blocked, filt, vis = occlusion_scan(arrs, cfg, oT, dT, ldist,
                                                 skip)
         _stat(stats, "shadow_rays", lambda: (ldist > 0).sum())
@@ -1129,12 +1139,12 @@ def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     if cfg.has_transparency:
         occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
             else rk.occluded_transparent
-        with graphs.walk_span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion", walk="stream"):
             blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
                                        cfg.d)
     else:
         occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
-        with graphs.walk_span("dispatch.occlusion"):
+        with graphs.walk_span("dispatch.occlusion", walk="stream"):
             blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
         filt = None
     _stat(stats, "shadow_rays", lambda: (pool_ldist > 0).sum())
@@ -1640,7 +1650,11 @@ def frame_stats(scene, width, height, device="cuda"):
     chunk visits of the walks, or the chunk scan's chunk runs; the grid
     walk counts rays only), ``shadow_rays`` and ``occl_chunks_visited``
     (the shadow queries' active rays and visits; the grid walk counts
-    neither), and at each bounce depth n the live rays
+    neither), ``grid_tiles_visited`` and ``occl_grid_tiles_visited`` (the
+    grid walks' 512-triangle tiles run, summed over their 512-ray blocks
+    at every depth: kernels 2.9 and 2.10; the JAX package has neither;
+    only a scene of d > 8 with an opaque pool has them), and at each
+    bounce depth n the live rays
     ``bounce_live_rays_d{n}`` and the 512-ray blocks with a live ray
     ``bounce_live_blocks_d{n}``, and ``graphs.COUNTERS`` (1 where the
     frame replayed, and captured, its glue's CUDA graphs).  The frame is

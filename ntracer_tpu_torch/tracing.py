@@ -28,7 +28,8 @@ graphs and in one that captured them (``engine/graphs.py``).
 
 A frame replayed from its graphs has, under ``frame.dispatch``, the spans
 ``dispatch.camera``, one ``dispatch.graph`` a segment (``seg``) and between
-them the walks' ``dispatch.walk`` and ``dispatch.occlusion``; the glue's
+them the walks' ``dispatch.walk`` and ``dispatch.occlusion`` (``walk``:
+``"stream"``, ``"grid"`` or ``"scan"``, the kind of walk); the glue's
 spans (``dispatch.primary_ctx``, ``dispatch.raygen``, ``dispatch.shade``,
 ``dispatch.pack``) appear only in eager frames and, inside
 ``dispatch.capture``, in the frame that captures.

@@ -13,7 +13,10 @@ The first form runs the cell once as the benchmark's traced run does
 CallbackRenderer loop).  It prints one JSON line: the harness's per-layer
 metrics and, with the port's tracing on, the metrics its records give
 (glue, walk launch, pull wait and write a frame, chunk visits a frame,
-idle share in the glue, the set-up's spans), the window's frames that
+idle share in the glue, the set-up's spans), the grid walks' tiles a window
+frame (``grid_tiles_visited``, ``occl_grid_tiles_visited``: mean, least
+and most), the kinds of walk the window's ``dispatch.walk`` spans name
+(their ``walk`` attribute), the window's frames that
 replayed and captured their glue's CUDA graphs, the host milliseconds a
 window frame in each program span, the traced frames' idle seconds by the
 innermost program span, whether each traced walk kernel starts inside its
@@ -58,8 +61,36 @@ def card():
         timeout=30).stdout.strip()
 
 
+# the grid walk counters of frame_stats (kernels 2.9 and 2.10)
+GRID_COUNTERS = ("grid_tiles_visited", "occl_grid_tiles_visited")
+
+
 def suffix(name):
-    return "mesh" if name.startswith("mesh") else "video"
+    for family in ("mesh", "orth"):
+        if name.startswith(family):
+            return family
+    return "video"
+
+
+def walk_kernel(name):
+    """The walk kernel a cell's primary walk launches."""
+    return "grid_nearest_kernel" if suffix(name) == "orth" \
+        else "nearest_stream_kernel"
+
+
+def grid_tiles(counters, frames):
+    """Mean, least and most of each grid walk counter over ``frames``
+    (every frame counts: 0 where the counter is absent); None for a counter
+    no frame has."""
+    out = {}
+    for k in GRID_COUNTERS:
+        got = [counters.get(f, {}).get(k, 0) for f in frames]
+        if any(k in counters.get(f, {}) for f in frames):
+            out[k] = dict(mean=statistics.mean(got), least=min(got),
+                          most=max(got))
+        else:
+            out[k] = None
+    return out
 
 
 def viewer(run):
@@ -106,11 +137,15 @@ def one_run(name, seed, seconds, on, device="cuda:0", overrides=None):
         # CUDA graphs (ntracer_tpu_torch/engine/graphs.py)
         graph_frames={k: sum(counters.get(f, {}).get(k, 0) for f in frames)
                       for k in ("glue_graph_replays", "glue_graph_captures")},
+        grid_tiles=grid_tiles(counters, frames),
+        walk_kinds=sorted({str(s["attrs"].get("walk")) for s in
+                           program.spans(run, "dispatch.walk")
+                           if s["frame"] in set(frames)}),
         program=program.read(run, suffix(name)),
         span_ms={n: program.ms_per_frame(run, (n,), frames) for n in names},
         setup_spans_s={n: program.setup_s(run, n) for n in names})
     if run["traced"] and run["traced"]["ops"]:
-        rec["alignment"] = program.alignment(run)
+        rec["alignment"] = program.alignment(run, walk_kernel(name))
         rec["idle_by_span"] = program.idle_by_span(run)
     if run["traffic"]["renderer"] == "callback":
         rec["viewer"] = viewer(run)

@@ -7,8 +7,10 @@ in interpret mode (NTRACER_FORCE_KERNELS=1, as tests/test_pallas.py's
 ``test_ray_colors_stats`` runs it).  The counts must be equal: rays traced
 and chunk visits of the walks (2.1, 2.3; 2.5, 2.7 over the line), shadow
 rays and their visits (2.2, 2.4; 2.6, 2.8), the bounce counters, the grid
-walk's rays (it counts nothing else) and the chunk scan's chunk runs.  The
-pools over the line are in tests/test_torch_stats_hbm.py.
+walk's rays and the chunk scan's chunk runs.  The grid walks' tiles (2.9,
+2.10) are the port's own counters, which the JAX package lacks: they are
+taken out before the comparison and held to the tiles the walks returned.
+The pools over the line are in tests/test_torch_stats_hbm.py.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 from ntracer_tpu.engine import resident_kernels as jrk
 from ntracer_tpu.engine import wavefront as jwf
 from ntracer_tpu_torch.engine import graphs as pgraphs
+from ntracer_tpu_torch.engine import grid_kernels as pgk
 from ntracer_tpu_torch.engine import resident_kernels as prk
 from ntracer_tpu_torch.engine import wavefront as pwf
 
@@ -26,6 +29,9 @@ from _torch_helpers import (JAX, PORT, glass_scene, lit_scene_3d,
                             orthoplex_scene, reflective_scene)
 
 SIDE = 32
+# the port's counters of the grid walks, by the walk whose tiles each sums
+GRID_COUNTERS = {"grid_tiles_visited": "nearest_hit",
+                 "occl_grid_tiles_visited": "occluded"}
 
 SCENES = {
     # name: (scene of package pkg, rays, over the line)
@@ -44,8 +50,22 @@ def _counts(stats):
     return {k: int(v) for k, v in stats.items()}
 
 
+def _tiles_walked(monkeypatch):
+    """Wrap the port's grid walks; returns {walk: the tiles its calls
+    returned, summed over calls and blocks}."""
+    walked = dict.fromkeys(GRID_COUNTERS.values(), 0)
+    for walk in walked:
+        def wrapped(*args, _inner=getattr(pgk, walk), _walk=walk, **kw):
+            out = _inner(*args, **kw)
+            walked[_walk] += int(out[-1].sum())
+            return out
+        monkeypatch.setattr(pgk, walk, wrapped)
+    return walked
+
+
 def _both(name, monkeypatch, scenes=SCENES):
-    """The JAX and the port's counters of the rays of ``scenes[name]``."""
+    """The JAX and the port's counters of the rays of ``scenes[name]``, and
+    the tiles the port's grid walks returned (``_tiles_walked``)."""
     make, n, over = scenes[name]
     monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
     if over:
@@ -70,9 +90,10 @@ def _both(name, monkeypatch, scenes=SCENES):
     oT = torch.from_numpy(np.ascontiguousarray(np.asarray(o).T))
     dT = torch.from_numpy(np.ascontiguousarray(np.asarray(dirs).T))
     pstats = {}
+    walked = _tiles_walked(monkeypatch)
     pwf._ray_colors_T(parrs, pcfg, pwf._scene_dyn(pscene, "cpu"), oT, dT,
                       stats=pstats)
-    return _counts(jstats), _counts(pstats), pcfg, parrs
+    return _counts(jstats), _counts(pstats), pcfg, parrs, walked
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -81,17 +102,26 @@ def test_stats_match_jax(name, monkeypatch):
 
 
 def check_stats(name, monkeypatch, scenes):
-    """The port's counts of ``scenes[name]`` equal the JAX package's."""
-    jstats, pstats, pcfg, parrs = _both(name, monkeypatch, scenes)
+    """The port's counts of ``scenes[name]`` equal the JAX package's, but
+    for the grid walks' tiles, which equal the tiles the walks returned."""
+    jstats, pstats, pcfg, parrs, walked = _both(name, monkeypatch, scenes)
     print(name, pstats)
+    grid = {k: pstats.pop(k) for k in GRID_COUNTERS if k in pstats}
     assert pstats == jstats
     n = scenes[name][1]
     assert pstats["rays_traced"] >= n
     if pwf._grid(parrs):
-        # the JAX package's grid branches count rays only
+        # the JAX package's grid branches count rays only; the port's count
+        # every tile its walks ran, and the lit scene's shadow queries ran
+        # some
         assert not any(k.endswith("chunks_visited") or k == "shadow_rays"
                        for k in pstats)
+        assert grid == {k: walked[w] for k, w in GRID_COUNTERS.items()}
+        tiles = parrs["kern_gt"].shape[1] // pgk.TRI_BLOCK
+        assert 0 < grid["grid_tiles_visited"] <= tiles * n // prk.RAY_BLOCK
+        assert grid["occl_grid_tiles_visited"] > 0
     else:
+        assert grid == {} and walked == dict.fromkeys(walked, 0)
         assert pstats["chunks_visited"] > 0
         assert pstats["shadow_rays"] > 0 and pstats["occl_chunks_visited"] > 0
     if pcfg.has_reflectivity:
