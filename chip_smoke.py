@@ -113,7 +113,12 @@ few blocks) and on pools of 200 random simplices at d = 17, 24, 32, 57 and
 64 built straight from their rows (``simplex_pool``: the k-d build of such
 scenes takes minutes), rays aimed at them from the camera with the shared
 rows and with their own origins (for 2.10 the same rays up to the next
-float past their hit on even rays, up to the hit on odd rays).  The script checks 64 pixels of each frame against the scalar NumPy
+float past their hit on even rays, up to the hit on odd rays).  The
+post-walk glue kernel (``wavefront.shade_pack``, csrc/shade_pack.cu;
+phase "glue kernel vs plain", ``glue_kernel``) is held against its plain
+version byte for byte and timed beside its bytes bound at the benchmark
+cells' frames: the flagship 120-cell and the unlit orthoplex at 1920x1080
+in 16 bits, the unlit mesh at 1024x1024 in 8 bits.  The script checks 64 pixels of each frame against the scalar NumPy
 oracle, computed by forked worker processes on the host (5e-5;
 5e-4 for the composed pixels of the transparent frames), chosen from the
 engine's own masks: the lit 120-cell's with at least 16 shadowed pixels, the
@@ -328,12 +333,12 @@ def cell120_scene(nt, material, cam_distance, lit):
     return scene, camera, len(protos)
 
 
-def orthoplex_scene(nt, material, cam_distance=-4.0):
+def orthoplex_scene(nt, material, cam_distance=-4.0, lit=True):
     """The orthoplex {3,...,3,4} of ``nt``'s dimension as
     scripts/polytope.py renders it (``polytope.py 3 3 3 3 3 3 3 3 4`` at
     d = 10: 1,024 simplices): camera at ``cam_distance`` on axis 2, fov
-    0.8, under ``two_lights`` with the point light at (0, 3, -3, 1, 0, ...).
-    Returns (scene, camera, simplices)."""
+    0.8, when ``lit`` under ``two_lights`` with the point light at (0, 3,
+    -3, 1, 0, ...).  Returns (scene, camera, simplices)."""
     d = nt.dimension
     protos = hull_prototypes(nt, polytope_vertices([3] * (d - 2) + [4]),
                              material)
@@ -342,7 +347,8 @@ def orthoplex_scene(nt, material, cam_distance=-4.0):
     camera.translate(nt.Vector.axis(2, cam_distance))
     scene.set_camera(camera)
     scene.set_fov(0.8)
-    two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
+    if lit:
+        two_lights(nt, scene, (0, 3, -3, 1) + (0,) * (d - 4))
     return scene, camera, len(protos)
 
 
@@ -1511,6 +1517,63 @@ def multi_device(flagship, paths, renderer, fmt, dev, name_limit, launches,
             sc._torch_mesh_cache = None
 
 
+def glue_kernel(cases, dev, name_limit, reps=20):
+    """The post-walk glue kernel (``wavefront.shade_pack``,
+    csrc/shade_pack.cu) against its plain version (``_shade_pack_ref``,
+    the chain it replaces) on the card (phase "glue kernel vs plain"), at
+    each of ``cases`` ((label, scene, format), opaque unlit scenes): the
+    packed streams equal byte for byte, the kernel's time (CUDA events,
+    over ``reps`` launches) beside its bytes bound (``bytes_moved`` at
+    ``PEAK_BYTES``: it reads a ray's walk key and direction and writes its
+    pixel), the plain version's time.  Returns {label: case}."""
+    from ntracer_tpu_torch.engine import packing
+    from ntracer_tpu_torch.engine import shade_pack as sp
+    from ntracer_tpu_torch.engine import wavefront as wf
+    out = {}
+    for label, sc, fmt in cases:
+        key = packing.format_key(fmt)
+        w, h = fmt.width, fmt.height
+        cfg, arrs, _flat = wf.get_device_scene(sc, dev)
+        if not wf._glue_fused(arrs, cfg, key):
+            raise SystemExit(f"the glue kernel does not take {label}")
+        fov, cam_o, cam_t = wf._camera(sc, w, h, dev)
+        dyn = wf._scene_dyn(sc, dev)
+        groups = wf._frame_groups(-(-(w * h) // wf.TILE))
+        pctx = wf.primary_ctx(arrs, cfg, cam_o)
+        xs, ys, unswz = wf._frame_coords(groups, w, dev)
+        oT, dT = wf.make_rays(cam_o, cam_t, *fov, xs, ys)
+        R = dT.shape[1]
+        skip = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        walk = wf._walk(arrs, cfg, oT, dT, skip, True, None, pctx, 0, None)
+
+        def kernel():
+            return wf.shade_pack(arrs, cfg, dyn, cam_o, dT, walk, key,
+                                 groups, w, unswz)
+
+        def plain():
+            return wf._shade_pack_ref(arrs, cfg, dyn, cam_o, dT, walk, key,
+                                      unswz)
+
+        got, want = kernel(), plain()
+        diff = int((got != want).sum())
+        hits = int(((walk["kid"] if "kid" in walk else walk["slot"])
+                    >= 0).sum())
+        bytes_ = sp.bytes_moved(cfg.d, R, key[1])
+        bound_ms = 1000 * bytes_ / PEAK_BYTES
+        ms = time_cuda(kernel, reps)
+        plain_ms = time_cuda(plain, max(3, reps // 5))
+        out[label] = {"d": cfg.d, "rays": R, "hits": hits, "bpp": key[1],
+                      "err": diff, "ms": round(ms, 4),
+                      "plain_ms": round(plain_ms, 4),
+                      "bound_ms": round(bound_ms, 4), "bound_by": "bytes",
+                      "share": round(100 * bound_ms / ms, 1)}
+        print(f"   {label}: {json.dumps(out[label])} [{name_limit}]")
+        if diff:
+            raise SystemExit(f"the glue kernel's stream differs from its "
+                             f"plain version's on {label} ({diff} words)")
+    return out
+
+
 def counters(paths, small, dev, name_limit):
     """``frame_stats`` of each of ``paths`` ((label, scene)) on the card
     (phase "counters"), and the card's counts of the small scene ``small``
@@ -1608,8 +1671,10 @@ def walk_wrappers():
     """Every kernel's wrapper by its name in the ``kernels`` line."""
     from ntracer_tpu_torch.engine import grid_kernels as gk
     from ntracer_tpu_torch.engine import resident_kernels as rk
+    from ntracer_tpu_torch.engine import wavefront as wf
     fns = {name: getattr(rk, name) for name in RESIDENT + STREAMING}
-    fns.update(grid_nearest_hit=gk.nearest_hit, grid_occluded=gk.occluded)
+    fns.update(grid_nearest_hit=gk.nearest_hit, grid_occluded=gk.occluded,
+               shade_pack=wf.shade_pack)
     return fns
 
 
@@ -2755,6 +2820,22 @@ def main():
           f"(wrapper included) [{name_limit}]")
     done(t0)
 
+    # the post-walk glue kernel at the benchmark cells' frames: the
+    # flagship 120-cell and the unlit orthoplex at 1920x1080 in 16 bits,
+    # the unlit mesh at 1024x1024 in 8 bits
+    t0 = phase("glue kernel vs plain")
+    video = ImageFormat(1920, 1080, [Channel(16, 1, 0, 0),
+                                     Channel(16, 0, 1, 0),
+                                     Channel(16, 0, 0, 1)])
+    unlit_mesh = nt3.build_composite_scene(mesh_protos)
+    unlit_mesh.set_camera(mesh_camera)
+    glue = glue_kernel([
+        ("120-cell 1920x1080 16-bit", scene, video),
+        ("orthoplex d=10 1920x1080 16-bit",
+         orthoplex_scene(nt10, opaque, lit=False)[0], video),
+        ("mesh d=3 1024x1024 8-bit", unlit_mesh, fmt)], dev, name_limit)
+    done(t0)
+
     t0 = phase("flagship frame")
     renderer = nt_torch.BlockingRenderer()
     reset_launches()
@@ -3581,6 +3662,9 @@ def main():
                      body=WIDE_BODIES,
                      launch={f"d={d_}": v for d_, v in occl_info.items()
                              if d_ >= gk.WIDE_D}),
+        # no Pallas kernel: the JAX package left the chain to XLA's fusion
+        kernel_entry("shade_pack", csrc + "shade_pack.cu", None, "flagship",
+                     glue, "orthoplex d=10 1920x1080 16-bit"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,10 @@ _OCCLUDED_T_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
 # (csrc/grid_walk.cu)
 _GRID_NEAREST_ARGS = [_P] * 9 + [_I, _I, _I, _I, _P, _P, _P, _P]
 _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
+# ntr_shade_pack's C signature (csrc/shade_pack.cu)
+_SHADE_PACK_ARGS = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                    _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I,
+                    _I, _I, _I, _P, _P]
 # the launch queries: the streaming occlusion walks' (kernels 2.6 and 2.8)
 # take (d, int[5]), the streaming nearest-hit walks' (2.5, 2.7 and 2.3) (d,
 # shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6]),
@@ -177,6 +181,8 @@ def _load():
     lib.ntr_grid_nearest_hit.restype = ctypes.c_int
     lib.ntr_grid_occluded.argtypes = _GRID_OCCLUDED_ARGS
     lib.ntr_grid_occluded.restype = ctypes.c_int
+    lib.ntr_shade_pack.argtypes = _SHADE_PACK_ARGS
+    lib.ntr_shade_pack.restype = ctypes.c_int
     # the streaming walks take the arguments of the walks that
     # share their bodies, and the launch queries a d (and the
     # nearest-hit walks' shared flag) and five ints

@@ -34,7 +34,10 @@ overlaps the passes dispatched after it.  On one card a composite frame's
 glue -- everything but the walks' launches -- is captured as CUDA graphs
 and replayed, the walks launched eagerly between them (``graphs``).  A
 format with an integer channel wider than 23 bits ships float colors,
-packed on the host by the exact packer (``packing.pack_flat``).  Strips
+packed on the host by the exact packer (``packing.pack_flat``).  An
+opaque frame without point or global lights, solids or bounces runs its
+glue after the primary walk -- hit rows, scene-box distance, camera light,
+background, packer -- as one kernel (``shade_pack``).  Strips
 (``render_strip_composite``, ``render_strip_box``) trace a band of rows in
 linear pixel order.
 
@@ -61,6 +64,7 @@ from . import graphs
 from . import grid_kernels as gk
 from . import packing
 from . import resident_kernels as rk
+from . import shade_pack as sp
 from .flatten import check_scene, flatten_composite, SceneConfig
 from ..scene import BoxScene, CompositeScene
 
@@ -163,6 +167,12 @@ def _fov_params(w, h, fov):
     return float(fovI), float(half_w), float(half_h)
 
 
+def _tile_order(w, count):
+    """Whether a group of ``count`` rays over rows ``w`` pixels wide is
+    ordered in TILE_W x TILE_H pixel tiles (``_ray_coords``)."""
+    return w % TILE_W == 0 and count % w == 0 and (count // w) % TILE_H == 0
+
+
 def _ray_coords(start, w, count, device):
     """Pixel coordinates of one ``count``-ray group starting at linear pixel
     ``start``.  When the frame allows it, rays are ordered in TILE_W x TILE_H
@@ -170,7 +180,7 @@ def _ray_coords(start, w, count, device):
     Returns (xs, ys, swz): ``swz`` (or None) permutes per-pixel values of the
     group back to linear pixel order."""
     j = torch.arange(count, dtype=torch.int64, device=device)
-    if w % TILE_W == 0 and count % w == 0 and (count // w) % TILE_H == 0:
+    if _tile_order(w, count):
         tpr = w // TILE_W
         tile = j // (TILE_W * TILE_H)
         within = j % (TILE_W * TILE_H)
@@ -209,6 +219,21 @@ def _frame_groups(n_tiles):
         count = gt * TILE
         groups += [(s0 * TILE + i * count, count) for i in range(nt // gt)]
     return groups
+
+
+def _group_runs(groups, w):
+    """``groups`` ((start, count) in ray order) as runs of equal groups:
+    (first ray, rays a group, groups, whether they are tiled), the frame's
+    layout as ``shade_pack``'s kernel takes it."""
+    runs = []
+    first = 0
+    for _start, count in groups:
+        if runs and runs[-1][1] == count:
+            runs[-1][2] += 1
+        else:
+            runs.append([first, count, 1, int(_tile_order(w, count))])
+        first += count
+    return [tuple(r) for r in runs]
 
 
 def _frame_coords(groups, w, device):
@@ -754,65 +779,90 @@ def _trace_walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
                 depth=0):
     """The pool's walk (or chunk scan) and its hit rows: t, pid, mat,
     pointT, normalT and, with K, the slots ``ttT`` and their keys
-    ``tkeyT``, for ``_trace_finish_T``.  The walk's call is the span
-    ``dispatch.walk``, its attribute ``walk`` the kind: ``"stream"`` (the
-    chunk walks, kernels 2.1-2.8), ``"grid"`` (2.9) or ``"scan"``."""
+    ``tkeyT``, for ``_trace_finish_T``."""
+    return _hit_rows(arrs, cfg, oT, dT, _walk(arrs, cfg, oT, dT, skip, shared,
+                                              active, pctx, K, stats, depth))
+
+
+def _walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
+          depth=0):
+    """The pool's walk (or chunk scan) as it returns: ``kt`` and ``kid``
+    (the grid walk: pool-local ids, -1 on a miss), ``kt`` and ``slot`` (the
+    chunk walks: slots of ``res_slot_pack``, -1 on a miss) or ``t`` and
+    ``pid`` (the chunk scan), and with K the slots ``ttT`` and their keys
+    ``tkeyT``.  The walk's call is the span ``dispatch.walk``, its
+    attribute ``walk`` the kind: ``"stream"`` (the chunk walks, kernels
+    2.1-2.8), ``"grid"`` (2.9) or ``"scan"``."""
     d = cfg.d
     R = oT.shape[1]
     skip_local = _local_skip(arrs, skip)
-    res = {}
-    if _grid(arrs) or _scan(arrs):
-        if _grid(arrs):
-            with graphs.walk_span("dispatch.walk", depth=depth, walk="grid"):
-                kt, kid, tiles = gk.nearest_hit(
-                    _kern_dict(arrs), oT, dT, skip_local, d,
-                    sh=pctx["sh_kern"] if shared else None)
-            # the JAX package's grid branch counts rays only; the tiles the
-            # blocks ran are the port's own counter
-            _stat(stats, "rays_traced", lambda: R)
-            _stat(stats, "grid_tiles_visited", tiles.sum)
-            t = torch.where(kid >= 0, kt, REAL_MAX)
-            pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
-        else:
-            with graphs.walk_span("dispatch.walk", depth=depth, walk="scan"):
-                t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
-                                                    active=active)
-            _stat(stats, "chunks_visited", vis.sum)
-            _stat(stats, "rays_traced",
-                  lambda: R if active is None else active.sum())
-            if K:
-                res.update(ttT=ttT, tkeyT=tidT)
-        rowT = arrs["tri_pack"][torch.clamp(pid - arrs["tri_base"], 0,
-                                            cfg.n_tris - 1).long()].T
-    else:
-        res_k = _res_dict(arrs)
-        order, sh = (pctx["order"], pctx["sh_res"]) if shared else (None, None)
-        if K:
-            nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
-                else rk.nearest_hit_transparent
-            with graphs.walk_span("dispatch.walk", depth=depth,
-                                  walk="stream"):
-                kt, slot, ktt, ktslot, vis = nearest_t(
-                    res_k, oT, dT, skip_local, d, K, order=order,
-                    active=active, sh=sh)
-            # stable, as jnp.argsort is: exactly tied surfaces keep slot
-            # order
-            order_k = torch.argsort(ktt, dim=0, stable=True)
-            res["ttT"] = torch.gather(ktt, 0, order_k)
-            res["tkeyT"] = torch.gather(ktslot, 0, order_k)
-        else:
-            nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
-            with graphs.walk_span("dispatch.walk", depth=depth,
-                                  walk="stream"):
-                kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
-                                        order=order, active=active, sh=sh)
+    if _grid(arrs):
+        with graphs.walk_span("dispatch.walk", depth=depth, walk="grid"):
+            kt, kid, tiles = gk.nearest_hit(
+                _kern_dict(arrs), oT, dT, skip_local, d,
+                sh=pctx["sh_kern"] if shared else None)
+        # the JAX package's grid branch counts rays only; the tiles the
+        # blocks ran are the port's own counter
+        _stat(stats, "rays_traced", lambda: R)
+        _stat(stats, "grid_tiles_visited", tiles.sum)
+        return dict(kt=kt, kid=kid)
+    if _scan(arrs):
+        with graphs.walk_span("dispatch.walk", depth=depth, walk="scan"):
+            t, pid, ttT, tidT, vis = trace_scan(arrs, cfg, oT, dT, skip,
+                                                active=active)
+        _stat(stats, "chunks_visited", vis.sum)
         _stat(stats, "rays_traced",
               lambda: R if active is None else active.sum())
-        _stat(stats, "chunks_visited", vis.sum)
+        walk = dict(t=t, pid=pid)
+        if K:
+            walk.update(ttT=ttT, tkeyT=tidT)
+        return walk
+    res_k = _res_dict(arrs)
+    order, sh = (pctx["order"], pctx["sh_res"]) if shared else (None, None)
+    walk = {}
+    if K:
+        nearest_t = rk.nearest_hit_transparent_hbm if _streams(arrs) \
+            else rk.nearest_hit_transparent
+        with graphs.walk_span("dispatch.walk", depth=depth, walk="stream"):
+            kt, slot, ktt, ktslot, vis = nearest_t(
+                res_k, oT, dT, skip_local, d, K, order=order,
+                active=active, sh=sh)
+        # stable, as jnp.argsort is: exactly tied surfaces keep slot order
+        order_k = torch.argsort(ktt, dim=0, stable=True)
+        walk["ttT"] = torch.gather(ktt, 0, order_k)
+        walk["tkeyT"] = torch.gather(ktslot, 0, order_k)
+    else:
+        nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
+        with graphs.walk_span("dispatch.walk", depth=depth, walk="stream"):
+            kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
+                                    order=order, active=active, sh=sh)
+    _stat(stats, "rays_traced",
+          lambda: R if active is None else active.sum())
+    _stat(stats, "chunks_visited", vis.sum)
+    walk.update(kt=kt, slot=slot)
+    return walk
+
+
+def _hit_rows(arrs, cfg, oT, dT, walk):
+    """t, pid, mat, pointT and the view-facing unit normal normalT of the
+    hits ``_walk`` returned, with its K slots as they are."""
+    d = cfg.d
+    res = {k: walk[k] for k in ("ttT", "tkeyT") if k in walk}
+    if "slot" in walk:
+        slot = walk["slot"]
         rowT = arrs["res_slot_pack"][torch.clamp(slot, min=0).long()].T
-        t = torch.where(slot >= 0, kt, REAL_MAX)
+        t = torch.where(slot >= 0, walk["kt"], REAL_MAX)
         pid = torch.where(slot >= 0,
                           rowT[d + 1].to(torch.int32) + arrs["tri_base"], -1)
+    else:
+        if "kid" in walk:
+            kid = walk["kid"]
+            t = torch.where(kid >= 0, walk["kt"], REAL_MAX)
+            pid = torch.where(kid >= 0, kid + arrs["tri_base"], -1)
+        else:
+            t, pid = walk["t"], walk["pid"]
+        rowT = arrs["tri_pack"][torch.clamp(pid - arrs["tri_base"], 0,
+                                            cfg.n_tris - 1).long()].T
     pointT = oT + t[None, :] * dT
     fnT = rowT[:d]
     denom = _dotT(fnT, dT)
@@ -1387,7 +1437,7 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None,
     weight = torch.ones((3, R), dtype=f32, device=dev)
     active = torch.ones((R,), dtype=torch.bool, device=dev)
     skip = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    max_bounces = cfg.max_reflect_depth if cfg.has_reflectivity else 0
+    max_bounces = _max_bounces(cfg)
 
     for depth in range(max_bounces + 1):
         if depth:
@@ -1426,6 +1476,11 @@ def _ray_colors_T(arrs, cfg: SceneConfig, dyn, oT, dT, pctx=None, masks=None,
             dT = _unitT(child_dirT)
             skip = res["pid"]
     return out
+
+
+def _max_bounces(cfg):
+    """The bounces the frame's loop runs past its primary rays."""
+    return cfg.max_reflect_depth if cfg.has_reflectivity else 0
 
 
 def _bounce_stats(stats, depth, active):
@@ -1468,6 +1523,66 @@ def _compose_transparent_T(arrs, cfg, dyn, oT, dT, res, base_colorT, depth,
 
 
 # ---------------------------------------------------------------------------
+# The post-walk glue as one kernel
+# ---------------------------------------------------------------------------
+
+def _glue_fused(arrs, cfg, key):
+    """Whether a frame's post-walk glue runs as one kernel (``shade_pack``),
+    from what the frame is: an opaque pool not split into prim shards,
+    without solids, point or global lights or bounces, 3 <= d <= 16, packed
+    on the device (``key`` given, no integer channel over 23 bits).  The
+    caller adds its own part: one device, no ``masks``.  Every other frame
+    runs the chain (``_ray_colors_T``, ``packing.pack_device_stream``)."""
+    return (key is not None and "shards" not in arrs
+            and not cfg.has_transparency and not cfg.n_solids
+            and not cfg.n_point_lights and not cfg.n_global_lights
+            and not _max_bounces(cfg) and sp.MIN_D <= cfg.d <= sp.MAX_D
+            and all(tfloat or bits <= 23
+                    for bits, *_f, tfloat in key[0]))
+
+
+def shade_pack(arrs, cfg, dyn, origin, dT, walk, key, groups, w, unswz):
+    """The post-walk glue of a frame that ``_glue_fused`` takes -- the hit
+    rows, the scene-box distance, the camera light, the background and the
+    device packer -- on the primary rays of the one ``origin`` (d,) in the
+    directions ``dT`` (d, R), ``walk`` their nearest-hit walk's output
+    (``_walk``).  Returns the packed int32 stream (R // 4, bpp) in linear
+    pixel order, as ``packing.pack_device_stream`` gives it: the rays are
+    in the order of ``groups`` over rows ``w`` pixels wide, ``unswz`` the
+    frame's unswizzle (``_frame_coords``).  On CUDA tensors the CUDA kernel
+    runs (``csrc/shade_pack.cu``, which computes each pixel's place from
+    ``groups`` and ``w``; ``shade_pack.launches`` counts it), on CPU
+    tensors its plain version ``_shade_pack_ref``."""
+    if not sp.on_card(dT.device):
+        return _shade_pack_ref(arrs, cfg, dyn, origin, dT, walk, key, unswz)
+    grid = "kid" in walk
+    return sp.launch(
+        walk["kid" if grid else "slot"], grid,
+        arrs["tri_pack" if grid else "res_slot_pack"], arrs, cfg, dyn,
+        origin, dT, key, _group_runs(groups, w), w, TILE_W, TILE_H,
+        rk._counted("shade_pack", shade_pack))
+
+
+shade_pack.launches = 0
+
+
+def _shade_pack_ref(arrs, cfg, dyn, origin, dT, walk, key, unswz):
+    """``shade_pack``'s plain version: the chain it replaces, from
+    ``_trace_walk``'s hit rows through the bounce loop's one step
+    (``_ray_colors_T``) to ``packing.pack_device_stream``."""
+    oT = origin[:, None].expand_as(dT).contiguous()
+    res = _trace_close(_hit_rows(arrs, cfg, oT, dT, walk), 0)
+    hit = res["hit"] & (aabb_distance_T(cfg, arrs, oT, dT) >= 0)
+    localT, _coef, _dir = shade_local_T(
+        arrs, cfg, dT, res["pointT"], res["normalT"], res["pid"], res["mat"],
+        0, dyn, active=hit)
+    colorT = torch.where(hit[None, :], localT, background_T(cfg, dyn, dT))
+    # the bounce loop's one step: out = 0 + weight * color, weight 1
+    colorT = torch.zeros_like(colorT) + torch.ones_like(colorT) * colorT
+    return packing.pack_device_stream(colorT, key, permute=unswz)
+
+
+# ---------------------------------------------------------------------------
 # Frames
 # ---------------------------------------------------------------------------
 
@@ -1504,15 +1619,26 @@ def _box_colors(d, cam_origin, cam_t, fov_params, xs, ys):
 
 
 def _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t, fov_params,
-                            groups, w, key, masks=None, stats=None):
+                            groups, w, key, masks=None, stats=None,
+                            fused=False):
     """One frame of a composite scene in one pass over all its rays ->
     packed int32 stream (or, with ``key=None``, (R, 3) float colors in
     linear pixel order; a dict passed as ``masks`` then receives the
     frame's diagnostic masks in the same order, one passed as ``stats`` its
-    counters)."""
+    counters).  ``fused`` (``_glue_fused``, on one device) runs the glue
+    after the primary walk as one kernel (``shade_pack``); the counter
+    ``glue_fused`` says so."""
     pctx = primary_ctx(arrs, cfg, cam_origin)
     xs, ys, unswz = _frame_coords(groups, w, cam_origin.device)
     oT, dT = make_rays(cam_origin, cam_t, *fov_params, xs, ys)
+    _stat(stats, "glue_fused", lambda: int(fused))
+    if fused:
+        skip = torch.full((oT.shape[1],), -1, dtype=torch.int32,
+                          device=oT.device)
+        walk = _walk(arrs, cfg, oT, dT, skip, True, None, pctx, 0, stats)
+        with tracing.span("dispatch.shade", depth=0):
+            return shade_pack(arrs, cfg, dyn, cam_origin, dT, walk, key,
+                              groups, w, unswz)
     colorsT = _ray_colors_T(arrs, cfg, dyn, oT, dT, pctx=pctx, masks=masks,
                             stats=stats)
     if masks is not None:
@@ -1593,11 +1719,13 @@ def _frame(scene, width, height, key, device, masks=None, stats=None):
         fov = _fov_params(width, height, scene.fov)
         host = _frame_inputs(scene)
 
+    fused = masks is None and _glue_fused(arrs, cfg, key)
+
     def body(inputs, stats):
         cam_origin, cam_t, dyn = _split_inputs(inputs, cfg.d)
         return _frame_packed_composite(arrs, cfg, dyn, cam_origin, cam_t,
                                        fov, groups, width, key, masks=masks,
-                                       stats=stats)
+                                       stats=stats, fused=fused)
 
     if stats is not None:
         stats.update(dict.fromkeys(graphs.COUNTERS, 0))
@@ -1656,8 +1784,10 @@ def frame_stats(scene, width, height, device="cuda"):
     only a scene of d > 8 with an opaque pool has them), and at each
     bounce depth n the live rays
     ``bounce_live_rays_d{n}`` and the 512-ray blocks with a live ray
-    ``bounce_live_blocks_d{n}``, and ``graphs.COUNTERS`` (1 where the
-    frame replayed, and captured, its glue's CUDA graphs).  The frame is
+    ``bounce_live_blocks_d{n}``, ``graphs.COUNTERS`` (1 where the
+    frame replayed, and captured, its glue's CUDA graphs) and
+    ``glue_fused`` (1 where the glue after the walk ran as one kernel,
+    ``shade_pack``; never in this frame of float colors).  The frame is
     rendered as ``_frame`` does, in its groups (``_frame_groups``), and not
     pulled."""
     check_scene(scene, CompositeScene)

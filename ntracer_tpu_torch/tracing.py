@@ -24,7 +24,9 @@ The per-frame counters are ``wavefront.frame_stats``'s: while tracing is on,
 the frame id (``frame_counters``).  Its values stay on the device until
 ``drain`` turns them into ints.  They include ``glue_graph_replays`` and
 ``glue_graph_captures``, 1 in a frame that replayed its glue from CUDA
-graphs and in one that captured them (``engine/graphs.py``).
+graphs and in one that captured them (``engine/graphs.py``), and
+``glue_fused``, 1 in a frame whose glue after the walk ran as one kernel
+(``wavefront.shade_pack``).
 
 A frame replayed from its graphs has, under ``frame.dispatch``, the spans
 ``dispatch.camera``, one ``dispatch.graph`` a segment (``seg``) and between
@@ -32,7 +34,9 @@ them the walks' ``dispatch.walk`` and ``dispatch.occlusion`` (``walk``:
 ``"stream"``, ``"grid"`` or ``"scan"``, the kind of walk); the glue's
 spans (``dispatch.primary_ctx``, ``dispatch.raygen``, ``dispatch.shade``,
 ``dispatch.pack``) appear only in eager frames and, inside
-``dispatch.capture``, in the frame that captures.
+``dispatch.capture``, in the frame that captures.  A frame whose glue after
+the walk is one kernel has one ``dispatch.shade`` (depth 0) around it and
+no ``dispatch.pack``.
 
 Off, ``span`` returns one shared object that does nothing (no clock is
 read, nothing is kept), ``now`` and ``new_frame`` return None and

@@ -137,6 +137,10 @@ def one_run(name, seed, seconds, on, device="cuda:0", overrides=None):
         # CUDA graphs (ntracer_tpu_torch/engine/graphs.py)
         graph_frames={k: sum(counters.get(f, {}).get(k, 0) for f in frames)
                       for k in ("glue_graph_replays", "glue_graph_captures")},
+        # frames of the window whose post-walk glue ran as one kernel
+        # (wavefront.shade_pack)
+        glue_fused_frames=sum(counters.get(f, {}).get("glue_fused", 0)
+                              for f in frames),
         grid_tiles=grid_tiles(counters, frames),
         walk_kinds=sorted({str(s["attrs"].get("walk")) for s in
                            program.spans(run, "dispatch.walk")

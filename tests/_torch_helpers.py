@@ -10,6 +10,8 @@ imports neither, so jax-free test files can use it.
 """
 
 import importlib
+import importlib.util
+import json
 import os
 import sys
 import types
@@ -343,6 +345,79 @@ def lit_scene_3d(seed=5, pkg=PORT):
     scene.add_light(nt.PointLight(nt.Vector(1, 5, -3), (1, 0.9, 0.7)))
     scene.add_light(nt.GlobalLight(nt.Vector(0.2, -1, 0.3), (0.3, 0.3, 0.4)))
     scene.set_shadows(True)
+    return scene
+
+
+def unlit_reflective_scene(pkg=PORT):
+    """``random_scene``'s 3-D simplices of a reflective material (0.4) with
+    no light: the bounce loop runs (the reflection depth is the scene's
+    default 4) while the camera light is the only light."""
+    a = api(pkg)
+    return random_scene(3, n=300, seed=9, spread=0.8,
+                        material=a.Material((1, 0.6, 0.4), reflectivity=0.4),
+                        pkg=pkg)
+
+
+def wide_d17_scene(pkg=PORT):
+    """20 random 17-D simplices near the view's 3-space, no light: a d past
+    the templated bodies (the grid walks' wide bodies, ``gk.WIDE_D``)."""
+    a = api(pkg)
+    nt = a.NTracer(17)
+    rng = np.random.RandomState(4)
+    protos = []
+    for _ in range(20):
+        base = rng.uniform(-1, 1, 17)
+        base[3:] *= 0.1
+        protos.append(nt.TrianglePrototype(
+            [nt.Vector(*(base + rng.uniform(-0.3, 0.3, 17)))
+             for _ in range(17)], a.Material((1, 0.5, 0.5))))
+    scene = nt.build_composite_scene(protos)
+    cam = nt.Camera()
+    cam.translate(nt.Vector.axis(2, -4.0))
+    scene.set_camera(cam)
+    return scene
+
+
+def _bench(rel):
+    """A module of the benchmark (``gpubench/<rel>``), which imports
+    nothing of either package."""
+    path = os.path.join(REPO, "gpubench", rel)
+    spec = importlib.util.spec_from_file_location(
+        "bench_" + rel.replace("/", "_")[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_scene(config, step, pkg=PORT):
+    """The benchmark's scene of ``gpubench/configs/<config>.json`` (a
+    polytope configuration) as its cells build it, seen from the
+    ``video1080`` mix's camera at ``step`` of its path."""
+    polytope = _bench("scenes/polytope.py")
+    orbit = _bench("gbench/orbit.py")
+    with open(os.path.join(REPO, "gpubench", "configs",
+                           config + ".json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(REPO, "gpubench", "traffic",
+                           "video1080.json")) as f:
+        camera = json.load(f)["camera"]
+    tris = polytope.simplices(cfg, None)
+    d = tris.shape[1]
+    nt = api(pkg).NTracer(d)
+    scene = nt.build_composite_scene(polytope.prototypes(cfg, nt, tris,
+                                                         None))
+    scene.set_fov(cfg["fov"])
+    bg = cfg["background"]
+    scene.set_background(tuple(bg["bg1"]), tuple(bg["bg2"]),
+                         tuple(bg["bg3"]), bg["axis"])
+    scene.set_ambient_color(tuple(cfg["ambient"]))
+    scene.set_camera_light(cfg["camera_light"])
+    origins, axes = orbit.cameras(d, polytope.camera_distance(cfg), camera)
+    cam = nt.Camera()
+    cam.origin = nt.Vector(*origins[step].tolist())
+    for i in range(d):
+        cam.axes[i] = nt.Vector(*axes[step][i].tolist())
+    scene.set_camera(cam)
     return scene
 
 

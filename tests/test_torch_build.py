@@ -26,7 +26,7 @@ def test_sources_and_build_dir():
     srcs = _build.sources()
     assert [os.path.basename(s) for s in srcs] == [
         "grid_walk.cu", "nearest_hit.cu", "nearest_hit_transparent.cu",
-        "occluded.cu", "occluded_transparent.cu"]
+        "occluded.cu", "occluded_transparent.cu", "shade_pack.cu"]
     assert [os.path.basename(s) for s in _build.headers()] == [
         "chunk_ring.cuh", "pair_test.cuh", "stream_walk.cuh"]
     pkg = os.path.dirname(os.path.dirname(_build.__file__))
@@ -46,7 +46,7 @@ def test_sources_and_build_dir():
                                   "nearest_hit_transparent.cu",
                                   "occluded_transparent.cu", "pair_test.cuh",
                                   "chunk_ring.cuh", "stream_walk.cuh",
-                                  "grid_walk.cu"])
+                                  "grid_walk.cu", "shade_pack.cu"])
 def test_library_name_follows_every_build_input(name, tmp_path, monkeypatch):
     """An edit to any source or header the build reads changes the
     library's name, so a stale library is never loaded."""
