@@ -28,13 +28,13 @@ at 1024x1024, 8-bit RGB:
     (``sphere_mesh(500000)``), written to an OBJ file and loaded with the
     port's ``load_obj``, under tpu_parity.py's two lights with shadows on, a
     4-frame orbit.  Its pool (4,054 chunks, 63.3 MiB) is over the line
-    (``resident_kernels.STREAM_POOL_BYTES``), so it renders through the
-    streaming walks: one ``nearest_hit_hbm`` and two ``occluded_hbm`` a
-    frame;
+    (``resident_kernels.STREAM_POOL_BYTES``), where the JAX package takes
+    its streaming kernels; the port's walks serve a pool of any size: one
+    ``nearest_hit`` and two ``occluded`` a frame;
   * the glass mesh: the same triangles by turns opaque and glass (opacity
     0.4), the same lights, a 4-frame orbit (one
-    ``nearest_hit_transparent_hbm`` and 18 ``occluded_transparent_hbm`` a
-    frame);
+    ``nearest_hit_transparent_hbm``, the K-slot walk in groups of four, and
+    18 ``occluded_transparent`` a frame);
   * the orthoplex d=10: scripts/polytope.py's 10-orthoplex {3,...,3,4}
     (1,024 simplices, two 512-triangle tiles) from its camera at -4 on axis
     2, fov 0.8, under tpu_parity.py's two lights (the point light at
@@ -88,7 +88,7 @@ frame's bytes; ``parallel.mesh.render_frame`` over prim meshes 1x2 and 2x2
 of the lit 120-cell (2.1 and 2.2 a shard), the glass 120-cell (2.3, 2.4,
 the K merge and the ``filt`` product), "solids d=4" (solids on shard 0
 only) and the orthoplex d=10 (2.9 and 2.10 a shard), and 1x2 of the mesh
-(each half under the line: 2.1 and 2.2 in place of 2.5 and 2.6), each
+(each half under the line, the same walks), each
 against the single frame (bytes that differ), held to the oracle at the
 pixels of the scene's oracle check, with the walk each shard takes, the
 walks a shard ran, the kernel launches and the host and device frame
@@ -97,13 +97,13 @@ times beside the single frame's.  And the counters (phase "counters"):
 120-cell, mesh, orthoplex and glass orthoplex frames, and the card's
 counts of a small lit glass scene equal to the CPU's.
 
-Each streaming kernel is held against its twin at the mesh's full
-wavefronts, and against its sibling for pools under the line (kernels
-2.1-2.4) on the same inputs (2.1, 2.2 and 2.4 launch 2.5's, 2.6's and 2.8's
-bodies: those checks are of equality, not of time; 2.3 launches 2.7's in
-groups of one, so the two share t and the opaque slot, and their times
-compare the group sizes); the grid kernels against their twins at the
-orthoplex's full
+Each chunk walk's wrapper is held against its twin at the mesh's full
+wavefronts beside the small pools' (``nearest_hit``, ``occluded`` and
+``occluded_transparent`` each launch one body on a pool of any size, the
+JAX package's 2.1/2.5, 2.2/2.6 and 2.4/2.8), and 2.7 on the glass mesh
+against 2.3 on the same inputs (2.3 launches 2.7's body in groups of one,
+so the two share t and the opaque slot, and their times compare the group
+sizes); the grid kernels against their twins at the orthoplex's full
 wavefronts (primary rays with the shared rows, the bounce wavefront, shadow
 rays to three lights and a dead wavefront), at d = 9 (the 9-orthoplex)
 and d = 16 (200 random simplices, rays aimed at them) for other d, and
@@ -133,11 +133,11 @@ four solid scenes (their pixels drawn a third or more from those whose ray
 meets a solid).
 Each kernel's launch count is set to 0 before a path is driven and read
 after it; one more glass 120-cell frame counts kernel 2.4's live launches
-(a block visited a chunk).  The script prints the launch of 2.1 at d = 4
-and 6 and of 2.4 (stream_walk.cuh's bodies), of 2.9 and 2.10 at d = 9, 10,
-16, 17, 20, 24 and 32 (registers, spills, blocks an SM, ring slots, rays a
-thread), and
-the time of 2.1's entry pass alone on the flagship pool.  Any failed phase exits
+(a block visited a chunk).  The script prints the launch of 2.1 at d = 3,
+4 and 6, of 2.2, 2.3, 2.4 and 2.7 (stream_walk.cuh's bodies), of 2.9 and
+2.10 at d = 9, 10, 16, 17, 20, 24 and 32 (registers, spills, blocks an SM,
+ring slots, rays a thread), and the time of 2.1's entry pass alone on the
+flagship pool and on the mesh.  Any failed phase exits
 non-zero.  The last two lines of output are one JSON object with every
 kernel's numbers and ``{"ok": true, "device": {...}}``.
 
@@ -1379,9 +1379,9 @@ def shard_kind(arrs):
         return f"chunk scan, {arrs['tri_pack'].shape[0]} triangles"
     n = arrs["res_klo"].shape[0]
     mib = rk.pool_bytes(n * rk.CK, arrs["res_klo"].shape[-1]) / 2 ** 20
-    walks = "streaming walks 2.5-2.8" if wf._streams(arrs) \
-        else "walks 2.1-2.4"
-    return f"{walks}, {n} chunks, {mib:.1f} MiB"
+    rule = "over the line (2.7's groups of four)" if wf._streams(arrs) \
+        else "under the line"
+    return f"chunk walks {rule}, {n} chunks, {mib:.1f} MiB"
 
 
 def byte_diffs(a, b, fmt):
@@ -1659,9 +1659,11 @@ def hold_to_oracle(colors, pixels, refs, tol):
         raise SystemExit("the frame disagrees with the oracle")
 
 
+# kernels 2.1-2.8: one wrapper a chunk-walk body, the K-slot walk's two
+# rules (2.3 and 2.7) each with its own
 RESIDENT = ("nearest_hit", "occluded", "nearest_hit_transparent",
             "occluded_transparent")
-STREAMING = tuple(name + "_hbm" for name in RESIDENT)
+STREAMING = ("nearest_hit_transparent_hbm",)
 # kernels 2.9 and 2.10: grid_kernels.nearest_hit and .occluded (d > 8)
 GRID = ("grid_nearest_hit", "grid_occluded")
 WALKS = RESIDENT + STREAMING + GRID
@@ -1983,116 +1985,169 @@ def main():
                              shared_origin=cam_o_, pctx=pctx_)
         return fov_, cam_o_, cam_t_, oT_, dT_, pctx_, skip_, hit_
 
-    # kernel 2.1 in both walk modes at the flagship's full primary
-    # wavefront: primary rays with the shared-origin rows and the
-    # front-to-back order, and a bounce wavefront (reflections off the
-    # primary hits, every other block inactive, each ray skipping the
-    # surface it leaves) in pool order; then the lit frame's primary
-    # wavefront (d = 6)
+    # Kernels 2.1-2.8 at full wavefronts, each wrapper against its twin.
+    # One body on stream_walk.cuh serves a pool of any size, so the mesh's
+    # wavefronts (d = 3, 4,054 chunks through the ring; the JAX package
+    # takes its streaming kernels 2.5, 2.6 and 2.8 there) are cases of the
+    # same wrapper as the small pools'.  A mesh walk takes 0.1-0.4 s and its
+    # twin tens of seconds: three timed kernel calls there, and the twin's
+    # one call timed.
+    slot_bytes = {opa: 512 * (3 * 3 + 3 + 1 + opa) for opa in (0, 1)}
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for opa, sb in slot_bytes.items():
+        ring = min(8, (optin - 4096) // sb) * sb
+        print(f"   ring at d = 3{' with opacity' if opa else ''}: "
+              f"{ring // sb} slots of {sb} B, {ring / 1024:.1f} KiB; shared "
+              f"memory lets {per_sm // (ring + 4096)} blocks of 512 threads "
+              f"share an SM")
+
+    def launched_once(fn, call):
+        """``call()``, which must launch ``fn``'s kernel exactly once."""
+        before = fn.launches
+        out = call()
+        if fn.launches != before + 1:
+            raise SystemExit(f"{fn.__name__} launched "
+                             f"{fn.launches - before} kernels, wanted 1")
+        return out
+
+    def kernel_and_twin(fn, twin, args, kw, big):
+        """The wrapper ``fn``'s outputs (one launch), its twin's, the
+        kernel's ms and the twin's: on the mesh (``big``) three timed
+        kernel calls and the twin's one call, else 20 and 2."""
+        got = launched_once(fn, lambda: fn(*args, **kw))
+        if big:
+            ref, twin_ms = timed(lambda: twin(*args, **kw))
+        else:
+            ref = twin(*args, **kw)
+            twin_ms = time_cuda(lambda: twin(*args, **kw), 2)
+        torch.cuda.synchronize()
+        ms = time_cuda(lambda: fn(*args, **kw), 3 if big else 20)
+        return got, ref, ms, twin_ms
+
+    def check_launch(name, info):
+        if info["blocks_per_sm"] < 2:
+            raise SystemExit(f"{name}: fewer than two blocks an SM at d = 3")
+
+    # kernel 2.1/2.5 in both walk modes at full primary wavefronts: primary
+    # rays with the shared-origin rows and the front-to-back order, and a
+    # bounce wavefront in pool order, of the flagship and the mesh; then the
+    # lit frame's primary wavefront (d = 6)
     t0 = phase("nearest_hit kernel vs twin")
     fov, cam_o, cam_t, oT, dT, pctx, skip, hit = primary(scene, cfg, arrs)
     lfov, lcam_o, lcam_t, loT, ldT, lpctx, lskip, lhit = primary(
         lit, lcfg, larrs)
+    _f, _o, _t, moT, mdT, mpctx, mskip, mhit = primary(mesh, mcfg, marrs)
     res = wf._res_dict(arrs)
     lres = wf._res_dict(larrs)
+    mres = wf._res_dict(marrs)
     R = dT.shape[1]
-    nrm = hit["normalT"]
-    sine = -wf._dotT(dT, nrm)
     blk = torch.arange(R, device=dev) // rk.RAY_BLOCK
+
+    def bounce(hit_, dT_):
+        """A bounce wavefront: reflections off ``hit_``'s points, every
+        other block inactive, each ray skipping the surface it leaves:
+        (origins, directions, skip, keywords)."""
+        nrm = hit_["normalT"]
+        sine = -wf._dotT(dT_, nrm)
+        return (hit_["pointT"], wf._unitT(dT_ - nrm * (-2 * sine)[None, :]),
+                hit_["pid"], dict(active=hit_["hit"] & (blk % 2 == 0)))
+
     modes = {
         "primary": (cfg, arrs, res, oT, dT, skip,
                     dict(order=pctx["order"], sh=pctx["sh_res"])),
-        "bounce": (cfg, arrs, res, hit["pointT"],
-                   wf._unitT(dT - nrm * (-2 * sine)[None, :]), hit["pid"],
-                   dict(active=hit["hit"] & (blk % 2 == 0))),
+        "bounce": (cfg, arrs, res, *bounce(hit, dT)),
         "lit primary": (lcfg, larrs, lres, loT, ldT, lskip,
                         dict(order=lpctx["order"], sh=lpctx["sh_res"])),
+        "mesh primary": (mcfg, marrs, mres, moT, mdT, mskip,
+                         dict(order=mpctx["order"], sh=mpctx["sh_res"])),
+        "mesh bounce": (mcfg, marrs, mres, *bounce(mhit, mdT)),
     }
     near = {}
     for label, (cfg_, arrs_, res_, o_, d_, s_, kw) in modes.items():
         args = (res_, o_, d_, s_, cfg_.d)
-        kt, ks, kv = rk.nearest_hit(*args, **kw)
-        pt, ps, pv = rk.nearest_hit_ref(*args, **kw)
-        torch.cuda.synchronize()
-        slot_diff = int((ks != ps).sum())
-        t_diff = int((kt.view(torch.int32) != pt.view(torch.int32)).sum())
-        vis_diff = int((kv != pv).sum())
-        # 2.1 launches 2.5's body: the streaming entry on the same inputs
-        ht, hs, hv = rk.nearest_hit_hbm(*args, **kw)
-        vs_2_5 = dict(slot=int((ks != hs).sum()), t_bits=bit_diffs(kt, ht),
-                      visits=int((kv != hv).sum()))
+        (kt, ks, kv), (pt, ps, pv), ms, twin_ms = kernel_and_twin(
+            rk.nearest_hit, rk.nearest_hit_ref, args, kw,
+            label.startswith("mesh"))
+        diffs = dict(slot=int((ks != ps).sum()), t_bits=bit_diffs(kt, pt),
+                     visits=int((kv != pv).sum()))
         err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
                     .max())
-        ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 20)
-        twin_ms = time_cuda(lambda: rk.nearest_hit_ref(*args, **kw), 2)
         read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
         need = read & (rk._scene_exit_T(o_, d_, res_["b_lo"],
                                         res_["b_hi"]) > 0)
+        stages = nearest_stages(*args, kw, kt, kv)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, "sh" in kw, need, read,
-            nearest_stages(*args, kw, kt, kv), arrs_["res_neff"],
+            cfg_.d, "sh" in kw, need, read, stages, arrs_["res_neff"],
             pool_bytes(arrs_), int("active" in kw), R * 8 + kv.numel() * 4)
         near[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, err=err)
+                           bound_by=bound_by, err=err,
+                           live_blocks=int((kv > 0).sum()))
         print(f"   {label}: {R} rays, {int(need.sum())} to test, "
-              f"{int((ks >= 0).sum())} hits, "
-              f"slot diffs {slot_diff}, t bit diffs {t_diff}, visit diffs "
-              f"{vis_diff}, diffs against 2.5 {json.dumps(vs_2_5)}, max |dt| "
-              f"{err}, visits/block "
-              f"{float(kv.float().mean()):.4f}; kernel {ms:.4f} ms, twin "
-              f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached "
-              f"[{name_limit}]")
-        if slot_diff or t_diff or vis_diff or any(vs_2_5.values()):
-            raise SystemExit(f"nearest_hit kernel != twin or 2.5 in {label} "
-                             f"mode")
-    # kernel 2.1 launches 2.5's body (stream_walk.cuh): as it launches at
-    # the flagship's d and the lit configuration's
+              f"{int((ks >= 0).sum())} hits, {near[label]['live_blocks']} "
+              f"live blocks, visits/block {float(kv.float().mean()):.4f}; "
+              f"diffs {json.dumps(diffs)}, max |dt| {err}; kernel "
+              f"{ms:.4f} ms, twin {twin_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of the bound "
+              f"reached; {stage_note(stages)} [{name_limit}]")
+        if any(diffs.values()):
+            raise SystemExit(f"nearest_hit kernel != twin: {label}")
+    # as it launches at the mesh's d, the flagship's and the lit
+    # configuration's
     near_info = {}
-    for d_ in (cfg.d, lcfg.d):
+    for d_ in (mcfg.d, cfg.d, lcfg.d):
         for shared in (True, False):
             near_info[d_, shared] = rk.stream_info("nearest_hit", d_, shared)
             print(f"   nearest_hit at d = {d_}"
                   f"{' (shared rows)' if shared else ''}: "
                   f"{near_info[d_, shared]}")
-    # the entry pass alone on the flagship pool: every block live, every
-    # origin far outside the pool's box, pointing away, and a start
-    # distance no chunk is within, so no block visits a chunk
-    far = torch.full((cfg.d, R), 10.0, device=dev)
-    away = torch.full((cfg.d, R), cfg.d ** -0.5, device=dev)
-    none = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    pw = rk._walk_inputs(res, far, away, none, cfg.d, None, None, None)
-    pw["init_t"] = torch.full((R,), 1e-30, device=dev)
-    pw["blive"] = torch.ones_like(pw["blive"])
+    check_launch("nearest_hit", near_info[3, True])
 
-    def flagship_entry_probe():
-        err, got = rk._nearest_kernel("ntr_nearest_hit", pw, far.device)
-        if err:
-            raise SystemExit(f"the 2.1 entry-pass probe failed: {err}")
-        return got
+    def entry_probe_ms(res_, d_):
+        """The entry pass alone over ``res_``'s pool: every block live,
+        every origin far outside the pool's box, pointing away, and a
+        start distance (init_t) no chunk is within, so no block visits a
+        chunk (the wrapper would start each ray at its scene exit)."""
+        far = torch.full((d_, R), 10.0, device=dev)
+        away = torch.full((d_, R), d_ ** -0.5, device=dev)
+        none = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        pw = rk._walk_inputs(res_, far, away, none, d_, None, None, None)
+        pw["init_t"] = torch.full((R,), 1e-30, device=dev)
+        pw["blive"] = torch.ones_like(pw["blive"])
 
-    kt, ks, kv = flagship_entry_probe()
-    if bool(kv.any()) or bool((ks >= 0).any()):
-        raise SystemExit("the 2.1 entry-pass probe visited a chunk")
-    entry_1_ms = time_cuda(flagship_entry_probe, 5)
-    print(f"   2.1 (2.5's body) entry pass alone ({R // 512} live blocks x "
-          f"{int(arrs['res_neff'])} chunks): {entry_1_ms:.4f} ms, "
+        def probe():
+            err, got = rk._nearest_kernel("ntr_nearest_hit", pw, far.device)
+            if err:
+                raise SystemExit(f"the entry-pass probe failed: {err}")
+            return got
+
+        _kt, ks, kv = probe()
+        if bool(kv.any()) or bool((ks >= 0).any()):
+            raise SystemExit("the entry-pass probe visited a chunk")
+        return time_cuda(probe, 5)
+
+    entry_1_ms = entry_probe_ms(res, cfg.d)
+    entry_n_ms = entry_probe_ms(mres, 3)
+    print(f"   entry pass alone ({R // 512} live blocks): flagship "
+          f"({int(arrs['res_neff'])} chunks) {entry_1_ms:.4f} ms, "
           f"{100 * entry_1_ms / near['primary']['ms']:.1f}% of the primary "
-          f"walk [{name_limit}]")
+          f"walk; mesh ({n_chunks} chunks) {entry_n_ms:.4f} ms, "
+          f"{entry_n_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
     done(t0)
 
-    # kernel 2.2 at the lit frame's full wavefront: 1,048,576 shadow rays
-    # leaving the primary hit points (misses inactive, each ray skipping the
-    # surface it lies on) towards the first point light (finite distances)
-    # and along the global light (REAL_MAX cut to the pool's box); then the
-    # same towards a point light from the flagship's hit points, where most
-    # blocks are live; then a wavefront without any active ray
+    # kernel 2.2/2.6 at full wavefronts: 1,048,576 shadow rays leaving the
+    # primary hit points (misses inactive, each ray skipping the surface it
+    # lies on) of the lit frame and the mesh towards the first point light
+    # (finite distances) and along the global light (REAL_MAX cut to the
+    # pool's box); the flagship's towards a point light, where most blocks
+    # are live; then wavefronts without any active ray
     t0 = phase("occluded kernel vs twin")
-    # kernel 2.2 launches 2.6's body (stream_walk.cuh) on any pool: as it
-    # launches at the lit configuration's d and the flagship's
-    occ_info = {d_: rk.stream_info("occluded", d_) for d_ in (lcfg.d, cfg.d)}
+    occ_info = {d_: rk.stream_info("occluded", d_)
+                for d_ in (mcfg.d, lcfg.d, cfg.d)}
     for d_, info in occ_info.items():
         print(f"   occluded at d = {d_}: {info}")
+    check_launch("occluded", occ_info[3])
 
     def shadow_rays(arrs_, hit_, light_pos=None, light_dir=None):
         point = torch.where(hit_["hit"][None, :], hit_["pointT"], 0.0)
@@ -2106,57 +2161,90 @@ def main():
                                   arrs_["res_bhi"])
         return point, ld, torch.where(hit_["hit"], exit_t, 0.0)
 
+    def lights(label, cfg_, arrs_, res_, hit_):
+        """Shadow rays to the scene's first point light and along its
+        global light, by label."""
+        return {
+            f"{label} point light": (cfg_, arrs_, res_, hit_, shadow_rays(
+                arrs_, hit_, light_pos=arrs_["pl_pos"][0])),
+            f"{label} global light": (cfg_, arrs_, res_, hit_, shadow_rays(
+                arrs_, hit_, light_dir=arrs_["gl_dir"][0]))}
+
+    def dead_ms_of(fn, res_, point, dirs, pid, d_):
+        """``fn`` (an occlusion wrapper) on a wavefront without an active
+        ray: nothing walked, ``filt`` 1; its ms, wrapper included."""
+        dead = torch.zeros_like(point[0])
+        out = fn(res_, point, dirs, dead, pid, d_)
+        if bool(out[0].any()) or bool(out[-1].any()) or \
+                (len(out) == 3 and not bool((out[1] == 1).all())):
+            raise SystemExit("a dead wavefront was walked")
+        return time_cuda(lambda: fn(res_, point, dirs, dead, pid, d_), 20)
+
     flagship_light = torch.tensor([0.0, 3.0, -3.0, 1.0], device=dev)
     cases = {
-        "lit point light": (lcfg, larrs, lres, lhit, shadow_rays(
-            larrs, lhit, light_pos=larrs["pl_pos"][0])),
-        "lit global light": (lcfg, larrs, lres, lhit, shadow_rays(
-            larrs, lhit, light_dir=larrs["gl_dir"][0])),
+        **lights("lit", lcfg, larrs, lres, lhit),
         "flagship point light": (cfg, arrs, res, hit, shadow_rays(
             arrs, hit, light_pos=flagship_light)),
+        **lights("mesh", mcfg, marrs, mres, mhit),
     }
     occ = {}
     for label, (cfg_, arrs_, res_, hit_, (point, dirs, ldist)) in \
             cases.items():
         args = (res_, point, dirs, ldist, hit_["pid"], cfg_.d)
-        kb, kv = rk.occluded(*args)
-        pb, pv = rk.occluded_ref(*args)
-        torch.cuda.synchronize()
-        ray_diff = int((kb != pb).sum())
-        vis_diff = int((kv != pv).sum())
-        ms = time_cuda(lambda: rk.occluded(*args), 20)
-        twin_ms = time_cuda(lambda: rk.occluded_ref(*args), 2)
+        (kb, kv), (pb, pv), ms, twin_ms = kernel_and_twin(
+            rk.occluded, rk.occluded_ref, args, {}, label.startswith("mesh"))
+        diffs = dict(blocked=int((kb != pb).sum()),
+                     visits=int((kv != pv).sum()))
+        stages, dealt = occlusion_stages(*args, kb, kv)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, False, ldist > 0, ldist > 0,
-            occlusion_stages(*args, kb, kv)[0], arrs_["res_neff"],
+            cfg_.d, False, ldist > 0, ldist > 0, stages, arrs_["res_neff"],
             pool_bytes(arrs_), 4, R + kv.numel() * 4, early=kb)
         occ[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, err=float(ray_diff))
+                          bound_by=bound_by, err=float(diffs["blocked"]),
+                          live_blocks=int((kv > 0).sum()),
+                          work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
-              f"{int(kb.sum())} blocked, blocked diffs {ray_diff}, visit "
-              f"diffs {vis_diff}, live blocks {int((kv > 0).sum())}, "
-              f"visits/block {float(kv.float().mean()):.4f}; kernel "
-              f"{ms:.4f} ms, twin {twin_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f}% of the bound "
-              f"reached [{name_limit}]")
-        if ray_diff or vis_diff:
+              f"{int(kb.sum())} blocked, live blocks {int((kv > 0).sum())}, "
+              f"visits/block {float(kv.float().mean()):.4f}; diffs "
+              f"{json.dumps(diffs)}; kernel {ms:.4f} ms, twin {twin_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached; pair tests "
+              f"dealt out {occ[label]['work_per_visit']:.1f} a visit of 512 "
+              f"x 128 = 65536; {stage_note(stages)} [{name_limit}]")
+        if any(diffs.values()):
             raise SystemExit(f"occluded kernel != twin: {label}")
-        if label.startswith("flagship") and not 0 < int(kb.sum()) < \
-                int((ldist > 0).sum()):
-            raise SystemExit("the dense occlusion case decides nothing")
+        if label.startswith(("flagship", "mesh")) and \
+                not 0 < int(kb.sum()) < int((ldist > 0).sum()):
+            raise SystemExit(f"the shadow rays decide nothing: {label}")
     point, dirs, ldist = cases["lit global light"][4]
-    dead = torch.zeros_like(ldist)
-    kb, kv = rk.occluded(lres, point, dirs, dead, lhit["pid"], lcfg.d)
+    dead_ms = dead_ms_of(rk.occluded, lres, point, dirs, lhit["pid"], lcfg.d)
+    off = torch.zeros_like(ldist, dtype=torch.bool)
+    dead_bound, _by = walk_bound(lcfg.d, False, off, off, [0] * (lcfg.d + 1),
+                                 larrs["res_neff"], 0, 4, R + R // 512 * 4)
+    point, dirs, ldist = cases["mesh global light"][4]
+    dead_h_ms = dead_ms_of(rk.occluded, mres, point, dirs, mhit["pid"], 3)
+    # the mesh's entry pass alone: every block live, every origin far
+    # outside the pool's box and a distance no chunk is within, so no
+    # block visits a chunk
+    far = torch.full_like(point, 10.0)
+    tiny = torch.full_like(ldist, 1e-30)
+    kb, kv = rk.occluded(mres, far, dirs, tiny, mhit["pid"], 3)
     if bool(kb.any()) or bool(kv.any()):
-        raise SystemExit("a dead wavefront was walked")
-    dead_ms = time_cuda(lambda: rk.occluded(lres, point, dirs, dead,
-                                            lhit["pid"], lcfg.d), 20)
-    dead_bound, _by = walk_bound(lcfg.d, False, dead > 0, dead > 0,
-                                 [0] * (lcfg.d + 1), larrs["res_neff"], 0, 4,
-                                 R + kv.numel() * 4)
-    print(f"   dead wavefront: {R} inactive rays, kernel {dead_ms:.4f} ms "
-          f"(wrapper included), bound {dead_bound:.4f} ms (bytes) "
-          f"[{name_limit}]")
+        raise SystemExit("the entry-pass probe visited a chunk")
+    entry_ms = time_cuda(lambda: rk.occluded(mres, far, dirs, tiny,
+                                             mhit["pid"], 3), 5)
+    print(f"   dead wavefronts: {R} inactive rays, kernel {dead_ms:.4f} ms "
+          f"(lit, wrapper included; bound {dead_bound:.4f} ms, bytes), "
+          f"{dead_h_ms:.4f} ms (mesh); the mesh's entry pass alone "
+          f"({R // 512} live blocks x {n_chunks} chunks): {entry_ms:.4f} ms, "
+          f"{entry_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
+    for label, c, e_ms in [(k, c, entry_n_ms) for k, c in near.items()] \
+            + [(k, c, entry_ms) for k, c in occ.items()]:
+        if label.startswith("mesh"):
+            share = e_ms * c["live_blocks"] / (R // 512) / c["ms"]
+            print(f"   {label}: entry pass of its {c['live_blocks']} live "
+                  f"blocks ~{100 * share:.1f}% of the kernel's "
+                  f"{c['ms']:.4f} ms")
     done(t0)
 
     # kernel 2.3 at full primary wavefronts: the glass 120-cell's primary
@@ -2178,13 +2266,10 @@ def main():
             print(f"   nearest_hit_transparent at d = {d_}"
                   f"{' (shared rows)' if shared else ''}: "
                   f"{t3_info[d_, shared]}")
-    gsine = -wf._dotT(gdT, ghit["normalT"])
     tmodes = {
         "glass primary": (gcfg, garrs, gres, goT, gdT, gskip,
                           dict(order=gpctx["order"], sh=gpctx["sh_res"])),
-        "glass bounce": (gcfg, garrs, gres, ghit["pointT"], wf._unitT(
-            gdT - ghit["normalT"] * (-2 * gsine)[None, :]), ghit["pid"],
-            dict(active=ghit["hit"] & (blk % 2 == 0))),
+        "glass bounce": (gcfg, garrs, gres, *bounce(ghit, gdT)),
         "d3 primary": (dcfg, darrs, dres, doT, ddT, dskip,
                        dict(order=dpctx["order"], sh=dpctx["sh_res"])),
     }
@@ -2233,57 +2318,54 @@ def main():
         raise SystemExit("the d=3 case never replaces a slot")
     done(t0)
 
-    # kernel 2.4 at full wavefronts: shadow rays from the glass 120-cell's
-    # opaque hit points and from the first glass surface of the d=3 scene's
-    # rays, to the point light and along the global light; then a wavefront
-    # without any active ray
+    # kernel 2.4/2.8 at full wavefronts: shadow rays from the glass
+    # 120-cell's and the glass mesh's opaque hit points and from the first
+    # glass surface of the d=3 scene's rays, to the point light and along
+    # the global light; then wavefronts without any active ray
     t0 = phase("occluded_transparent kernel vs twin")
-    # kernel 2.4 launches 2.8's body (stream_walk.cuh) on any pool
     t_info = {d_: rk.stream_info("occluded_transparent", d_)
               for d_ in (gcfg.d, dcfg.d)}
     for d_, info in t_info.items():
         print(f"   occluded_transparent at d = {d_}: {info}")
+    check_launch("occluded_transparent", t_info[3])
+    _f, _o, _t, gmoT, gmdT, gmpctx, gmskip, gmhit = primary(gmesh, gmcfg,
+                                                            gmarrs)
+    gmres = wf._res_dict(gmarrs)
     dfirst = dhit["tidT"][0] >= 0
     dsurf = dict(hit=dfirst, pid=torch.where(dfirst, dhit["tidT"][0], -1),
                  pointT=doT + dhit["ttT"][0][None, :] * ddT)
-    tcases = {
-        "glass point light": (gcfg, garrs, gres, ghit, shadow_rays(
-            garrs, ghit, light_pos=garrs["pl_pos"][0])),
-        "glass global light": (gcfg, garrs, gres, ghit, shadow_rays(
-            garrs, ghit, light_dir=garrs["gl_dir"][0])),
-        "d3 point light": (dcfg, darrs, dres, dsurf, shadow_rays(
-            darrs, dsurf, light_pos=darrs["pl_pos"][0])),
-        "d3 global light": (dcfg, darrs, dres, dsurf, shadow_rays(
-            darrs, dsurf, light_dir=darrs["gl_dir"][0])),
-    }
+    tcases = {**lights("glass", gcfg, garrs, gres, ghit),
+              **lights("d3", dcfg, darrs, dres, dsurf),
+              **lights("glass mesh", gmcfg, gmarrs, gmres, gmhit)}
     occ_t = {}
     for label, (cfg_, arrs_, res_, hit_, (point, dirs, ldist)) in \
             tcases.items():
         args = (res_, point, dirs, ldist, hit_["pid"], cfg_.d)
-        kb, kf, kv = rk.occluded_transparent(*args)
-        pb, pf, pv = rk.occluded_transparent_ref(*args)
-        torch.cuda.synchronize()
+        (kb, kf, kv), (pb, pf, pv), ms, twin_ms = kernel_and_twin(
+            rk.occluded_transparent, rk.occluded_transparent_ref, args, {},
+            label.startswith("glass mesh"))
         diffs = dict(blocked=int((kb != pb).sum()), filt_bits=bit_diffs(kf, pf),
                      visits=int((kv != pv).sum()))
-        ms = time_cuda(lambda: rk.occluded_transparent(*args), 20)
-        twin_ms = time_cuda(lambda: rk.occluded_transparent_ref(*args), 2)
+        stages, dealt = occlusion_stages(*args, kb, kv, filtered=True)
         bound_ms, bound_by = walk_bound(
-            cfg_.d, False, ldist > 0, ldist > 0,
-            occlusion_stages(*args, kb, kv, filtered=True)[0],
-            arrs_["res_neff"], pool_bytes(arrs_, opacity=True), 4,
-            R * 5 + kv.numel() * 4, early=kb)
+            cfg_.d, False, ldist > 0, ldist > 0, stages, arrs_["res_neff"],
+            pool_bytes(arrs_, opacity=True), 4, R * 5 + kv.numel() * 4,
+            early=kb)
         n_filtered = int(((kf < 1) & ~kb).sum())
         occ_t[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
                             bound_by=bound_by,
-                            err=float(torch.abs(kf - pf).max()))
+                            err=float(torch.abs(kf - pf).max()),
+                            live_blocks=int((kv > 0).sum()),
+                            work_per_visit=dealt / max(int(kv.sum()), 1))
         print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
               f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
               f"glass; diffs {json.dumps(diffs)}, live blocks "
               f"{int((kv > 0).sum())}, visits/block "
               f"{float(kv.float().mean()):.4f}; kernel {ms:.4f} ms, twin "
               f"{twin_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached "
-              f"[{name_limit}]")
+              f"{100 * bound_ms / ms:.1f}% of the bound reached; pair tests "
+              f"dealt out {occ_t[label]['work_per_visit']:.1f} a visit of "
+              f"512 x 128 = 65536; {stage_note(stages)} [{name_limit}]")
         if any(diffs.values()):
             raise SystemExit(f"occluded_transparent kernel != twin: {label}")
         if not n_filtered:
@@ -2292,222 +2374,40 @@ def main():
         if label.startswith("glass") and not int(kb.sum()):
             raise SystemExit(f"no ray is blocked: {label}")
     point, dirs, ldist = tcases["glass global light"][4]
-    dead = torch.zeros_like(ldist)
-    kb, kf, kv = rk.occluded_transparent(gres, point, dirs, dead,
-                                         ghit["pid"], gcfg.d)
-    if bool(kb.any()) or bool(kv.any()) or not bool((kf == 1).all()):
-        raise SystemExit("a dead wavefront was walked")
-    dead_t_ms = time_cuda(lambda: rk.occluded_transparent(
-        gres, point, dirs, dead, ghit["pid"], gcfg.d), 20)
-    dead_t_bound, _by = walk_bound(gcfg.d, False, dead > 0, dead > 0,
+    dead_t_ms = dead_ms_of(rk.occluded_transparent, gres, point, dirs,
+                           ghit["pid"], gcfg.d)
+    off = torch.zeros_like(ldist, dtype=torch.bool)
+    dead_t_bound, _by = walk_bound(gcfg.d, False, off, off,
                                    [0] * (gcfg.d + 1), garrs["res_neff"], 0,
-                                   4, R * 5 + kv.numel() * 4)
-    print(f"   dead wavefront: {R} inactive rays, kernel {dead_t_ms:.4f} ms "
-          f"(wrapper included), bound {dead_t_bound:.4f} ms (bytes) "
-          f"[{name_limit}]")
+                                   4, R * 5 + R // 512 * 4)
+    point, dirs, ldist = tcases["glass mesh global light"][4]
+    dead_th_ms = dead_ms_of(rk.occluded_transparent, gmres, point, dirs,
+                            gmhit["pid"], 3)
+    print(f"   dead wavefronts: {R} inactive rays, kernel {dead_t_ms:.4f} ms "
+          f"(glass 120-cell, wrapper included; bound {dead_t_bound:.4f} ms, "
+          f"bytes), {dead_th_ms:.4f} ms (glass mesh) [{name_limit}]")
     done(t0)
 
-    # The streaming kernels 2.5-2.8 at the mesh's full wavefronts (d = 3,
-    # 4,054 chunks through the ring), each against its twin and against its
-    # sibling for small pools on the same inputs.  A mesh walk takes
-    # 0.1-0.4 s and its twin tens of seconds: three timed kernel calls, and
-    # the twin's one call timed.
-    slot_bytes = {opa: 512 * (3 * 3 + 3 + 1 + opa) for opa in (0, 1)}
-    props = torch.cuda.get_device_properties(0)
-    optin = getattr(props, "shared_memory_per_block_optin", 232448)
-    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    for opa, sb in slot_bytes.items():
-        ring = min(8, (optin - 4096) // sb) * sb
-        print(f"   ring at d = 3{' with opacity' if opa else ''}: "
-              f"{ring // sb} slots of {sb} B, {ring / 1024:.1f} KiB; shared "
-              f"memory lets {per_sm // (ring + 4096)} blocks of 512 threads "
-              f"share an SM")
-
-    t0 = phase("nearest_hit_hbm kernel vs twin")
-    # the redesigned streaming walks as they launch at each d (primary
-    # rays' shared variant): registers, spills, blocks an SM, ring slots
-    stream_info = {}
-    for kname in STREAMING:
-        for d_ in range(3, 9):
-            stream_info[kname, d_] = rk.stream_info(kname, d_, shared=True)
-            print(f"   {kname} at d = {d_}: {stream_info[kname, d_]}")
-    _f, _o, _t, moT, mdT, mpctx, mskip, mhit = primary(mesh, mcfg, marrs)
-    mres = wf._res_dict(marrs)
-    mbytes = pool_bytes(marrs)
-    msine = -wf._dotT(mdT, mhit["normalT"])
-    hmodes = {
-        "mesh primary": (moT, mdT, mskip,
-                         dict(order=mpctx["order"], sh=mpctx["sh_res"])),
-        "mesh bounce": (mhit["pointT"], wf._unitT(
-            mdT - mhit["normalT"] * (-2 * msine)[None, :]), mhit["pid"],
-            dict(active=mhit["hit"] & (blk % 2 == 0))),
-    }
-    near_h = {}
-    for label, (o_, d_, s_, kw) in hmodes.items():
-        args = (mres, o_, d_, s_, 3)
-        kt, ks, kv = rk.nearest_hit_hbm(*args, **kw)
-        (pt, ps, pv), twin_ms = timed(
-            lambda: rk.nearest_hit_hbm_ref(*args, **kw))
-        rt, rs, rv = rk.nearest_hit(*args, **kw)
-        torch.cuda.synchronize()
-        diffs = dict(slot=int((ks != ps).sum()), t_bits=bit_diffs(kt, pt),
-                     visits=int((kv != pv).sum()),
-                     slot_vs_2_1=int((ks != rs).sum()),
-                     t_bits_vs_2_1=bit_diffs(kt, rt),
-                     visits_vs_2_1=int((kv != rv).sum()))
-        err = float(torch.nan_to_num(torch.abs(kt - pt), nan=float("inf"))
-                    .max())
-        # in turns: 2.1, 2.5, 2.5, 2.1 (2.1 launches 2.5's body: the times
-        # should agree, and the diffs above hold the two entries together)
-        res_ms = time_cuda(lambda: rk.nearest_hit(*args, **kw), 3)
-        ms = time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)
-        ms = (ms + time_cuda(lambda: rk.nearest_hit_hbm(*args, **kw), 3)) / 2
-        res_ms = (res_ms + time_cuda(lambda: rk.nearest_hit(*args, **kw),
-                                     3)) / 2
-        read = kw.get("active", torch.ones_like(ks, dtype=torch.bool))
-        need = read & (rk._scene_exit_T(o_, d_, mres["b_lo"],
-                                        mres["b_hi"]) > 0)
-        stages = nearest_stages(*args, kw, kt, kv)
-        bound_ms, bound_by = walk_bound(
-            3, "sh" in kw, need, read, stages, n_chunks, mbytes,
-            int("active" in kw), R * 8 + kv.numel() * 4)
-        near_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, err=err, resident_ms=res_ms,
-                             ratio_to_2_1=ms / res_ms,
-                             live_blocks=int((kv > 0).sum()))
-        print(f"   {label}: {R} rays, {int(need.sum())} to test, "
-              f"{int((ks >= 0).sum())} hits, {int((kv > 0).sum())} live "
-              f"blocks, visits/block {float(kv.float().mean()):.4f}; diffs "
-              f"{json.dumps(diffs)}, max |dt| {err}; kernel 2.5 {ms:.4f} ms, "
-              f"kernel 2.1 on the same inputs {res_ms:.4f} ms (the same "
-              f"body since 2.1's redesign: an equality check, not 2.5's "
-              f"yardstick), ratio 2.5/2.1 "
-              f"{ms / res_ms:.4f}; twin {twin_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached; "
-              f"{stage_note(stages)} [{name_limit}]")
-        if any(diffs.values()):
-            raise SystemExit(f"nearest_hit_hbm != twin or kernel 2.1: "
-                             f"{label}")
-    # the all-chunks entry pass alone: every block live, every origin far
-    # outside the pool's box and a start distance (init_t) no chunk is
-    # within, so no block visits a chunk (the wrapper would start each ray
-    # at its scene exit, and the mesh's chunk boxes fill the scene's box)
-    far = torch.full((3, R), 10.0, device=dev)
-    out = torch.full((3, R), 3 ** -0.5, device=dev)
-    none = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    pw = rk._walk_inputs(mres, far, out, none, 3, None, None, None)
-    pw["init_t"] = torch.full((R,), 1e-30, device=dev)
-    pw["blive"] = torch.ones_like(pw["blive"])
-
-    def entry_probe():
-        err, got = rk._nearest_kernel("ntr_nearest_hit_hbm", pw, far.device)
-        if err:
-            raise SystemExit(f"the 2.5 entry-pass probe failed: {err}")
-        return got
-
-    kt, ks, kv = entry_probe()
-    if bool(kv.any()) or bool((ks >= 0).any()):
-        raise SystemExit("the 2.5 entry-pass probe visited a chunk")
-    entry_n_ms = time_cuda(entry_probe, 5)
-    print(f"   2.5 entry pass alone ({R // 512} live blocks x {n_chunks} "
-          f"chunks): {entry_n_ms:.4f} ms, "
-          f"{entry_n_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
-    done(t0)
-
-    t0 = phase("occluded_hbm kernel vs twin")
-    for kname in STREAMING:
-        if stream_info[kname, 3]["blocks_per_sm"] < 2:
-            raise SystemExit(f"{kname}: fewer than two blocks an SM at d = 3")
-    hcases = {
-        "mesh point light": shadow_rays(marrs, mhit,
-                                        light_pos=marrs["pl_pos"][0]),
-        "mesh global light": shadow_rays(marrs, mhit,
-                                         light_dir=marrs["gl_dir"][0]),
-    }
-    occ_h = {}
-    for label, (point, dirs, ldist) in hcases.items():
-        args = (mres, point, dirs, ldist, mhit["pid"], 3)
-        kb, kv = rk.occluded_hbm(*args)
-        (pb, pv), twin_ms = timed(lambda: rk.occluded_hbm_ref(*args))
-        rb, rv = rk.occluded(*args)
-        torch.cuda.synchronize()
-        diffs = dict(blocked=int((kb != pb).sum()),
-                     visits=int((kv != pv).sum()),
-                     blocked_vs_2_2=int((kb != rb).sum()),
-                     visits_vs_2_2=int((kv != rv).sum()))
-        # 2.2 launches 2.6's body: the comparison checks equality, and 2.2
-        # is no yardstick of 2.6's time
-        ms = time_cuda(lambda: rk.occluded_hbm(*args), 3)
-        stages, dealt = occlusion_stages(*args, kb, kv)
-        bound_ms, bound_by = walk_bound(
-            3, False, ldist > 0, ldist > 0, stages, n_chunks, mbytes, 4,
-            R + kv.numel() * 4, early=kb)
-        occ_h[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, err=float(diffs["blocked"]),
-                            live_blocks=int((kv > 0).sum()),
-                            work_per_visit=dealt / max(int(kv.sum()), 1))
-        print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
-              f"{int(kb.sum())} blocked, live blocks {int((kv > 0).sum())}, "
-              f"visits/block {float(kv.float().mean()):.4f}; diffs "
-              f"{json.dumps(diffs)}; kernel 2.6 {ms:.4f} ms (kernel 2.2, "
-              f"equal on the same inputs, launches the same body: no "
-              f"yardstick); twin {twin_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-              f"the bound reached; pair tests dealt out "
-              f"{occ_h[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
-              f"65536; {stage_note(stages)} [{name_limit}]")
-        if any(diffs.values()):
-            raise SystemExit(f"occluded_hbm != twin or kernel 2.2: {label}")
-        if not 0 < int(kb.sum()) < int((ldist > 0).sum()):
-            raise SystemExit(f"the mesh's shadow rays decide nothing: "
-                             f"{label}")
-    point, dirs, ldist = hcases["mesh global light"]
-    dead = torch.zeros_like(ldist)
-    kb, kv = rk.occluded_hbm(mres, point, dirs, dead, mhit["pid"], 3)
-    if bool(kb.any()) or bool(kv.any()):
-        raise SystemExit("a dead wavefront was walked")
-    dead_h_ms = time_cuda(lambda: rk.occluded_hbm(mres, point, dirs, dead,
-                                                  mhit["pid"], 3), 20)
-    # the all-chunks entry pass alone: every block live, every origin far
-    # outside the pool's box and a distance no chunk is within, so no
-    # block visits a chunk
-    far = torch.full_like(point, 10.0)
-    tiny = torch.full_like(ldist, 1e-30)
-    kb, kv = rk.occluded_hbm(mres, far, dirs, tiny, mhit["pid"], 3)
-    if bool(kb.any()) or bool(kv.any()):
-        raise SystemExit("the entry-pass probe visited a chunk")
-    entry_ms = time_cuda(lambda: rk.occluded_hbm(mres, far, dirs, tiny,
-                                                 mhit["pid"], 3), 5)
-    print(f"   dead wavefront: {R} inactive rays, kernel {dead_h_ms:.4f} ms "
-          f"(wrapper included); the entry pass alone ({R // 512} live "
-          f"blocks x {n_chunks} chunks): {entry_ms:.4f} ms, "
-          f"{entry_ms / (R // 512) * 1e3:.3f} us a block [{name_limit}]")
-    for label, c, e_ms in [(k, c, entry_n_ms) for k, c in near_h.items()] \
-            + [(k, c, entry_ms) for k, c in occ_h.items()]:
-        share = e_ms * c["live_blocks"] / (R // 512) / c["ms"]
-        print(f"   {label}: entry pass of its {c['live_blocks']} live blocks "
-              f"~{100 * share:.1f}% of the kernel's {c['ms']:.4f} ms")
-    done(t0)
-
+    # kernel 2.7 (2.3's body in groups of four, the K-slot walk over the
+    # line) at the glass mesh's full wavefronts, against its twin and
+    # against 2.3 on the same inputs
     t0 = phase("nearest_hit_transparent_hbm kernel vs twin")
-    _f, _o, _t, gmoT, gmdT, gmpctx, gmskip, gmhit = primary(gmesh, gmcfg,
-                                                            gmarrs)
-    gmres = wf._res_dict(gmarrs)
+    t7_info = rk.stream_info("nearest_hit_transparent_hbm", 3, shared=True)
+    print(f"   nearest_hit_transparent_hbm at d = 3 (shared rows): {t7_info}")
+    check_launch("nearest_hit_transparent_hbm", t7_info)
     gmbytes = pool_bytes(gmarrs, opacity=True)
-    gmsine = -wf._dotT(gmdT, gmhit["normalT"])
     thmodes = {
         "glass mesh primary": (gmoT, gmdT, gmskip,
                                dict(order=gmpctx["order"],
                                     sh=gmpctx["sh_res"])),
-        "glass mesh bounce": (gmhit["pointT"], wf._unitT(
-            gmdT - gmhit["normalT"] * (-2 * gmsine)[None, :]), gmhit["pid"],
-            dict(active=gmhit["hit"] & (blk % 2 == 0))),
+        "glass mesh bounce": bounce(gmhit, gmdT),
     }
     near_th = {}
     for label, (o_, d_, s_, kw) in thmodes.items():
         args = (gmres, o_, d_, s_, 3, K)
-        kt, ks, ktt, kts, kv = rk.nearest_hit_transparent_hbm(*args, **kw)
+        kt, ks, ktt, kts, kv = launched_once(
+            rk.nearest_hit_transparent_hbm,
+            lambda: rk.nearest_hit_transparent_hbm(*args, **kw))
         (pt, ps, ptt, pts, pv), twin_ms = timed(
             lambda: rk.nearest_hit_transparent_hbm_ref(*args, **kw))
         replaced = rk.nearest_hit_transparent_hbm_ref.replaced
@@ -2559,69 +2459,6 @@ def main():
                              f"and opaque slot != kernel 2.3's: {label}")
         if not int(filled.sum()):
             raise SystemExit(f"no transparent slot was filled: {label}")
-    done(t0)
-
-    t0 = phase("occluded_transparent_hbm kernel vs twin")
-    thcases = {
-        "glass mesh point light": shadow_rays(
-            gmarrs, gmhit, light_pos=gmarrs["pl_pos"][0]),
-        "glass mesh global light": shadow_rays(
-            gmarrs, gmhit, light_dir=gmarrs["gl_dir"][0]),
-    }
-    occ_th = {}
-    for label, (point, dirs, ldist) in thcases.items():
-        args = (gmres, point, dirs, ldist, gmhit["pid"], 3)
-        kb, kf, kv = rk.occluded_transparent_hbm(*args)
-        (pb, pf, pv), twin_ms = timed(
-            lambda: rk.occluded_transparent_hbm_ref(*args))
-        rb, rf, rv = rk.occluded_transparent(*args)
-        torch.cuda.synchronize()
-        diffs = dict(blocked=int((kb != pb).sum()),
-                     filt_bits=bit_diffs(kf, pf),
-                     visits=int((kv != pv).sum()),
-                     blocked_vs_2_4=int((kb != rb).sum()),
-                     filt_bits_vs_2_4=bit_diffs(kf, rf),
-                     visits_vs_2_4=int((kv != rv).sum()))
-        # 2.4 launches 2.8's body: the comparison checks equality, and 2.4
-        # is no yardstick of 2.8's time
-        ms = time_cuda(lambda: rk.occluded_transparent_hbm(*args), 3)
-        stages, dealt = occlusion_stages(*args, kb, kv, filtered=True)
-        bound_ms, bound_by = walk_bound(
-            3, False, ldist > 0, ldist > 0, stages, n_chunks, gmbytes, 4,
-            R * 5 + kv.numel() * 4, early=kb)
-        n_filtered = int(((kf < 1) & ~kb).sum())
-        occ_th[label] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
-                             bound_by=bound_by,
-                             err=float(torch.abs(kf - pf).max()),
-                             live_blocks=int((kv > 0).sum()),
-                             work_per_visit=dealt / max(int(kv.sum()), 1))
-        print(f"   {label}: {R} rays, {int((ldist > 0).sum())} active, "
-              f"{int(kb.sum())} blocked, {n_filtered} unblocked behind "
-              f"glass; diffs {json.dumps(diffs)}, live blocks "
-              f"{int((kv > 0).sum())}, visits/block "
-              f"{float(kv.float().mean()):.4f}; kernel 2.8 {ms:.4f} ms "
-              f"(kernel 2.4, equal on the same inputs, launches the same "
-              f"body: no yardstick); twin {twin_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-              f"the bound reached; pair tests dealt out "
-              f"{occ_th[label]['work_per_visit']:.1f} a visit of 512 x 128 = "
-              f"65536; {stage_note(stages)} [{name_limit}]")
-        if any(diffs.values()):
-            raise SystemExit(f"occluded_transparent_hbm != twin or kernel "
-                             f"2.4: {label}")
-        if not n_filtered or not int(kb.sum()):
-            raise SystemExit(f"the glass mesh's shadow rays are neither "
-                             f"blocked nor filtered: {label}")
-    point, dirs, ldist = thcases["glass mesh global light"]
-    dead = torch.zeros_like(ldist)
-    kb, kf, kv = rk.occluded_transparent_hbm(gmres, point, dirs, dead,
-                                             gmhit["pid"], 3)
-    if bool(kb.any()) or bool(kv.any()) or not bool((kf == 1).all()):
-        raise SystemExit("a dead wavefront was walked")
-    dead_th_ms = time_cuda(lambda: rk.occluded_transparent_hbm(
-        gmres, point, dirs, dead, gmhit["pid"], 3), 20)
-    print(f"   dead wavefront: {R} inactive rays, kernel {dead_th_ms:.4f} "
-          f"ms (wrapper included) [{name_limit}]")
     done(t0)
 
     # Kernels 2.9 and 2.10 at full wavefronts, each against its twin: the
@@ -3029,8 +2866,8 @@ def main():
             raise SystemExit(f"the {path} path launched {json.dumps(bad)}, "
                              f"wanted {json.dumps(want)}")
 
-    # a pool over the line: one streaming walk and two streaming occlusion
-    # walks a frame, none of the small pools' entries
+    # a pool over the line: one nearest-hit walk and two occlusion walks a
+    # frame, the small pools' wrappers
     t0 = phase("mesh frame")
     reset_launches()
     frame_s = orbit(nt3, mesh, mesh_camera, MESH_DISTANCE, LIT_FRAMES,
@@ -3038,24 +2875,17 @@ def main():
     launches["mesh"] = read_launches()
     print(f"   launches in {LIT_FRAMES + 1} renders: "
           f"{json.dumps(launches['mesh'])}")
-    only("mesh", {"nearest_hit_hbm": LIT_FRAMES + 1,
-                  "occluded_hbm": 2 * (LIT_FRAMES + 1)})
+    only("mesh", {"nearest_hit": LIT_FRAMES + 1,
+                  "occluded": 2 * (LIT_FRAMES + 1)})
     report_frames("mesh", frame_s, buf, name_limit)
 
-    def mesh_stages(c):
-        return {
-            "walk": lambda: rk.nearest_hit_hbm(
-                c["res"], c["oT"], c["dT"], c["skip"], 3,
-                order=c["pctx"]["order"], sh=c["pctx"]["sh_res"]),
-            **shadow_stage(marrs, mcfg)(c),
-        }
-
-    stage_ms = stage_times(mesh, mcfg, marrs, mesh_stages, reps=2)
+    stage_ms = stage_times(mesh, mcfg, marrs, shadow_stage(marrs, mcfg),
+                           reps=2)
     print(f"   stage ms {json.dumps(stage_ms)} [{name_limit}]")
     done(t0)
 
-    # the glass mesh: one streaming K-slot walk and (K + 1) x 2 streaming
-    # filtered occlusion walks a frame
+    # the glass mesh: one K-slot walk in groups of four (2.7) and (K + 1) x
+    # 2 filtered occlusion walks a frame
     t0 = phase("glass mesh frame")
     reset_launches()
     frame_s = orbit(nt3, gmesh, gmesh_camera, MESH_DISTANCE, LIT_FRAMES,
@@ -3065,7 +2895,7 @@ def main():
           f"{json.dumps(launches['glass mesh'])}")
     only("glass mesh",
          {"nearest_hit_transparent_hbm": LIT_FRAMES + 1,
-          "occluded_transparent_hbm": (K + 1) * 2 * (LIT_FRAMES + 1)})
+          "occluded_transparent": (K + 1) * 2 * (LIT_FRAMES + 1)})
     report_frames("glass mesh", frame_s, buf, name_limit)
 
     def glass_mesh_stages(c):
@@ -3582,14 +3412,20 @@ def main():
     csrc = "ntracer_tpu_torch/csrc/"
     tpu = "ntracer_tpu/engine/resident_kernels.py:"
     kernels = [
-        kernel_entry("nearest_hit", csrc + "nearest_hit.cu", tpu + "778",
-                     "flagship", near, "primary", entry_ms=entry_1_ms,
+        # one wrapper and one body for each of 2.1/2.5, 2.2/2.6 and
+        # 2.4/2.8, on stream_walk.cuh's loop: their cases hold the small
+        # pools' wavefronts and the mesh's
+        kernel_entry("nearest_hit", csrc + "nearest_hit.cu",
+                     tpu + "778 and :1754", "flagship", near, "primary",
+                     entry_ms=entry_1_ms, mesh_entry_ms=entry_n_ms,
                      redesigned=REDESIGNED,
                      launch={f"d={d_}{' shared' if sh_ else ''}": v
                              for (d_, sh_), v in near_info.items()}),
-        kernel_entry("occluded", csrc + "occluded.cu", tpu + "1100",
-                     "lit 120-cell", occ, "flagship point light",
-                     dead_ms=dead_ms, redesigned=REDESIGNED,
+        kernel_entry("occluded", csrc + "occluded.cu",
+                     tpu + "1100 and :1963", "lit 120-cell", occ,
+                     "flagship point light", dead_ms=dead_ms,
+                     mesh_dead_ms=dead_h_ms, mesh_entry_ms=entry_ms,
+                     redesigned=REDESIGNED,
                      launch={f"d={d_}": v for d_, v in occ_info.items()}),
         kernel_entry("nearest_hit_transparent",
                      csrc + "nearest_hit_transparent.cu", tpu + "1288",
@@ -3598,32 +3434,18 @@ def main():
                      launch={f"d={d_}{' shared' if sh_ else ''}": v
                              for (d_, sh_), v in t3_info.items()}),
         kernel_entry("occluded_transparent",
-                     csrc + "occluded_transparent.cu", tpu + "1452",
-                     "glass 120-cell", occ_t, "glass point light",
-                     dead_ms=dead_t_ms, redesigned=REDESIGNED,
-                     launch=t_info[gcfg.d],
+                     csrc + "occluded_transparent.cu",
+                     tpu + "1452 and :2383", "glass 120-cell", occ_t,
+                     "glass point light", dead_ms=dead_t_ms,
+                     mesh_dead_ms=dead_th_ms, redesigned=REDESIGNED,
+                     launch={f"d={d_}": v for d_, v in t_info.items()},
                      live_launches_a_frame=live_t[0],
                      dead_launches_a_frame=live_t[1]),
-        # the streaming variants of the same sources (STREAM), on
-        # stream_walk.cuh's loop
-        kernel_entry("nearest_hit_hbm", csrc + "nearest_hit.cu", tpu + "1754",
-                     "mesh", near_h, "mesh primary", entry_ms=entry_n_ms,
-                     redesigned=REDESIGNED,
-                     launch=stream_info["nearest_hit_hbm", 3]),
-        kernel_entry("occluded_hbm", csrc + "occluded.cu", tpu + "1963",
-                     "mesh", occ_h, "mesh point light", dead_ms=dead_h_ms,
-                     entry_ms=entry_ms, redesigned=REDESIGNED,
-                     launch=stream_info["occluded_hbm", 3]),
+        # 2.3's body in groups of four over the line
         kernel_entry("nearest_hit_transparent_hbm",
                      csrc + "nearest_hit_transparent.cu", tpu + "2174",
                      "glass mesh", near_th, "glass mesh primary",
-                     redesigned=REDESIGNED,
-                     launch=stream_info["nearest_hit_transparent_hbm", 3]),
-        kernel_entry("occluded_transparent_hbm",
-                     csrc + "occluded_transparent.cu", tpu + "2383",
-                     "glass mesh", occ_th, "glass mesh point light",
-                     dead_ms=dead_th_ms, redesigned=REDESIGNED,
-                     launch=stream_info["occluded_transparent_hbm", 3]),
+                     redesigned=REDESIGNED, launch=t7_info),
     ]
     pallas = "ntracer_tpu/engine/pallas_kernels.py:"
 

@@ -8,10 +8,10 @@
 // the line, and `nearest_hit_hbm` (kernel 2.5, body `_nearest_hbm_kernel`
 // -> `_nearest_hbm_live`), the walk of pools over it
 // (resident_kernels.STREAM_POOL_BYTES, 48 MiB: more than the H100's 50 MB
-// L2 holds beside the rest).  Both C entries launch the body; the plain
-// PyTorch twins are `nearest_hit_ref` and `nearest_hit_hbm_ref` in
-// ntracer_tpu_torch/engine/resident_kernels.py, and kernel and twins agree
-// bit for bit on t, the slot and the visits of each block.
+// L2 holds beside the rest).  One C entry, `ntr_nearest_hit`, launches the
+// body on a pool of any size; the plain PyTorch twin is `nearest_hit_ref`
+// in ntracer_tpu_torch/engine/resident_kernels.py, and kernel and twin
+// agree bit for bit on t, the slot and the visits of each block.
 //
 // What it computes.  One CUDA block walks one 512-ray block (a 32x16-pixel
 // tile).  First every ray's slab entry into every chunk's box (chunks in
@@ -240,11 +240,11 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
 
 extern "C" {
 
-// Launch the walk (kernel 2.1) on `stream`.  Rays are lane-major (d, R)
-// with 3 <= d <= 8 and R a multiple of 512; gt (nc, pr, 128), ci (nc, 8,
-// 128), ids (nc, 8, 128) i32, all 16-byte aligned; klo_t/khi_t (8, ncp) in
-// visit order; emin scratch holds (R / 512) * n_eff floats.  Returns
-// cudaGetLastError() after the launch.
+// Launch the walk (kernels 2.1 and 2.5: a pool of any size) on `stream`.
+// Rays are lane-major (d, R) with 3 <= d <= 8 and R a multiple of 512; gt
+// (nc, pr, 128), ci (nc, 8, 128), ids (nc, 8, 128) i32, all 16-byte
+// aligned; klo_t/khi_t (8, ncp) in visit order; emin scratch holds
+// (R / 512) * n_eff floats.  Returns cudaGetLastError() after the launch.
 int ntr_nearest_hit(const float* oT, const float* dT, const int* skip,
                     const float* init_t, const int* order, int n_eff,
                     const int* blive, const float* klo_t, const float* khi_t,
@@ -256,24 +256,10 @@ int ntr_nearest_hit(const float* oT, const float* dT, const int* skip,
                          out_slot, visits, emin, stream);
 }
 
-// The same walk for a pool over the line (kernel 2.5): arguments and
-// outputs as ntr_nearest_hit.
-int ntr_nearest_hit_hbm(const float* oT, const float* dT, const int* skip,
-                        const float* init_t, const int* order, int n_eff,
-                        const int* blive, const float* klo_t,
-                        const float* khi_t, int ncp, const float* gt,
-                        const float* ci, const int* ids, int pr, int R, int d,
-                        int shared, float* out_t, int* out_slot, int* visits,
-                        float* emin, void* stream) {
-  return launch_stream_d(oT, dT, skip, init_t, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, pr, R, d, shared, out_t,
-                         out_slot, visits, emin, stream);
-}
-
 // Kernels 2.1 and 2.5 at dimension d (shared: the primary rays' variant)
 // as they launch: info[0..4] = registers a thread, local (spill) bytes a
 // thread, blocks per SM, ring slots, shared bytes a block.
-int ntr_nearest_hit_hbm_info(int d, int shared, int* info) {
+int ntr_nearest_hit_info(int d, int shared, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
     return (int)(shared ? stream_kernel_info<DD, false>(                     \

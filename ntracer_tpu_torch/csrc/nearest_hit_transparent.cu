@@ -388,7 +388,7 @@ int launch_d(const float* oT, const float* dT, const int* skip,
 }
 
 // The walk in groups of N at dimension d (shared: the primary rays'
-// variant) as it launches: info as ntr_nearest_hit_hbm_info.
+// variant) as it launches: info as ntr_nearest_hit_info.
 template <int N>
 int info_d(int d, int shared, int* info) {
 #define NTR_CASE(DD)                                                         \
@@ -449,7 +449,7 @@ int ntr_nearest_t_hbm(const float* oT, const float* dT, const int* skip,
 }
 
 // Kernel 2.3 at dimension d (shared: the primary rays' variant) as it
-// launches: info as ntr_nearest_hit_hbm_info.
+// launches: info as ntr_nearest_hit_info.
 int ntr_nearest_t_info(int d, int shared, int* info) {
   return info_d<1>(d, shared, info);
 }

@@ -6,11 +6,11 @@
 // body `_occlusion_kernel` -> `_occlusion_walk`, candidate scan
 // `_candidate_walk`), the walk of pools under the line, and `occluded_hbm`
 // (kernel 2.6, body `_occl_hbm_kernel` -> `_occl_hbm_live`), the walk of
-// pools over it (resident_kernels.STREAM_POOL_BYTES).  Both C entries
-// launch the body; the plain PyTorch twins are `occluded_ref` and
-// `occluded_hbm_ref` in ntracer_tpu_torch/engine/resident_kernels.py, and
-// kernel and twins agree on `blocked` and on `visits`, ray for ray and
-// block for block.
+// pools over it (resident_kernels.STREAM_POOL_BYTES).  One C entry,
+// `ntr_occluded`, launches the body on a pool of any size; the plain
+// PyTorch twin is `occluded_ref` in
+// ntracer_tpu_torch/engine/resident_kernels.py, and kernel and twin agree
+// on `blocked` and on `visits`, ray for ray and block for block.
 //
 // What it computes.  One CUDA block walks one 512-ray block; a ray with
 // ldist <= 0 is inactive.  A block without an active ray writes blocked =
@@ -188,12 +188,12 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
 
 extern "C" {
 
-// Launch the occlusion walk (kernel 2.2) on `stream`.  Rays are lane-major
-// (d, R) with 3 <= d <= 8 and R a multiple of 512; ldist (R,), <= 0 for
-// inactive rays; gt (nc, pr, 128), ci (nc, 8, 128), ids (nc, 8, 128) i32,
-// all 16-byte aligned; klo_t/khi_t (8, ncp) in visit order; blocked (R,)
-// bytes (0 or 1); emin scratch holds (R / 512) * n_eff floats.  Returns
-// cudaGetLastError() after the launch.
+// Launch the occlusion walk (kernels 2.2 and 2.6: a pool of any size) on
+// `stream`.  Rays are lane-major (d, R) with 3 <= d <= 8 and R a multiple
+// of 512; ldist (R,), <= 0 for inactive rays; gt (nc, pr, 128), ci (nc, 8,
+// 128), ids (nc, 8, 128) i32, all 16-byte aligned; klo_t/khi_t (8, ncp) in
+// visit order; blocked (R,) bytes (0 or 1); emin scratch holds (R / 512) *
+// n_eff floats.  Returns cudaGetLastError() after the launch.
 int ntr_occluded(const float* oT, const float* dT, const int* skip,
                  const float* ldist, const int* order, int n_eff,
                  const int* blive, const float* klo_t, const float* khi_t,
@@ -205,24 +205,10 @@ int ntr_occluded(const float* oT, const float* dT, const int* skip,
                          emin, stream);
 }
 
-// The same walk for a pool over the line (kernel 2.6): arguments and
-// outputs as ntr_occluded.
-int ntr_occluded_hbm(const float* oT, const float* dT, const int* skip,
-                     const float* ldist, const int* order, int n_eff,
-                     const int* blive, const float* klo_t, const float* khi_t,
-                     int ncp, const float* gt, const float* ci,
-                     const int* ids, int pr, int R, int d,
-                     unsigned char* blocked, int* visits, float* emin,
-                     void* stream) {
-  return launch_stream_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, pr, R, d, blocked, visits,
-                         emin, stream);
-}
-
 // Kernels 2.2 and 2.6 at dimension d as they launch: info[0..4] =
 // registers a thread, local (spill) bytes a thread, blocks per SM, ring
 // slots, shared bytes a block.
-int ntr_occluded_hbm_info(int d, int* info) {
+int ntr_occluded_info(int d, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
     return (int)stream_kernel_info<DD, false>(occluded_stream_kernel<DD>,     \

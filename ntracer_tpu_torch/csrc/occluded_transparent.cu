@@ -8,10 +8,10 @@
 // pallas_call body `_occl_t_kernel` -> `_occl_t_live`, candidate scan
 // `_candidate_walk`), the walk of pools under the line, and
 // `occluded_transparent_hbm` (kernel 2.8, body `_occl_t_hbm_kernel` ->
-// `_occl_t_hbm_live`), the walk of pools over it.  Both C entries launch
-// the body; the plain PyTorch twins are `occluded_transparent_ref` and
-// `occluded_transparent_hbm_ref` in
-// ntracer_tpu_torch/engine/resident_kernels.py.  Kernel and twins agree on
+// `_occl_t_hbm_live`), the walk of pools over it.  One C entry,
+// `ntr_occluded_t`, launches the body on a pool of any size; the plain
+// PyTorch twin is `occluded_transparent_ref` in
+// ntracer_tpu_torch/engine/resident_kernels.py.  Kernel and twin agree on
 // `blocked`, bit for bit on `filt`, and on `visits`, ray for ray and block
 // for block.
 //
@@ -285,10 +285,10 @@ int launch_stream_d(const float* oT, const float* dT, const int* skip,
 
 extern "C" {
 
-// Launch the filtered occlusion walk (kernel 2.4) on `stream`.  Arguments
-// as ntr_occluded, plus opa (nc, 8, 128) f32 (row 0 = the slots'
-// opacities) and filt (R,) f32; gt, ci, ids and opa must be 16-byte
-// aligned.  Returns cudaGetLastError() after the launch.
+// Launch the filtered occlusion walk (kernels 2.4 and 2.8: a pool of any
+// size) on `stream`.  Arguments as ntr_occluded, plus opa (nc, 8, 128) f32
+// (row 0 = the slots' opacities) and filt (R,) f32; gt, ci, ids and opa
+// must be 16-byte aligned.  Returns cudaGetLastError() after the launch.
 int ntr_occluded_t(const float* oT, const float* dT, const int* skip,
                    const float* ldist, const int* order, int n_eff,
                    const int* blive, const float* klo_t, const float* khi_t,
@@ -301,24 +301,9 @@ int ntr_occluded_t(const float* oT, const float* dT, const int* skip,
                          filt, visits, emin, stream);
 }
 
-// The same walk for a pool over the line (kernel 2.8): arguments and
-// outputs as ntr_occluded_t.
-int ntr_occluded_t_hbm(const float* oT, const float* dT, const int* skip,
-                       const float* ldist, const int* order, int n_eff,
-                       const int* blive, const float* klo_t,
-                       const float* khi_t, int ncp, const float* gt,
-                       const float* ci, const int* ids, const float* opa,
-                       int pr, int R, int d, unsigned char* blocked,
-                       float* filt, int* visits, float* emin,
-                       void* stream) {
-  return launch_stream_d(oT, dT, skip, ldist, order, n_eff, blive, klo_t,
-                         khi_t, ncp, gt, ci, ids, opa, pr, R, d, blocked,
-                         filt, visits, emin, stream);
-}
-
 // Kernels 2.4 and 2.8 at dimension d as they launch: info as
-// ntr_occluded_hbm_info.
-int ntr_occluded_t_hbm_info(int d, int* info) {
+// ntr_occluded_info.
+int ntr_occluded_t_info(int d, int* info) {
 #define NTR_CASE(DD)                                                         \
   case DD:                                                                   \
     return (int)stream_kernel_info<DD, true>(occluded_t_stream_kernel<DD>,    \

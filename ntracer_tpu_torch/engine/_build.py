@@ -60,10 +60,10 @@ _GRID_OCCLUDED_ARGS = [_P] * 9 + [_I, _I, _I, _P, _P, _P]
 _SHADE_PACK_ARGS = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                     _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I,
                     _I, _I, _I, _P, _P]
-# the launch queries: the streaming occlusion walks' (kernels 2.6 and 2.8)
-# take (d, int[5]), the streaming nearest-hit walks' (2.5, 2.7 and 2.3) (d,
-# shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared, int[6]),
-# the occlusion grid walk's (2.10) (d, int[6])
+# the launch queries: the chunk occlusion walks' (kernels 2.2/2.6 and
+# 2.4/2.8) take (d, int[5]), the chunk nearest-hit walks' (2.1/2.5, 2.3 and
+# 2.7) (d, shared, int[5]), the nearest-hit grid walk's (2.9) (d, shared,
+# int[6]), the occlusion grid walk's (2.10) (d, int[6])
 _INFO_ARGS = [_I, _P]
 _NEAREST_INFO_ARGS = [_I, _I, _P]
 
@@ -175,6 +175,8 @@ def _load():
     lib.ntr_occluded.restype = ctypes.c_int
     lib.ntr_nearest_t.argtypes = _NEAREST_T_ARGS
     lib.ntr_nearest_t.restype = ctypes.c_int
+    lib.ntr_nearest_t_hbm.argtypes = _NEAREST_T_ARGS
+    lib.ntr_nearest_t_hbm.restype = ctypes.c_int
     lib.ntr_occluded_t.argtypes = _OCCLUDED_T_ARGS
     lib.ntr_occluded_t.restype = ctypes.c_int
     lib.ntr_grid_nearest_hit.argtypes = _GRID_NEAREST_ARGS
@@ -183,22 +185,17 @@ def _load():
     lib.ntr_grid_occluded.restype = ctypes.c_int
     lib.ntr_shade_pack.argtypes = _SHADE_PACK_ARGS
     lib.ntr_shade_pack.restype = ctypes.c_int
-    # the streaming walks take the arguments of the walks that
-    # share their bodies, and the launch queries a d (and the
-    # nearest-hit walks' shared flag) and five ints
-    stream = (
-        ("ntr_nearest_hit_hbm", _NEAREST_ARGS),
-        ("ntr_occluded_hbm", _OCCLUDED_ARGS),
-        ("ntr_nearest_t_hbm", _NEAREST_T_ARGS),
-        ("ntr_occluded_t_hbm", _OCCLUDED_T_ARGS),
-        ("ntr_nearest_hit_hbm_info", _NEAREST_INFO_ARGS),
-        ("ntr_occluded_hbm_info", _INFO_ARGS),
+    # the launch queries take a d (and the nearest-hit walks' shared
+    # flag) and five or six ints
+    queries = (
+        ("ntr_nearest_hit_info", _NEAREST_INFO_ARGS),
+        ("ntr_occluded_info", _INFO_ARGS),
         ("ntr_nearest_t_info", _NEAREST_INFO_ARGS),
         ("ntr_nearest_t_hbm_info", _NEAREST_INFO_ARGS),
-        ("ntr_occluded_t_hbm_info", _INFO_ARGS),
+        ("ntr_occluded_t_info", _INFO_ARGS),
         ("ntr_grid_nearest_hit_info", _NEAREST_INFO_ARGS),
         ("ntr_grid_occluded_info", _INFO_ARGS))
-    for name, args in stream:
+    for name, args in queries:
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
     lib.ntr_error_string.argtypes = [ctypes.c_int]

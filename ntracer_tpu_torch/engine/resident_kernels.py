@@ -46,20 +46,17 @@ t < ldist, multiplied per visited chunk as a halving tree over the 128
 lanes (lanes i and i + 64, then i and i + 32, ...), which is the TPU
 kernel's association; ``filt`` is 1 where ``blocked``.
 
-Pools over ``STREAM_POOL_BYTES`` take the streaming walks
-(``nearest_hit_hbm``, ``occluded_hbm``, ``nearest_hit_transparent_hbm``,
-``occluded_transparent_hbm``), as the JAX package does.  They compute what
-the walks for pools under the line compute, with one exception that is
-the TPU kernels': the streaming K-slot walk picks its candidates in groups
-of four, so its slot positions (and visits) may differ from
-``nearest_hit_transparent``'s on the same inputs.  On the card every walk
-copies each visited chunk into a ring of slots in shared memory while the
-previous one is tested, and each walk and its streaming sibling share one
-CUDA body on the streaming loop, whatever the pool's size: the kernels of
-``nearest_hit``, ``occluded`` and ``occluded_transparent`` are those of
-``nearest_hit_hbm``, ``occluded_hbm`` and ``occluded_transparent_hbm``, and
-``nearest_hit_transparent`` launches ``nearest_hit_transparent_hbm``'s body
-in groups of one candidate.
+Each walk takes a pool of any size.  On the card every walk copies each
+visited chunk into a ring of slots in shared memory while the previous one
+is tested (the streaming loop, ``csrc/stream_walk.cuh``), so one CUDA body
+serves what the JAX package splits at its line (``STREAM_POOL_BYTES``)
+into a resident and a streaming kernel: ``nearest_hit`` stands for kernels
+2.1 and 2.5, ``occluded`` for 2.2 and 2.6, ``occluded_transparent`` for
+2.4 and 2.8.  The line still decides one thing, as the TPU kernels do: over
+it the K-slot walk picks its candidates in groups of four
+(``nearest_hit_transparent_hbm``, 2.7) where under it it picks one
+(``nearest_hit_transparent``, 2.3, the same body in groups of one), so its
+slot positions (and visits) may differ on the same inputs.
 """
 
 from __future__ import annotations
@@ -83,8 +80,9 @@ EXIT_SCALE = float(np.float32(1) + np.float32(16) * ROUNDING_FUZZ)
 
 # candidate chunks picked per walk step (the TPU kernel's P_CAND)
 P_CAND = 4
-# Pools whose layouts (``pool_bytes``) take more than this stream their
-# visited chunks (the ``*_hbm`` walks).  It equals the JAX package's line
+# Pools whose layouts (``pool_bytes``) take more than this take the K-slot
+# walk's grouped rule (``nearest_hit_transparent_hbm``), where the JAX
+# package streams their visited chunks.  It equals the JAX package's line
 # (``POOL_VMEM_BUDGET``, counted by ``pool_vmem_bytes``), so both packages
 # take the streaming walks on the same scenes, and for glass the same visit
 # rule; on the H100 it sits just under the 50 MB L2, which a larger pool no
@@ -613,8 +611,8 @@ nearest_hit_transparent_ref.replaced = 0
 def nearest_hit_transparent_hbm_ref(res, oT, dT, skip, d, K, order=None,
                                     active=None, sh=None):
     """Plain-torch twin of ``nearest_hit_transparent_hbm``: the K-slot walk
-    of ``nearest_hit_transparent_ref`` with the streaming walk's grouped
-    rule (four candidates a step, picked with the bound from before the
+    of ``nearest_hit_transparent_ref`` with the grouped rule of pools over
+    the line (four candidates a step, picked with the bound from before the
     previous group).  ``replaced`` as there."""
     _check_k(K)
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh, K=K)
@@ -741,14 +739,6 @@ def occluded_transparent_ref(res, oT, dT, ldist, skip, d, order=None):
         _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True))
 
 
-# The streaming walks visit what the resident ones visit (kernels 2.5, 2.6
-# and 2.8 compute what 2.1, 2.2 and 2.4 compute), so their twins are the
-# same walks.
-nearest_hit_hbm_ref = nearest_hit_ref
-occluded_hbm_ref = occluded_ref
-occluded_transparent_hbm_ref = occluded_transparent_ref
-
-
 # ---------------------------------------------------------------------------
 # The kernel wrappers
 # ---------------------------------------------------------------------------
@@ -800,17 +790,9 @@ def _device(name, dev):
     return True
 
 
-# the C entries whose kernel fills a ring of chunk slots by TMA bulk copies
-# (stream_walk.cuh): the streaming walks 2.5-2.8, and 2.1-2.4, which run
-# their bodies on any pool
-_RING_ENTRIES = ("ntr_nearest_hit_hbm", "ntr_occluded_hbm",
-                 "ntr_nearest_t_hbm", "ntr_occluded_t_hbm", "ntr_occluded_t",
-                 "ntr_nearest_hit", "ntr_occluded", "ntr_nearest_t")
-
-
 def _check_stream(w):
-    """The ring's kernels copy each piece of a chunk as one 16-byte
-    aligned range."""
+    """Every chunk walk's kernel fills a ring of chunk slots by TMA bulk
+    copies, each piece of a chunk as one 16-byte aligned range."""
     for k in ("gt", "ci", "ids", "opa"):
         if w[k] is not None and w[k].data_ptr() % 16:
             raise ValueError(f"{k} is not 16-byte aligned")
@@ -832,8 +814,7 @@ def _nearest_kernel(name, w, dev, then=None):
     from . import _build
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
-    if name in _RING_ENTRIES:
-        _check_stream(w)
+    _check_stream(w)
     f32, i32 = torch.float32, torch.int32
     K = w["K"]
     init_t = w["init_t"].contiguous()
@@ -872,8 +853,7 @@ def _occlusion_kernel(name, w, dev, then=None):
     lib = _build.load()
     R, nb, pr, ncp, n = _check_walk(w, dev)
     _check("ldist", w["ldist"], torch.float32, (R,), dev)
-    if name in _RING_ENTRIES:
-        _check_stream(w)
+    _check_stream(w)
     blive = w["blive"].contiguous()
     blocked = torch.empty((R,), dtype=torch.bool, device=dev)
     visits = torch.empty((nb,), dtype=torch.int32, device=dev)
@@ -910,10 +890,11 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
     shared-origin pair test for primary rays.
 
     Returns (t (R,) f32, slot (R,) i32 = chunk*CK + lane or -1, visits
-    (R // RAY_BLOCK,) i32 chunks visited per block).  On CUDA tensors the
-    CUDA kernel runs (and ``nearest_hit.launches`` counts it): the body of
-    ``nearest_hit_hbm``'s, so the pool's rows must be 16-byte aligned; on
-    CPU tensors the plain twin ``nearest_hit_ref`` does."""
+    (R // RAY_BLOCK,) i32 chunks visited per block).  The pool may be of
+    any size (kernels 2.1 and 2.5).  On CUDA tensors the CUDA kernel runs
+    (and ``nearest_hit.launches`` counts it), so the pool's rows must be
+    16-byte aligned; on CPU tensors the plain twin ``nearest_hit_ref``
+    does."""
     w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
     if not _device("nearest_hit", oT.device):
         return _walk_ref(w)
@@ -925,24 +906,6 @@ def nearest_hit(res, oT, dT, skip, d, order=None, active=None, sh=None):
 nearest_hit.launches = 0
 
 
-def nearest_hit_hbm(res, oT, dT, skip, d, order=None, active=None,
-                    sh=None):
-    """``nearest_hit`` for pools over ``STREAM_POOL_BYTES``: the same walk
-    and outputs, with each visited chunk streamed into a ring of slots in
-    shared memory while the previous group is tested.  On CUDA tensors the
-    kernel runs (``nearest_hit_hbm.launches`` counts it); on CPU tensors
-    the twin ``nearest_hit_hbm_ref`` does."""
-    w = _walk_inputs(res, oT, dT, skip, d, order, active, sh)
-    if not _device("nearest_hit_hbm", oT.device):
-        return _walk_ref(w)
-    _err, out = _nearest_kernel("ntr_nearest_hit_hbm", w, oT.device,
-                                _counted("nearest_hit_hbm", nearest_hit_hbm))
-    return out
-
-
-nearest_hit_hbm.launches = 0
-
-
 def occluded(res, oT, dT, ldist, skip, d, order=None):
     """Any opaque hit with 0 < t < ``ldist`` over the chunked pool.
 
@@ -951,11 +914,11 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
     visit order (default pool order).
 
     Returns (blocked (R,) bool, visits (R // RAY_BLOCK,) i32 chunks visited
-    per block).  On CUDA tensors the CUDA kernel runs (and
-    ``occluded.launches`` counts it): the body of ``occluded_hbm``'s, so
-    the pool's rows must be 16-byte aligned; on CPU tensors the plain twin
-    ``occluded_ref`` does.  A block without an active ray costs the kernel
-    one load per ray and no walk."""
+    per block).  The pool may be of any size (kernels 2.2 and 2.6).  On
+    CUDA tensors the CUDA kernel runs (and ``occluded.launches`` counts
+    it), so the pool's rows must be 16-byte aligned; on CPU tensors the
+    plain twin ``occluded_ref`` does.  A block without an active ray costs
+    the kernel one load per ray and no walk."""
     if not _device("occluded", oT.device):
         return occluded_ref(res, oT, dT, ldist, skip, d, order=order)
     w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
@@ -965,22 +928,6 @@ def occluded(res, oT, dT, ldist, skip, d, order=None):
 
 
 occluded.launches = 0
-
-
-def occluded_hbm(res, oT, dT, ldist, skip, d, order=None):
-    """``occluded`` for pools over ``STREAM_POOL_BYTES``, with streamed
-    chunks: the same walk and outputs.  On CUDA tensors the kernel runs
-    (``occluded_hbm.launches`` counts it); on CPU tensors the twin
-    ``occluded_hbm_ref`` does."""
-    if not _device("occluded_hbm", oT.device):
-        return occluded_hbm_ref(res, oT, dT, ldist, skip, d, order=order)
-    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order)
-    _err, out = _occlusion_kernel("ntr_occluded_hbm", w, oT.device,
-                                  _counted("occluded_hbm", occluded_hbm))
-    return out
-
-
-occluded_hbm.launches = 0
 
 
 def nearest_hit_transparent(res, oT, dT, skip, d, K, order=None, active=None,
@@ -1012,7 +959,7 @@ nearest_hit_transparent.launches = 0
 def nearest_hit_transparent_hbm(res, oT, dT, skip, d, K, order=None,
                                 active=None, sh=None):
     """``nearest_hit_transparent`` for pools over ``STREAM_POOL_BYTES``,
-    with streamed chunks and the TPU kernel's grouped rule: four
+    with the TPU streaming kernel's grouped rule: four
     candidates a step, picked with the bound from before the previous
     group.  A stale bound may visit more chunks than the one-a-step walk,
     and a far glass hit from such a chunk takes a slot, so slot positions
@@ -1042,9 +989,11 @@ def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
     Arguments as ``occluded``.  Returns (blocked (R,) bool, filt (R,) f32,
     visits): ``filt`` is the product of (1 - opacity) over the ray's
     transparent hits with t < ldist, and 1 where ``blocked`` (no light
-    reaches there, whatever it passed through).  On CUDA tensors the CUDA
-    kernel runs (and ``occluded_transparent.launches`` counts it); on CPU
-    tensors the plain twin ``occluded_transparent_ref`` does."""
+    reaches there, whatever it passed through).  The pool may be of any
+    size (kernels 2.4 and 2.8).  On CUDA tensors the CUDA kernel runs (and
+    ``occluded_transparent.launches`` counts it), so the pool's rows must
+    be 16-byte aligned; on CPU tensors the plain twin
+    ``occluded_transparent_ref`` does."""
     if not _device("occluded_transparent", oT.device):
         return occluded_transparent_ref(res, oT, dT, ldist, skip, d,
                                         order=order)
@@ -1058,43 +1007,20 @@ def occluded_transparent(res, oT, dT, ldist, skip, d, order=None):
 occluded_transparent.launches = 0
 
 
-def occluded_transparent_hbm(res, oT, dT, ldist, skip, d, order=None):
-    """``occluded_transparent`` for pools over ``STREAM_POOL_BYTES``, with
-    streamed chunks: the same walk and outputs.  On CUDA tensors the kernel
-    runs (``occluded_transparent_hbm.launches`` counts it); on CPU tensors
-    the twin ``occluded_transparent_hbm_ref`` does."""
-    if not _device("occluded_transparent_hbm", oT.device):
-        return occluded_transparent_hbm_ref(res, oT, dT, ldist, skip, d,
-                                            order=order)
-    w = _occlusion_inputs(res, oT, dT, ldist, skip, d, order, filtered=True)
-    _err, out = _occlusion_kernel(
-        "ntr_occluded_t_hbm", w, oT.device,
-        _counted("occluded_transparent_hbm", occluded_transparent_hbm))
-    return out
-
-
-occluded_transparent_hbm.launches = 0
-
-
 STREAM_INFO = ("registers", "local_bytes", "blocks_per_sm", "ring_slots",
                "shared_bytes")
 
 
-# the C launch queries of the streaming walks, by wrapper
-_INFO_ENTRIES = {"nearest_hit_hbm": "ntr_nearest_hit_hbm_info",
-                 "occluded_hbm": "ntr_occluded_hbm_info",
-                 "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
-                 "occluded_transparent_hbm": "ntr_occluded_t_hbm_info",
-                 # kernels 2.1, 2.2 and 2.4 launch 2.5's, 2.6's and
-                 # 2.8's bodies; 2.3 launches 2.7's in groups of one
-                 "nearest_hit": "ntr_nearest_hit_hbm_info",
-                 "occluded": "ntr_occluded_hbm_info",
+# the C launch queries of the chunk walks, by wrapper
+_INFO_ENTRIES = {"nearest_hit": "ntr_nearest_hit_info",
+                 "occluded": "ntr_occluded_info",
                  "nearest_hit_transparent": "ntr_nearest_t_info",
-                 "occluded_transparent": "ntr_occluded_t_hbm_info"}
+                 "nearest_hit_transparent_hbm": "ntr_nearest_t_hbm_info",
+                 "occluded_transparent": "ntr_occluded_t_info"}
 
 
 def stream_info(name, d, shared=False):
-    """The chunk walk ``name`` (one of the eight wrappers of kernels
+    """The chunk walk ``name`` (one of the five wrappers of kernels
     2.1-2.8, all on the streaming loop) at dimension ``d`` as it launches
     on the current card, for the nearest-hit walks in their ``shared``
     (primary rays) variant or not: registers and local (spill) bytes a

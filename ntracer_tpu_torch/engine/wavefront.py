@@ -10,13 +10,14 @@ device, and pulled into the caller's buffer.  A scene with a transparent
 material takes the transparent walks instead (``nearest_hit_transparent``:
 the nearest opaque hit and the K nearest transparent hits;
 ``occluded_transparent``: shadows filtered by the glass they cross) and
-composes the K hits far to near over the opaque color.  A pool whose
-layouts take more than ``rk.STREAM_POOL_BYTES`` (the JAX package's line)
-takes the streaming variants of the same four walks (``*_hbm``), as the JAX
-package does.  A scene of more than 8 dimensions (``d > rk.C_PAD``) has no
-chunked layout: its opaque pool takes the grid walks of ``grid_kernels``
-(``nearest_hit``, ``occluded``) over 512-triangle tiles in flatten order,
-as the JAX package's Pallas grid kernels do, and its transparent pool the
+composes the K hits far to near over the opaque color.  Every chunk walk
+streams its chunks on the card, whatever the pool's size; over
+``rk.STREAM_POOL_BYTES`` (the JAX package's line) the K-slot walk takes the
+JAX package's grouped rule (``nearest_hit_transparent_hbm``).  A scene of
+more than 8 dimensions (``d > rk.C_PAD``) has no chunked layout: its
+opaque pool takes the grid walks of ``grid_kernels`` (``nearest_hit``,
+``occluded``) over 512-triangle tiles in flatten order, as the JAX
+package's Pallas grid kernels do, and its transparent pool the
 chunk scan (``trace_scan``, ``occlusion_scan``: plain torch over the same
 512-triangle chunks, the JAX package's XLA scan).  Solids (``CUBE``,
 ``SPHERE``) are tested after every walk, one by one (``_solid_test``).  The
@@ -324,11 +325,14 @@ def pool_arrays(a, cfg, arrs, bins=None, streams=None):
     their slot-indexed rows ``res_slot_pack`` = [fn(d), mat, pool id - the
     pool's ``tri_base``], for a scene with a transparent material the
     per-slot opacity row ``res_opa``, and for a pool over
-    ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``: the walks then stream
-    its chunks.  The port's walks have no chunk limit (the JAX package
-    falls back to its XLA scan at 16,383 chunks).  ``bins`` are the pool's
-    chunks (``rk.centroid_bins``) when the caller has them, ``streams``
-    says whether the pool streams when the caller decides it.
+    ``rk.STREAM_POOL_BYTES`` the flag ``res_is_hbm``.  Every chunk walk
+    streams its chunks whatever the pool's size, so the flag decides one
+    thing only, as the JAX package's line does: the K-slot walk's candidate
+    rule, one candidate a step under the line (kernel 2.3) and groups of
+    four over it (2.7).  The port's walks have no chunk limit (the JAX
+    package falls back to its XLA scan at 16,383 chunks).  ``bins`` are the
+    pool's chunks (``rk.centroid_bins``) when the caller has them,
+    ``streams`` sets the flag when the caller decides it.
 
     A scene of more than ``rk.C_PAD`` dimensions gets no chunked layout:
     its pool id-indexed rows ``tri_pack`` = [fn(d), mat] and, for an opaque
@@ -527,7 +531,8 @@ def _kern_dict(arrs):
 
 
 def _streams(arrs):
-    """Whether the scene's pool is over the line: its walks stream."""
+    """Whether the scene's pool is over the line: its K-slot walk takes
+    groups of four candidates (2.7) where one under it takes one (2.3)."""
     return "res_is_hbm" in arrs
 
 
@@ -832,10 +837,9 @@ def _walk(arrs, cfg, oT, dT, skip, shared, active, pctx, K, stats,
         walk["ttT"] = torch.gather(ktt, 0, order_k)
         walk["tkeyT"] = torch.gather(ktslot, 0, order_k)
     else:
-        nearest = rk.nearest_hit_hbm if _streams(arrs) else rk.nearest_hit
         with graphs.walk_span("dispatch.walk", depth=depth, walk="stream"):
-            kt, slot, vis = nearest(res_k, oT, dT, skip_local, d,
-                                    order=order, active=active, sh=sh)
+            kt, slot, vis = rk.nearest_hit(res_k, oT, dT, skip_local, d,
+                                           order=order, active=active, sh=sh)
     _stat(stats, "rays_traced",
           lambda: R if active is None else active.sum())
     _stat(stats, "chunks_visited", vis.sum)
@@ -1187,15 +1191,13 @@ def _occlusion_walk(arrs, cfg, oT, dT, ldist, skip, clamp_exit, stats):
     pool_ldist = torch.minimum(ldist, rk._scene_exit_T(
         oT, dT, res_k["b_lo"], res_k["b_hi"])) if clamp_exit else ldist
     if cfg.has_transparency:
-        occ_t = rk.occluded_transparent_hbm if _streams(arrs) \
-            else rk.occluded_transparent
         with graphs.walk_span("dispatch.occlusion", walk="stream"):
-            blocked, filt, vis = occ_t(res_k, oT, dT, pool_ldist, skip_local,
-                                       cfg.d)
+            blocked, filt, vis = rk.occluded_transparent(
+                res_k, oT, dT, pool_ldist, skip_local, cfg.d)
     else:
-        occ = rk.occluded_hbm if _streams(arrs) else rk.occluded
         with graphs.walk_span("dispatch.occlusion", walk="stream"):
-            blocked, vis = occ(res_k, oT, dT, pool_ldist, skip_local, cfg.d)
+            blocked, vis = rk.occluded(res_k, oT, dT, pool_ldist, skip_local,
+                                       cfg.d)
         filt = None
     _stat(stats, "shadow_rays", lambda: (pool_ldist > 0).sum())
     _stat(stats, "occl_chunks_visited", vis.sum)

@@ -107,8 +107,9 @@ def _shard_layouts(a, cfg, n_prim, per):
     """Host arrays of each prim shard's pool, built from its slice as
     ``wavefront.pool_arrays`` builds a whole pool, with ``tri_base`` the
     shard's first pool id (ids stay global) and ``shard_rows`` its rows.
-    At d <= 8 the chunked layouts, all streaming when the largest shard's
-    is over ``rk.STREAM_POOL_BYTES`` (``mesh.py:115`` of the JAX package);
+    At d <= 8 the chunked layouts, all flagged as over the line (the
+    K-slot walk's grouped rule) when the largest shard's is over
+    ``rk.STREAM_POOL_BYTES`` (``mesh.py:115`` of the JAX package);
     at d > 8 the grid walks' layouts of an opaque pool or the chunk scan's
     arrays of a transparent one (the JAX package scans every prim-sharded
     pool of d > 8)."""

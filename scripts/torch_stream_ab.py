@@ -31,8 +31,9 @@ each at 1024x1024 (1,048,576 rays):
   * 2.4, ``ntr_occluded_t`` (occluded_transparent.cu): chip_smoke.py's
     shadow wavefronts of the glass 120-cell and of the "transparent d=3"
     scene, towards the point light and along the global light;
-  * 2.5, ``ntr_nearest_hit_hbm`` (nearest_hit.cu): the primary wavefront of
-    chip_smoke.py's mesh (the 495,612-triangle sphere of
+  * 2.5, ``ntr_nearest_hit`` (nearest_hit.cu: 2.1's entry, whose body
+    serves a pool of any size; every tree's library has it): the primary
+    wavefront of chip_smoke.py's mesh (the 495,612-triangle sphere of
     scripts/bench_mesh.py), shared rows, front-to-back order;
   * 2.7, ``ntr_nearest_t_hbm`` (nearest_hit_transparent.cu): the same of
     the glass mesh (glass and opaque by turns, K = 8);
@@ -108,7 +109,7 @@ KERNELS = {
             _build._NEAREST_T_ARGS, r"nearest_t_(stream_)?kernelILi[34]E"),
     "2.4": ("occluded_transparent.cu", "ntr_occluded_t",
             _build._OCCLUDED_T_ARGS, r"occluded_t\w*kernelILi4E"),
-    "2.5": ("nearest_hit.cu", "ntr_nearest_hit_hbm", _build._NEAREST_ARGS,
+    "2.5": ("nearest_hit.cu", "ntr_nearest_hit", _build._NEAREST_ARGS,
             r"nearest_\w*kernelILi3E"),
     "2.7": ("nearest_hit_transparent.cu", "ntr_nearest_t_hbm",
             _build._NEAREST_T_ARGS, r"nearest_t\w*kernelILi3E"),

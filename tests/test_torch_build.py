@@ -96,27 +96,68 @@ def test_transparent_ctypes_signatures_match_the_c_entry_points(
     assert f"lib.{fn}.argtypes = {argtypes}" in src
 
 
+def _binds(fn, argtypes):
+    """Whether load() binds the C entry ``fn`` with ``argtypes``, on a line
+    of its own or in its table of launch queries."""
+    src = open(_build.__file__).read()
+    return f"lib.{fn}.argtypes = {argtypes}" in src \
+        or f'("{fn}", {argtypes})' in src
+
+
 @pytest.mark.parametrize("fn,argtypes,source", [
-    ("ntr_nearest_hit_hbm", "_NEAREST_ARGS", "nearest_hit.cu"),
-    ("ntr_occluded_hbm", "_OCCLUDED_ARGS", "occluded.cu"),
     ("ntr_nearest_t_hbm", "_NEAREST_T_ARGS", "nearest_hit_transparent.cu"),
-    ("ntr_occluded_t_hbm", "_OCCLUDED_T_ARGS", "occluded_transparent.cu"),
-    ("ntr_occluded_hbm_info", "_INFO_ARGS", "occluded.cu"),
-    ("ntr_occluded_t_hbm_info", "_INFO_ARGS", "occluded_transparent.cu"),
-    ("ntr_nearest_hit_hbm_info", "_NEAREST_INFO_ARGS", "nearest_hit.cu"),
+    ("ntr_occluded_info", "_INFO_ARGS", "occluded.cu"),
+    ("ntr_occluded_t_info", "_INFO_ARGS", "occluded_transparent.cu"),
+    ("ntr_nearest_hit_info", "_NEAREST_INFO_ARGS", "nearest_hit.cu"),
     ("ntr_nearest_t_hbm_info", "_NEAREST_INFO_ARGS",
      "nearest_hit_transparent.cu"),
     ("ntr_nearest_t_info", "_NEAREST_INFO_ARGS",
      "nearest_hit_transparent.cu")])
 def test_streaming_ctypes_signatures_match_the_c_entry_points(
         fn, argtypes, source):
-    """The streaming walks (kernels 2.5-2.8) take their resident sibling's
-    arguments, the launch queries of 2.6 and 2.8 a d and five ints, those
-    of 2.5 and 2.7 a d, the shared flag and five ints, and load() binds
-    them so."""
+    """The K-slot walk in groups of four (kernel 2.7) takes 2.3's
+    arguments, the launch queries of the occlusion walks (2.2/2.6 and
+    2.4/2.8) a d and five ints, those of the nearest-hit walks (2.1/2.5,
+    2.3 and 2.7) a d, the shared flag and five ints, and load() binds them
+    so."""
     _check_signature(fn, getattr(_build, argtypes), source)
-    src = open(_build.__file__).read()
-    assert f'("{fn}", {argtypes})' in src
+    assert _binds(fn, argtypes)
+
+
+# each chunk-walk body with one entry: (source, its launch entry, the entry's
+# argtypes, its launch query, its wrapper)
+_ONE_ENTRY = {
+    "nearest_hit.cu": ("ntr_nearest_hit", "_NEAREST_ARGS",
+                       "ntr_nearest_hit_info", "nearest_hit"),
+    "occluded.cu": ("ntr_occluded", "_OCCLUDED_ARGS", "ntr_occluded_info",
+                    "occluded"),
+    "occluded_transparent.cu": ("ntr_occluded_t", "_OCCLUDED_T_ARGS",
+                                "ntr_occluded_t_info",
+                                "occluded_transparent")}
+
+
+@pytest.mark.parametrize("source", sorted(_ONE_ENTRY))
+def test_one_c_entry_per_chunk_walk_body(source):
+    """The bodies of kernels 2.1/2.5, 2.2/2.6 and 2.4/2.8 serve a pool of
+    any size: each source has exactly one entry that launches its body and
+    no ``_hbm`` entry, load() binds none, the wrappers have no ``_hbm``
+    twin, and ``stream_info`` names the one launch query."""
+    from ntracer_tpu_torch.engine import resident_kernels as rk
+    entry, argtypes, query, wrapper = _ONE_ENTRY[source]
+    src = open(os.path.join(_build.CSRC_DIR, source)).read()
+    entries = re.findall(r"^int (ntr_\w+)\(", src, re.M)
+    launching = [e for e in entries
+                 if "return launch_stream_d(" in _entry_body(src, e)]
+    assert launching == [entry]
+    assert entries == [entry, query]
+    _check_signature(entry, getattr(_build, argtypes), source)
+    assert _binds(entry, argtypes)
+    assert f"{entry}_hbm" not in open(_build.__file__).read()
+    assert not hasattr(rk, wrapper + "_hbm")
+    assert not hasattr(rk, wrapper + "_hbm_ref")
+    assert not hasattr(rk, "_RING_ENTRIES")
+    assert rk._INFO_ENTRIES[wrapper] == query
+    assert hasattr(getattr(rk, wrapper), "launches")
 
 
 @pytest.mark.parametrize("fn,argtypes", [
@@ -203,17 +244,19 @@ def test_one_streaming_loop_for_the_four_streaming_walks(fn):
 
 
 def test_filtered_occlusion_walks_share_the_streaming_body():
-    """Kernel 2.4 runs 2.8's body on stream_walk.cuh: both C entries launch
-    the one launcher of `occluded_t_stream_kernel`, and the resident body
-    `occluded_t_kernel` is gone."""
+    """Kernels 2.4 and 2.8 are one body on stream_walk.cuh: one C entry,
+    `ntr_occluded_t`, launches the one launcher of
+    `occluded_t_stream_kernel`, `ntr_occluded_t_info` queries it, and the
+    resident body `occluded_t_kernel` is gone."""
     src = open(os.path.join(_build.CSRC_DIR, "occluded_transparent.cu")).read()
     assert "occluded_t_kernel" not in src
     assert "resident_walk" not in src and "pair_test<" not in src
     assert len(re.findall(r"__global__", src)) == 1
-    for entry in ("ntr_occluded_t", "ntr_occluded_t_hbm"):
-        body = re.search(r"int %s\(.*?\)\s*\{(.*?)\n\}" % entry, src, re.S)
-        assert "return launch_stream_d(" in body.group(1), entry
-    assert "occluded_t_stream_kernel<DD>" in src
+    assert re.findall(r"^int (ntr_\w+)\(", src, re.M) == [
+        "ntr_occluded_t", "ntr_occluded_t_info"]
+    assert "return launch_stream_d(" in _entry_body(src, "ntr_occluded_t")
+    assert "occluded_t_stream_kernel<DD>" in \
+        _entry_body(src, "ntr_occluded_t_info")
 
 
 def test_grid_nearest_launch_info_signature():
@@ -346,36 +389,38 @@ def test_grid_occluded_ctypes_signatures():
 
 
 def test_nearest_walks_share_the_streaming_body():
-    """Kernel 2.1 runs 2.5's body on stream_walk.cuh: both C entries launch
-    the one launcher of `nearest_stream_kernel`, and the resident body
-    `nearest_kernel` is gone."""
+    """Kernels 2.1 and 2.5 are one body on stream_walk.cuh: one C entry,
+    `ntr_nearest_hit`, launches the one launcher of
+    `nearest_stream_kernel`, `ntr_nearest_hit_info` queries it, and the
+    resident body `nearest_kernel` is gone."""
     src = open(os.path.join(_build.CSRC_DIR, "nearest_hit.cu")).read()
     assert not re.search(r"\bnearest_kernel\b", src)
     assert "resident_walk" not in src and "pair_test<" not in src
     assert len(re.findall(r"__global__", src)) == 1
-    for entry in ("ntr_nearest_hit", "ntr_nearest_hit_hbm"):
-        assert "return launch_stream_d(" in _entry_body(src, entry), entry
+    assert re.findall(r"^int (ntr_\w+)\(", src, re.M) == [
+        "ntr_nearest_hit", "ntr_nearest_hit_info"]
+    assert "return launch_stream_d(" in _entry_body(src, "ntr_nearest_hit")
     assert "nearest_stream_kernel<D, SHARED>" in src
     from ntracer_tpu_torch.engine import resident_kernels as rk
-    assert "ntr_nearest_hit" in rk._RING_ENTRIES
-    assert rk._INFO_ENTRIES["nearest_hit"] == "ntr_nearest_hit_hbm_info"
+    assert rk._INFO_ENTRIES["nearest_hit"] == "ntr_nearest_hit_info"
 
 
 def test_occlusion_walks_share_the_streaming_body():
-    """Kernel 2.2 runs 2.6's body on stream_walk.cuh: both C entries launch
-    the one launcher of `occluded_stream_kernel`, the resident body
-    `occluded_kernel` is gone, the wrapper checks the ring's alignment and
-    `stream_info("occluded", d)` reports the launch."""
+    """Kernels 2.2 and 2.6 are one body on stream_walk.cuh: one C entry,
+    `ntr_occluded`, launches the one launcher of `occluded_stream_kernel`,
+    the resident body `occluded_kernel` is gone, and
+    `stream_info("occluded", d)` reports the launch through
+    `ntr_occluded_info`."""
     src = open(os.path.join(_build.CSRC_DIR, "occluded.cu")).read()
     assert not re.search(r"\boccluded_kernel\b", src)
     assert "resident_walk" not in src and "pair_test<" not in src
     assert len(re.findall(r"__global__", src)) == 1
-    for entry in ("ntr_occluded", "ntr_occluded_hbm"):
-        assert "return launch_stream_d(" in _entry_body(src, entry), entry
+    assert re.findall(r"^int (ntr_\w+)\(", src, re.M) == [
+        "ntr_occluded", "ntr_occluded_info"]
+    assert "return launch_stream_d(" in _entry_body(src, "ntr_occluded")
     assert "occluded_stream_kernel<DD>" in src
     from ntracer_tpu_torch.engine import resident_kernels as rk
-    assert "ntr_occluded" in rk._RING_ENTRIES
-    assert rk._INFO_ENTRIES["occluded"] == "ntr_occluded_hbm_info"
+    assert rk._INFO_ENTRIES["occluded"] == "ntr_occluded_info"
 
 
 def test_transparent_walks_share_one_body_in_groups_of_one_and_four():
@@ -400,9 +445,10 @@ def test_transparent_walks_share_one_body_in_groups_of_one_and_four():
                      ("ntr_nearest_t_hbm_info", "NCAND")):
         assert f"return info_d<{n}>(" in _entry_body(src, entry), entry
     from ntracer_tpu_torch.engine import resident_kernels as rk
-    assert "ntr_nearest_t" in rk._RING_ENTRIES
     assert rk._INFO_ENTRIES["nearest_hit_transparent"] == \
         "ntr_nearest_t_info"
+    assert rk._INFO_ENTRIES["nearest_hit_transparent_hbm"] == \
+        "ntr_nearest_t_hbm_info"
     assert '("ntr_nearest_t_info", _NEAREST_INFO_ARGS)' in \
         open(_build.__file__).read()
 

@@ -386,11 +386,12 @@ def _equal(got, ref):
 
 @pytest.mark.parametrize("name", sorted(OVER_THE_LINE))
 def test_streaming_kernels_match_twins(cuda, name, monkeypatch):
-    """Kernels 2.5-2.8 on pools over the line (the line monkeypatched to
-    1 KiB): each equals its twin bit for bit, in primary and bounce mode
-    and for shadow rays towards a point light and along a global light;
-    2.5 = 2.1, 2.6 = 2.2 and 2.8 = 2.4 on the same inputs, and 2.7 has
-    2.3's t and opaque slot."""
+    """The walks a pool over the line takes (the line monkeypatched to
+    1 KiB): ``nearest_hit`` (2.1/2.5), ``occluded`` (2.2/2.6),
+    ``nearest_hit_transparent_hbm`` (2.7) and ``occluded_transparent``
+    (2.4/2.8) each launch once and equal their twins bit for bit, in
+    primary and bounce mode and for shadow rays towards a point light and
+    along a global light; 2.7 has 2.3's t and opaque slot."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     scene = OVER_THE_LINE[name]()
     cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
@@ -411,7 +412,7 @@ def test_streaming_kernels_match_twins(cuda, name, monkeypatch):
         first = torch.gather(all_t, 0, k)[0]
         fslot = torch.gather(torch.cat([slot[None], ts]), 0, k)[0]
     else:
-        t, fslot, _v = prk.nearest_hit_hbm_ref(res, oT, dT, skip, d, **kw)
+        t, fslot, _v = prk.nearest_hit_ref(res, oT, dT, skip, d, **kw)
         first = torch.where(fslot >= 0, t, float("inf"))
     found = torch.isfinite(first)
     print(f"{name}: {int(found.sum())} of {N} primary rays hit")
@@ -438,12 +439,11 @@ def test_streaming_kernels_match_twins(cuda, name, monkeypatch):
             print(f"{name}: {int((got[3] != one[3]).any(dim=0).sum())} rays' "
                   f"slots differ between the schedules")
         else:
-            before = prk.nearest_hit_hbm.launches
-            got = prk.nearest_hit_hbm(res, *args, d, **akw)
-            assert prk.nearest_hit_hbm.launches == before + 1
+            before = prk.nearest_hit.launches
+            got = prk.nearest_hit(res, *args, d, **akw)
+            assert prk.nearest_hit.launches == before + 1
             torch.cuda.synchronize()
-            _equal(got, prk.nearest_hit_hbm_ref(res, *args, d, **akw))
-            _equal(got, prk.nearest_hit(res, *args, d, **akw))
+            _equal(got, prk.nearest_hit_ref(res, *args, d, **akw))
     lv = point - arrs["pl_pos"][0][:, None]
     dist = prk._sqrt(pwf._dotT(lv, lv))
     gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous() \
@@ -454,46 +454,42 @@ def test_streaming_kernels_match_twins(cuda, name, monkeypatch):
             (gl, torch.where(live, exit_t, 0.0))):
         args = (res, point, dirs, ldist, pid, d)
         if cfg.has_transparency:
-            before = prk.occluded_transparent_hbm.launches
-            got = prk.occluded_transparent_hbm(*args)
-            assert prk.occluded_transparent_hbm.launches == before + 1
+            before = prk.occluded_transparent.launches
+            got = prk.occluded_transparent(*args)
+            assert prk.occluded_transparent.launches == before + 1
             torch.cuda.synchronize()
-            _equal(got, prk.occluded_transparent_hbm_ref(*args))
-            _equal(got, prk.occluded_transparent(*args))
+            _equal(got, prk.occluded_transparent_ref(*args))
         else:
-            before = prk.occluded_hbm.launches
-            got = prk.occluded_hbm(*args)
-            assert prk.occluded_hbm.launches == before + 1
+            before = prk.occluded.launches
+            got = prk.occluded(*args)
+            assert prk.occluded.launches == before + 1
             torch.cuda.synchronize()
-            _equal(got, prk.occluded_hbm_ref(*args))
-            _equal(got, prk.occluded(*args))
+            _equal(got, prk.occluded_ref(*args))
         assert not got[0][~live].any() and got[-1].any()
 
 
-STREAMING = ("nearest_hit_hbm", "occluded_hbm", "nearest_hit_transparent_hbm",
-             "occluded_transparent_hbm")
-RESIDENT = ("nearest_hit", "occluded", "nearest_hit_transparent",
-            "occluded_transparent")
+WALKS = ("nearest_hit", "occluded", "nearest_hit_transparent",
+         "nearest_hit_transparent_hbm", "occluded_transparent")
 
 
 @pytest.mark.parametrize("make", [mirror_scene_1500,
                                   lambda: glass_scene(300, lit=True)])
 def test_card_frame_over_the_line_takes_the_streaming_kernels(cuda, make,
                                                               monkeypatch):
-    """A scene over the line renders on the card through the streaming
-    kernels only, and as the CPU renders it."""
+    """A scene over the line renders on the card through its two walks
+    only -- the opaque ones, or the K-slot walk in groups of four (2.7) and
+    the filtered occlusion walk -- and as the CPU renders it."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     scene = make()
     cfg, arrs, _ = pwf.get_device_scene(scene, cuda)
     assert "res_is_hbm" in arrs
-    before = {n: getattr(prk, n).launches for n in STREAMING + RESIDENT}
+    before = {n: getattr(prk, n).launches for n in WALKS}
     got = pwf.frame_colors(scene, W, H, cuda)
-    moved = {n: getattr(prk, n).launches - before[n]
-             for n in STREAMING + RESIDENT}
-    assert not any(moved[n] for n in RESIDENT), moved
-    walks = ("nearest_hit_transparent_hbm", "occluded_transparent_hbm") \
-        if cfg.has_transparency else ("nearest_hit_hbm", "occluded_hbm")
+    moved = {n: getattr(prk, n).launches - before[n] for n in WALKS}
+    walks = ("nearest_hit_transparent_hbm", "occluded_transparent") \
+        if cfg.has_transparency else ("nearest_hit", "occluded")
     assert all(moved[n] > 0 for n in walks), moved
+    assert not any(moved[n] for n in WALKS if n not in walks), moved
     ref = pwf.frame_colors(scene, W, H, "cpu")
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-7)
 
@@ -619,8 +615,7 @@ def _occlusion_cases(d, dev):
     gl = (-arrs["gl_dir"][0])[:, None].expand_as(point).contiguous()
     exit_t = prk._scene_exit_T(point, gl, res["b_lo"], res["b_hi"])
     sl = torch.where(found, exit_t, 0.0)
-    sb, _sf, _sv = prk.occluded_transparent_hbm_ref(res, point, gl, sl, pid,
-                                                    d)
+    sb, _sf, _sv = prk.occluded_transparent_ref(res, point, gl, sl, pid, d)
     free = torch.nonzero(found & ~sb & (sl > 0)).flatten()
     assert free.numel()
     # origins 1e-2 .. 2e-2 before an opaque triangle seen from the camera,
@@ -690,8 +685,7 @@ def _occlusion_cases(d, dev):
     oT_c, dT_c, ld_c, sk_c = (torch.cat(x, dim=-1).contiguous()
                               for x in zip(*blocks))
     # the twin's view of each case
-    b, f, v = prk.occluded_transparent_hbm_ref(res, oT_c, dT_c, ld_c, sk_c,
-                                               d)
+    b, f, v = prk.occluded_transparent_ref(res, oT_c, dT_c, ld_c, sk_c, d)
     b = b.reshape(7, 512)
     facts = dict(
         one_undecided=not bool(b[0, 0]) and bool(b[0, 1:].all()),
@@ -716,12 +710,11 @@ def _occlusion_cases(d, dev):
 
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
-    """The redesigned kernels 2.6 and 2.8 on the corner cases of
+    """Kernels 2.2/2.6 (``occluded``) on the corner cases of
     ``_occlusion_cases`` (a pool over the line at d = 3, 6 and 8: the ring
-    holds 8, then fewer slots): each equals its twin bit for bit (blocked,
-    filt, visits) and the entry of kernel 2.2 / 2.4 on the same inputs;
-    2.2's entry (``occluded``, which launches 2.6's body on this small
-    pool) equals its own twin ``occluded_ref``."""
+    holds 8, then fewer slots): it launches once and equals its twin
+    ``occluded_ref`` bit for bit (blocked, visits).  2.4/2.8 on the same
+    cases: ``test_resident_filtered_occlusion_entry_corner_cases``."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, (oT, dT, ld, sk), facts = _occlusion_cases(d, cuda)
     print(f"d = {d}: {facts}")
@@ -731,16 +724,6 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
     assert facts["own_skip_unblocked"] and facts["other_blocked"]
     assert facts["glass_only_chunks"] >= 1 and facts["stack_filt"] < 1
     args = (res, oT, dT, ld, sk, d)
-    for hbm, ref, resident in (
-            (prk.occluded_hbm, prk.occluded_hbm_ref, prk.occluded),
-            (prk.occluded_transparent_hbm, prk.occluded_transparent_hbm_ref,
-             prk.occluded_transparent)):
-        before = hbm.launches
-        got = hbm(*args)
-        assert hbm.launches == before + 1
-        torch.cuda.synchronize()
-        _equal(got, ref(*args))
-        _equal(got, resident(*args))
     before = prk.occluded.launches
     got = prk.occluded(*args)
     assert prk.occluded.launches == before + 1
@@ -750,13 +733,13 @@ def test_streaming_occlusion_walks_corner_cases(cuda, d, monkeypatch):
 
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_resident_nearest_entry_corner_cases(cuda, d, monkeypatch):
-    """Kernel 2.1's entry (``nearest_hit``, which launches 2.5's body) on
-    the corner cases of ``_nearest_cases`` -- ties across lanes and visits,
-    the winner skipped, NaN origins, a dead block, a live block without
-    hits -- with every live ray active and with every other one, and on the
-    frame's primary wavefront with the shared rows, with and without an
-    active mask: it equals its twin ``nearest_hit_ref`` bit for bit (t,
-    slots, visits), and the streaming entry on the same inputs."""
+    """Kernels 2.1/2.5 (``nearest_hit``) on the corner cases of
+    ``_nearest_cases`` (a pool over the line) -- ties across lanes and
+    visits, the winner skipped, NaN origins, a dead block, a live block
+    without hits -- with every live ray active and with every other one,
+    and on the frame's primary wavefront with the shared rows, with and
+    without an active mask: it launches once and equals its twin
+    ``nearest_hit_ref`` bit for bit (t, slots, visits)."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, (oT, dT, sk), actives, facts = _nearest_cases(d, cuda)
     assert facts["tie_lanes"] >= 2 and facts["skip_moves"]
@@ -768,7 +751,6 @@ def test_resident_nearest_entry_corner_cases(cuda, d, monkeypatch):
         assert prk.nearest_hit.launches == before + 1
         torch.cuda.synchronize()
         _equal(got, prk.nearest_hit_ref(*args, active=active))
-        _equal(got, prk.nearest_hit_hbm(*args, active=active))
     scene = _stack_scene(d, ties=300)
     cfg, arrs, cam_o, oT, dT = _primary(scene, cuda)
     pctx = pwf.primary_ctx(arrs, cfg, cam_o)
@@ -781,16 +763,15 @@ def test_resident_nearest_entry_corner_cases(cuda, d, monkeypatch):
         torch.cuda.synchronize()
         assert int((got[1] >= 0).sum()) > 100
         _equal(got, prk.nearest_hit_ref(res, oT, dT, skip, d, **kw))
-        _equal(got, prk.nearest_hit_hbm(res, oT, dT, skip, d, **kw))
 
 
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_resident_filtered_occlusion_entry_corner_cases(cuda, d,
                                                          monkeypatch):
-    """Kernel 2.4's entry (``occluded_transparent``, which launches 2.8's
-    body) on the corner cases of ``_occlusion_cases``: it equals its twin
-    ``occluded_transparent_ref`` bit for bit (blocked, filt, visits), and
-    the streaming entry on the same inputs."""
+    """Kernels 2.4/2.8 (``occluded_transparent``) on the corner cases of
+    ``_occlusion_cases`` (a pool over the line): it launches once and
+    equals its twin ``occluded_transparent_ref`` bit for bit (blocked,
+    filt, visits)."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, (oT, dT, ld, sk), _facts = _occlusion_cases(d, cuda)
     args = (res, oT, dT, ld, sk, d)
@@ -799,7 +780,6 @@ def test_resident_filtered_occlusion_entry_corner_cases(cuda, d,
     assert prk.occluded_transparent.launches == before + 1
     torch.cuda.synchronize()
     _equal(got, prk.occluded_transparent_ref(*args))
-    _equal(got, prk.occluded_transparent_hbm(*args))
 
 
 def _aim(origin, points):
@@ -884,8 +864,7 @@ def _nearest_cases(d, dev):
     active = blk != 5
     half = active & (torch.arange(8 * 512, device=dev) % 2 == 0)
     # the twins' view of each case
-    t, s, v = prk.nearest_hit_hbm_ref(res, oT_c, dT_c, sk_c, d,
-                                      active=active)
+    t, s, v = prk.nearest_hit_ref(res, oT_c, dT_c, sk_c, d, active=active)
     tt, ts = prk.nearest_hit_transparent_hbm_ref(
         res, oT_c, dT_c, sk_c, d, 8, active=active)[2:4]
     # block 0, ray 1: the chunks and lanes whose t equals its nearest hit
@@ -923,12 +902,13 @@ def _chunk_t_all(res, d, o, dv):
 
 @pytest.mark.parametrize("d", [3, 6, 8])
 def test_streaming_nearest_walks_corner_cases(cuda, d, monkeypatch):
-    """The redesigned kernels 2.5 and 2.7 on the corner cases of
+    """Kernel 2.7 (``nearest_hit_transparent_hbm``) on the corner cases of
     ``_nearest_cases`` (a pool over the line at d = 3, 6 and 8), with every
-    live ray active and with every other one: each equals its twin bit for
-    bit (t, slots, the K slots by position for K = 2 and 8, visits), 2.5
-    equals the resident kernel 2.1 and 2.7 has 2.3's t and opaque slot.
-    Then the frame's primary wavefront with the shared rows."""
+    live ray active and with every other one: it launches once and equals
+    its twin bit for bit (t, slots, the K slots by position for K = 2 and
+    8, visits), and has 2.3's t and opaque slot.  Then the frame's primary
+    wavefront with the shared rows.  2.1/2.5 on the same cases:
+    ``test_resident_nearest_entry_corner_cases``."""
     monkeypatch.setattr(prk, "STREAM_POOL_BYTES", 1024)
     res, (oT, dT, sk), actives, facts = _nearest_cases(d, cuda)
     print(f"d = {d}: {facts}")
@@ -941,12 +921,6 @@ def test_streaming_nearest_walks_corner_cases(cuda, d, monkeypatch):
     assert facts["glass_only_chunks"] >= 1 and facts["layers_filled"]
     for active in actives:
         kw = dict(active=active)
-        before = prk.nearest_hit_hbm.launches
-        got = prk.nearest_hit_hbm(res, oT, dT, sk, d, **kw)
-        assert prk.nearest_hit_hbm.launches == before + 1
-        torch.cuda.synchronize()
-        _equal(got, prk.nearest_hit_hbm_ref(res, oT, dT, sk, d, **kw))
-        _equal(got, prk.nearest_hit(res, oT, dT, sk, d, **kw))
         for K in (2, 8):
             before = prk.nearest_hit_transparent_hbm.launches
             got = prk.nearest_hit_transparent_hbm(res, oT, dT, sk, d, K, **kw)
@@ -962,9 +936,6 @@ def test_streaming_nearest_walks_corner_cases(cuda, d, monkeypatch):
     res = pwf._res_dict(arrs)
     skip = torch.full((oT.shape[1],), -1, dtype=torch.int32, device=cuda)
     kw = dict(order=pctx["order"], sh=pctx["sh_res"])
-    got = prk.nearest_hit_hbm(res, oT, dT, skip, d, **kw)
-    _equal(got, prk.nearest_hit_hbm_ref(res, oT, dT, skip, d, **kw))
-    _equal(got, prk.nearest_hit(res, oT, dT, skip, d, **kw))
     for K in (2, 8):
         got = prk.nearest_hit_transparent_hbm(res, oT, dT, skip, d, K, **kw)
         _equal(got, prk.nearest_hit_transparent_hbm_ref(res, oT, dT, skip, d,
@@ -1015,15 +986,14 @@ def test_transparent_walk_corner_cases(cuda, d, monkeypatch):
 
 
 def test_resident_entries_launch_info(cuda):
-    """Kernels 2.2 and 2.3 as they launch at every d: 2.2 as 2.6 (two
+    """Kernels 2.2/2.6 and 2.3 as they launch at every d: 2.2/2.6 with two
     512-thread blocks an SM of at most 64 registers a thread, a ring of at
-    least two slots); 2.3 with the ring of its groups of one, two slots,
+    least two slots; 2.3 with the ring of its groups of one, two slots,
     and 2.7's blocks: two of at most 64 registers a thread but at d = 8,
     whose K slots take 32 KiB, one of at most 128."""
     for d in range(3, 9):
         info = prk.stream_info("occluded", d)
         print(f"2.2 d = {d}: {info}")
-        assert info == prk.stream_info("occluded_hbm", d)
         assert info["blocks_per_sm"] >= 2 and info["registers"] <= 64
         assert info["ring_slots"] >= 2
         for shared in (False, True):
@@ -1227,12 +1197,12 @@ def test_pair_test_warp_equals_pair_test(cuda, pair_probe, d, monkeypatch):
 
 
 def test_streaming_kernels_launch_info(cuda):
-    """Kernels 2.5 and 2.7 (both variants) as they launch at every d: a
+    """Kernels 2.1/2.5 and 2.7 (both variants) as they launch at every d: a
     ring of at least two slots, and two 512-thread blocks an SM of at most
     64 registers a thread wherever the ring's two slots fit beside the
     kernel's shared memory; 2.7 at d = 8, whose K slots take 32 KiB, runs
     one block of at most 128 registers a thread."""
-    for name in ("nearest_hit_hbm", "nearest_hit_transparent_hbm"):
+    for name in ("nearest_hit", "nearest_hit_transparent_hbm"):
         for shared in (False, True):
             for d in range(3, 9):
                 info = prk.stream_info(name, d, shared)
@@ -1250,7 +1220,7 @@ def test_streaming_occlusion_kernels_two_blocks_an_sm(cuda):
     for filtered in (False, True):
         for d in range(3, 9):
             info = prk.stream_info(
-                "occluded_transparent_hbm" if filtered else "occluded_hbm", d)
+                "occluded_transparent" if filtered else "occluded", d)
             print(f"{'2.8' if filtered else '2.6'} d = {d}: {info}")
             assert info["blocks_per_sm"] >= 2 and info["registers"] <= 64
             assert info["ring_slots"] >= 2
@@ -1347,7 +1317,8 @@ def test_card_grid_frame_matches_cpu_frame(cuda):
     grid kernels only: one nearest-hit walk a trace, one occlusion walk a
     light and a trace."""
     scene = orthoplex_scene(10, reflectivity=0.5, companion="floor")
-    names = ("nearest_hit", "occluded", "nearest_hit_hbm", "occluded_hbm")
+    names = ("nearest_hit", "occluded", "nearest_hit_transparent",
+             "nearest_hit_transparent_hbm", "occluded_transparent")
     before = {n: getattr(prk, n).launches for n in names}
     g0, o0 = gk.nearest_hit.launches, gk.occluded.launches
     got = pwf.frame_colors(scene, W, H, cuda)

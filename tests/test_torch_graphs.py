@@ -245,9 +245,8 @@ def _frames(scene, n, fmt, renderer=None):
 
 def _launches():
     return sum(fn.launches for fn in (
-        rk.nearest_hit, rk.nearest_hit_hbm, rk.occluded, rk.occluded_hbm,
-        rk.nearest_hit_transparent, rk.nearest_hit_transparent_hbm,
-        rk.occluded_transparent, rk.occluded_transparent_hbm,
+        rk.nearest_hit, rk.occluded, rk.nearest_hit_transparent,
+        rk.nearest_hit_transparent_hbm, rk.occluded_transparent,
         gk.nearest_hit, gk.occluded))
 
 

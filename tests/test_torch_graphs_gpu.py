@@ -94,10 +94,9 @@ def _eager(monkeypatch, scene, fmt, n=FRAMES):
 
 def _launches():
     return sum(fn.launches for fn in (
-        prk.nearest_hit, prk.nearest_hit_hbm, prk.occluded,
-        prk.occluded_hbm, prk.nearest_hit_transparent,
+        prk.nearest_hit, prk.occluded, prk.nearest_hit_transparent,
         prk.nearest_hit_transparent_hbm, prk.occluded_transparent,
-        prk.occluded_transparent_hbm, gk.nearest_hit, gk.occluded))
+        gk.nearest_hit, gk.occluded))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

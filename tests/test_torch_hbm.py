@@ -1,15 +1,18 @@
-"""The port's streaming walks (kernels 2.5 and 2.6 here, 2.7 and 2.8 in
-tests/test_torch_hbm_transparent.py) vs the JAX package's.
+"""The port's walks over the line (kernels 2.5 and 2.6 here, 2.7 and 2.8
+in tests/test_torch_hbm_transparent.py) vs the JAX package's.
 
 Pools over the line (the JAX package's ``POOL_VMEM_BUDGET``, the port's
 ``STREAM_POOL_BYTES``; both monkeypatched to 1 KiB here, as
-tests/test_pallas.py does) take the ``*_hbm`` walks in both packages.  The
+tests/test_pallas.py does) take the JAX package's streaming kernels.  The
 JAX side runs its Pallas kernels ``nearest_hit_hbm``, ``occluded_hbm``,
 ``nearest_hit_transparent_hbm`` and ``occluded_transparent_hbm`` in
 interpret mode (the device scene is built under NTRACER_FORCE_KERNELS);
-the port's side is the twin of each, which its CUDA kernel equals bit for
-bit on the card (tests/test_torch_gpu.py, chip_smoke.py).  Both get the
-same rays, layouts and opacity row.
+the port's side is the twin of the walk that stands for each
+(``nearest_hit_ref``, ``occluded_ref``, ``nearest_hit_transparent_hbm_ref``,
+``occluded_transparent_ref``: one walk serves a pool of any size, and only
+the K-slot walk changes its rule at the line), which its CUDA kernel
+equals bit for bit on the card (tests/test_torch_gpu.py, chip_smoke.py).
+Both get the same rays, layouts and opacity row.
 
 Contract held here, on 4,096-ray wavefronts: slots and ids exact, the K
 slots position by position (the streaming K-slot walk picks candidates in
@@ -100,8 +103,8 @@ def _first_surface(case, o, dirs, skip):
         first = np.take_along_axis(all_t, k, axis=0)[0]
         slot = np.take_along_axis(slots, k, axis=0)[0]
     else:
-        t, slot, _ = prk.nearest_hit_hbm_ref(case["pres"], _t(o.T),
-                                             _t(dirs.T), _t(skip), d)
+        t, slot, _ = prk.nearest_hit_ref(case["pres"], _t(o.T), _t(dirs.T),
+                                         _t(skip), d)
         slot = slot.numpy()
         first = np.where(slot >= 0, t.numpy(), np.inf)
     pid = case["arrs"]["res_ids"][:, 0, :].reshape(-1)[np.clip(slot, 0, None)]
@@ -176,7 +179,7 @@ def test_nearest_hit_hbm_ref_matches_pallas(opaque, mode):
         opaque["jres"], jnp.asarray(o), jnp.asarray(dirs), jnp.asarray(skip),
         d, raw_slot=True, **jkw)
     jt, jslot, jvis = np.asarray(jt), np.asarray(jslot), np.asarray(jvis)
-    pt, pslot, pvis = prk.nearest_hit_hbm_ref(
+    pt, pslot, pvis = prk.nearest_hit_ref(
         opaque["pres"], _t(o.T), _t(dirs.T), _t(skip), d, **pkw)
     pt, pslot, pvis = pt.numpy(), pslot.numpy(), pvis.numpy()
     hits = jslot >= 0
@@ -194,8 +197,8 @@ def test_nearest_hit_hbm_ref_matches_pallas(opaque, mode):
 def test_occluded_hbm_ref_matches_pallas(opaque, light):
     d = opaque["cfg"].d
     point, dirs, ldist, skip, live = _shadow_inputs(opaque, light)
-    pb, pv = prk.occluded_hbm_ref(opaque["pres"], _t(point.T), _t(dirs.T),
-                                  _t(ldist), _t(skip), d)
+    pb, pv = prk.occluded_ref(opaque["pres"], _t(point.T), _t(dirs.T),
+                              _t(ldist), _t(skip), d)
     pb, pv = pb.numpy(), pv.numpy()
     jb, jv = jrk.occluded_hbm(opaque["jres"], jnp.asarray(point),
                               jnp.asarray(dirs), jnp.asarray(ldist),
@@ -213,9 +216,9 @@ def test_occluded_hbm_ref_matches_pallas(opaque, light):
 
 
 def _walks(case, wrapped):
-    """The outputs of a case's two streaming walks (nearest in bounce mode,
-    occlusion towards a point light): through the wrappers (``wrapped``)
-    or straight from the twins."""
+    """The outputs of a case's two walks over the line (nearest in bounce
+    mode, occlusion towards a point light): through the wrappers
+    (``wrapped``) or straight from the twins."""
     d = case["cfg"].d
     o, dirs, skip, _jkw, pkw = _walk_inputs(case, "bounce")
     args = (case["pres"], _t(o.T), _t(dirs.T), _t(skip), d)
@@ -224,25 +227,25 @@ def _walks(case, wrapped):
     if case["cfg"].has_transparency:
         if wrapped:
             return prk.nearest_hit_transparent_hbm(*args, 4, **pkw) \
-                + prk.occluded_transparent_hbm(*oargs)
+                + prk.occluded_transparent(*oargs)
         return prk.nearest_hit_transparent_hbm_ref(*args, 4, **pkw) \
-            + prk.occluded_transparent_hbm_ref(*oargs)
+            + prk.occluded_transparent_ref(*oargs)
     if wrapped:
-        return prk.nearest_hit_hbm(*args, **pkw) + prk.occluded_hbm(*oargs)
-    return prk.nearest_hit_hbm_ref(*args, **pkw) + prk.occluded_hbm_ref(*oargs)
+        return prk.nearest_hit(*args, **pkw) + prk.occluded(*oargs)
+    return prk.nearest_hit_ref(*args, **pkw) + prk.occluded_ref(*oargs)
 
 
-STREAMING = ("nearest_hit_hbm", "occluded_hbm", "nearest_hit_transparent_hbm",
-             "occluded_transparent_hbm")
+WALKS = ("nearest_hit", "occluded", "nearest_hit_transparent_hbm",
+         "occluded_transparent")
 
 
 def _wrappers_take_the_twins(case):
-    before = [getattr(prk, n).launches for n in STREAMING]
+    before = [getattr(prk, n).launches for n in WALKS]
     got, ref = _walks(case, True), _walks(case, False)
     assert len(got) == len(ref) == (8 if case["cfg"].has_transparency else 5)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert before == [getattr(prk, n).launches for n in STREAMING]
+    assert before == [getattr(prk, n).launches for n in WALKS]
 
 
 def test_streaming_wrappers_take_the_twins_on_cpu(opaque):
@@ -297,9 +300,9 @@ def test_streaming_wrappers_refuse_other_devices(opaque):
     meta = torch.zeros((d, prk.RAY_BLOCK), device="meta")
     skip = torch.zeros((prk.RAY_BLOCK,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        prk.occluded_hbm(opaque["pres"], meta, meta,
-                         torch.zeros(prk.RAY_BLOCK, device="meta"), skip, d)
+        prk.occluded(opaque["pres"], meta, meta,
+                     torch.zeros(prk.RAY_BLOCK, device="meta"), skip, d)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        prk.occluded_transparent_hbm(opaque["pres"], meta, meta,
-                                     torch.zeros(prk.RAY_BLOCK,
-                                                 device="meta"), skip, d)
+        prk.occluded_transparent(opaque["pres"], meta, meta,
+                                 torch.zeros(prk.RAY_BLOCK, device="meta"),
+                                 skip, d)

@@ -77,7 +77,7 @@ def test_nearest_hit_transparent_hbm_ref_matches_pallas(glass, mode, K):
 def test_occluded_transparent_hbm_ref_matches_pallas(glass, light):
     d = glass["cfg"].d
     point, dirs, ldist, skip, live = _shadow_inputs(glass, light)
-    pb, pf, pv = prk.occluded_transparent_hbm_ref(
+    pb, pf, pv = prk.occluded_transparent_ref(
         glass["pres"], _t(point.T), _t(dirs.T), _t(ldist), _t(skip), d)
     pb, pf, pv = pb.numpy(), pf.numpy(), pv.numpy()
     jb, jf, jv = jrk.occluded_transparent_hbm(

@@ -1,7 +1,9 @@
 """Pools over the line (``resident_kernels.STREAM_POOL_BYTES``, the JAX
 package's ``POOL_VMEM_BUDGET``; both monkeypatched to 1 KiB here) through
-whole frames: the port takes its streaming walks (``*_hbm``) where the JAX
-package takes its own, and renders what the JAX package renders.
+whole frames: where the JAX package takes its streaming kernels, the port
+takes the same walk wrappers as under the line, with the K-slot walk in
+groups of four (``nearest_hit_transparent_hbm``), and renders what the JAX
+package renders.
 
 Tolerance against JAX, as tests/test_torch_glass.py holds lit frames:
 colors to rtol 2e-6, atol 2e-7 (XLA on the CPU contracts a*b+c into FMAs,
@@ -40,13 +42,13 @@ SCENES = {
     "3d_glass_600": lambda pkg: glass_scene(600, lit=True, pkg=pkg),
 }
 WALKS = ("nearest_hit", "occluded", "nearest_hit_transparent",
-         "occluded_transparent")
+         "nearest_hit_transparent_hbm", "occluded_transparent")
 
 
 def _spy(monkeypatch):
-    """Record which of the eight walk wrappers the port calls."""
+    """Record which of the five walk wrappers the port calls."""
     calls = []
-    for name in WALKS + tuple(w + "_hbm" for w in WALKS):
+    for name in WALKS:
         fn = getattr(prk, name)
 
         def spy(*a, _fn=fn, _name=name, **kw):
@@ -72,12 +74,11 @@ def test_frame_over_the_line_matches_jax(name, monkeypatch):
     got = pwf.frame_colors(pscene, W, H, "cpu")
     walks = set(calls)
     print(f"{name}: walks {sorted(walks)}, {len(calls)} calls")
-    assert walks and all(w.endswith("_hbm") for w in walks)
     if pcfg.has_transparency:
         assert walks == {"nearest_hit_transparent_hbm",
-                         "occluded_transparent_hbm"}
+                         "occluded_transparent"}
     else:
-        assert walks == {"nearest_hit_hbm", "occluded_hbm"}
+        assert walks == {"nearest_hit", "occluded"}
     ref = _jax_frame_colors(jscene, W, H)
     assert got.shape == (H, W, 3) and np.isfinite(got).all()
     assert (got.max(axis=2) > 0).sum() > W * H // 4
@@ -97,8 +98,8 @@ def test_frame_over_the_line_matches_jax(name, monkeypatch):
 
 
 def test_opaque_frame_is_the_same_over_and_under_the_line(monkeypatch):
-    """The streaming walks compute what the resident ones compute: the same
-    scene forced over the line renders the same colors, bit for bit."""
+    """The line changes no opaque walk: the same scene forced over it takes
+    the same wrappers and renders the same colors, bit for bit."""
     scene = SCENES["3d_mirror_1500"](PORT)
     under = pwf.frame_colors(scene, 2 * W, 2 * H, "cpu")
     assert "res_is_hbm" not in pwf.get_device_scene(scene, "cpu")[1]
@@ -107,7 +108,7 @@ def test_opaque_frame_is_the_same_over_and_under_the_line(monkeypatch):
     calls = _spy(monkeypatch)
     over = pwf.frame_colors(scene, 2 * W, 2 * H, "cpu")
     assert "res_is_hbm" in pwf.get_device_scene(scene, "cpu")[1]
-    assert set(calls) == {"nearest_hit_hbm", "occluded_hbm"}
+    assert set(calls) == {"nearest_hit", "occluded"}
     assert np.array_equal(over.view(np.int32), under.view(np.int32))
 
 
